@@ -7,8 +7,10 @@ Run from the repository root with no arguments:
 
 It
 1. prints the card (nvidia-smi name and power limit) and the versions;
-2. builds the four CUDA kernels K1-K4 from vulkan_renderer_tpu_torch/csrc
-   with nvcc and prints each build's time and register report;
+2. builds the CUDA kernels K1-K5 from vulkan_renderer_tpu_torch/csrc with
+   nvcc, one process per library, all at once (K4 and K5 for each of the
+   13 techniques at the timing sweep's vertex counts), and prints each
+   build's time and register report;
 3. writes the procedural bench city (300 buildings, detail 10) into data/
    with the port's own writer and loads it onto the card;
 4. holds every kernel against its plain PyTorch version on the card at
@@ -19,7 +21,18 @@ It
    with DIFFUSE_SPECULAR_MIS and clamped-optimal MIS, shadows on) with
    every kernel launch counter reset just before and read just after,
    checks the image, and times it (warm-up, then the median of 7 frames)
-   along with each kernel and its plain version.
+   along with each kernel and its plain version;
+7. for every technique, captures K5's inputs from the harness's own
+   timing-sweep frames at 1920x1080 (the 128-light x 1-spp central
+   quadrilaterals, experiment 102 + t, and the 1-light x 128-spp decentral
+   pentagon, experiment 193 + t) and holds K5 and K4 under DIFFUSE_ONLY
+   against their plain versions on 4,096 evenly spaced pixels, and K4's
+   slots resolved with visibility 1 against K5;
+8. runs those 26 timing-sweep experiments through the port's harness
+   (3 warm-up and 7 measured frames each; the harness's defaults of
+   110/100 stay for real sweeps) with every launch counter reset before
+   and read after: K5 must run, K4 must not; each frame is checked and each
+   cell's median ms printed beside the card.
 
 The line before the last is a JSON object listing the kernels; the last
 line is {"ok": true, "device": {...}}. Any failed check, missing GPU or
@@ -27,7 +40,6 @@ missing package exits non-zero without that line. JAX is never imported;
 the script uses only the PyTorch port.
 """
 
-import concurrent.futures
 import dataclasses
 import json
 import os
@@ -41,6 +53,10 @@ SMALL_WIDTH, SMALL_HEIGHT = 128, 64
 PRIMARY_SUBSET = 4096
 SHADOW_SUBSET = 16384
 TIMED_FRAMES = 7
+SWEEP_SUBSET = 4096
+SWEEP_WIDTH, SWEEP_HEIGHT = 1920, 1080
+SWEEP_CELLS = (("central_4_128", 102), ("decentral_5_1x128spp", 193))
+SWEEP_WARMUP, SWEEP_MEASURED = 3, 7
 
 
 class SmokeFailure(RuntimeError):
@@ -70,6 +86,18 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def cuda_once(torch, fn):
+    """(device ms, result) of one call, timed with CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
 def subset_indices(torch, count, available, device):
     """`count` evenly spaced indices into range(available)."""
     count = min(count, available)
@@ -95,7 +123,10 @@ def run():
     sys.path.insert(0, ROOT)
     import numpy as np
 
+    from vulkan_renderer_tpu_torch.assets.noise import \
+        advance_noise_random_numbers
     from vulkan_renderer_tpu_torch.core.device import get_device
+    from vulkan_renderer_tpu_torch.experiments import harness, setups
     from vulkan_renderer_tpu_torch.kernels import build
     from vulkan_renderer_tpu_torch.render import fused, pipeline
     from vulkan_renderer_tpu_torch.render import trace_kernel as tk
@@ -105,7 +136,12 @@ def run():
     from vulkan_renderer_tpu_torch.render.shading import SceneStatic
     from vulkan_renderer_tpu_torch.scene.scene import (PolygonalLightSpec,
                                                        load_scene)
+    from vulkan_renderer_tpu_torch.tools import kernel_check
     from vulkan_renderer_tpu_torch.tools.city import write_city_scene
+
+    def kernel_defines(s, static):
+        return {**fused.kernel_defines(s),
+                "VR_NV_MASK": fused.vertex_count_mask(static)}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -127,22 +163,26 @@ def run():
         sample_count=1, trace_shadow_rays=True)
 
     # --- 2. kernel builds ------------------------------------------------
-    k4_defines = {"K4_HEURISTIC": fused.HEURISTIC_IDS[settings.mis_heuristic],
-                  "K4_BIASED": 0}
-    start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        futures = [pool.submit(build.build_library, "anyhit"),
-                   pool.submit(build.build_library, "closest"),
-                   pool.submit(build.build_library, "fused_shading",
-                               k4_defines)]
-        for future in futures:
-            future.result()
-    log(f"kernel build: {time.perf_counter() - start:.2f} s wall")
+    bench_static = SceneStatic(light_count=4, light_texturing=(0,) * 4,
+                               light_vertex_counts=(4,) * 4)
+    jobs = [("anyhit", {}), ("closest", {}),
+            ("fused_shading", kernel_defines(settings, bench_static))]
+    for tech in PolygonSamplingTechnique:
+        tech_settings = RenderSettings(
+            sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
+            polygon_sampling_technique=tech)
+        for nv in (4, 5):
+            static_nv = SceneStatic(light_count=1, light_texturing=(0,),
+                                    light_vertex_counts=(nv,))
+            for name in ("fused_shading", "fused_resolved"):
+                jobs.append((name, kernel_defines(tech_settings, static_nv)))
+    wall = build.build_many(jobs)
+    log(f"kernel build: {len(jobs)} libraries, {wall:.2f} s wall")
     for tag, (seconds, report) in sorted(build.BUILD_REPORTS.items()):
         log(f"  {tag}: nvcc {seconds:.2f} s")
-        for line in report.splitlines():
+        for line in build.register_report(report):
             if "registers" in line or "spill" in line:
-                log(f"    {line.strip()}")
+                log(f"    {line}")
 
     # --- 3. the bench city ---------------------------------------------------
     data_dir = os.path.join(ROOT, "data")
@@ -285,7 +325,8 @@ def run():
 
     # --- 6. the bench frame: counted main-path run ---------------------------
     counters = {"K1": tk.trace_anyhit, "K2": tk.trace_closest,
-                "K3": tk.closest_attrs, "K4": fused.fused_light_shading}
+                "K3": tk.closest_attrs, "K4": fused.fused_light_shading,
+                "K5": fused.fused_light_shading_resolved}
     for fn in counters.values():
         fn.launches = 0
     image = pipeline.render_frame(scene, static, camera, settings, WIDTH,
@@ -293,8 +334,9 @@ def run():
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     log(f"bench frame launches: {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched by the bench frame")
+    for name in ("K1", "K2", "K3", "K4"):
+        check(launches[name] > 0,
+              f"{name} was not launched by the bench frame")
     check(tuple(image.shape) == (HEIGHT, WIDTH, 3),
           f"bench frame shape {tuple(image.shape)}")
     check(bool(torch.isfinite(image).all()), "bench frame is not finite")
@@ -353,6 +395,162 @@ def run():
         log(f"{name}: kernel {ms:.3f} ms on {shape}; plain {plain_ms:.3f} ms"
             f"{where} [{card}]")
 
+    # --- 7. K5 and K4 DIFFUSE_ONLY against their plain versions -------------
+    experiments = harness.create_experiment_list()
+    arvo = (PolygonSamplingTechnique.SOLID_ANGLE_ARVO,
+            PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE_ARVO)
+    technique_rows = []
+    k5_main = None
+    for cell, first in SWEEP_CELLS:
+        for t, tech in enumerate(PolygonSamplingTechnique):
+            exp = experiments[first + t]
+            check(exp.settings.polygon_sampling_technique == tech
+                  and (exp.width, exp.height) == (SWEEP_WIDTH, SWEEP_HEIGHT),
+                  f"experiment {first + t} is not the {tech.value} sweep "
+                  f"cell at {SWEEP_WIDTH}x{SWEEP_HEIGHT}")
+            app = setups.build_default_application(exp, data_dir,
+                                                   device="cuda")
+            _, randoms = advance_noise_random_numbers(
+                app.noise_seed, app.settings.animate_noise)
+            sweep_constants = pipeline.make_frame_constants(
+                app.scene_spec.camera, exp.width, exp.height, app.settings,
+                randoms, device)
+            k5_args = {}
+
+            def record_k5(*args):
+                k5_args["args"] = args
+                return fused.fused_light_shading_resolved(*args)
+
+            with torch.no_grad():
+                pipeline.render_frame_constants(
+                    app.scene, app.static, app.settings, sweep_constants,
+                    exp.width, exp.height, dataclasses.replace(
+                        pipeline.KERNELS, fused_resolved=record_k5))
+            planes, noise, ls, st, s = k5_args["args"]
+            idx = subset_indices(torch, SWEEP_SUBSET, planes.shape[1], device)
+            sub_planes = planes[:, idx].contiguous()
+            sub_noise = noise[:, :, idx].contiguous()
+            got5 = fused.fused_light_shading_resolved(sub_planes, sub_noise,
+                                                      ls, st, s)
+            plain5_ms, want5 = cuda_once(
+                torch, lambda: fused.fused_light_shading_resolved_plain(
+                    sub_planes, sub_noise, ls, st, s))
+            r5 = kernel_check.compare(got5.T, want5.T)
+            planes4 = torch.cat([sub_planes,
+                                 sub_noise.reshape(-1, idx.numel())])
+            got4 = fused.fused_light_shading(planes4, ls, st, s)
+            plain4_ms, want4 = cuda_once(
+                torch, lambda: fused.fused_light_shading_plain(planes4, ls,
+                                                               st, s))
+            r4 = kernel_check.compare(got4, want4)
+            r45 = kernel_check.compare(kernel_check.k4_resolved(got4, st, s).T,
+                                       got5.T)
+            ms5 = cuda_ms(torch, lambda: fused.fused_light_shading_resolved(
+                planes, noise, ls, st, s), 2)
+            ms4 = cuda_ms(torch, lambda: fused.fused_light_shading(
+                planes4, ls, st, s), 3)
+            # Tolerance: bit for bit where the plain version shares the
+            # kernel's formula; the Arvo techniques select azimuth sectors
+            # and may flip a boundary sample where an ulp differs, so up
+            # to 0.5% of their values (ROADMAP Queue 3).
+            limit = 5e-3 if tech in arvo else 0.0
+            row = dict(cell=cell, technique=tech.value,
+                       pixels=planes.shape[1], lights=st.light_count,
+                       spp=s.sample_count, k5_ms=round(ms5, 4),
+                       k5_plain_ms_subset=round(plain5_ms, 4),
+                       k4_ms_subset=round(ms4, 4),
+                       k4_plain_ms_subset=round(plain4_ms, 4),
+                       k5_exact=round(r5["exact"], 6),
+                       k5_outside=r5["outside"],
+                       k5_max_abs_err=r5["max_abs_err"],
+                       k4_exact=round(r4["exact"], 6),
+                       k4_outside=r4["outside"],
+                       k4_max_abs_err=r4["max_abs_err"],
+                       k4_resolved_vs_k5_exact=round(r45["exact"], 6))
+            technique_rows.append(row)
+            log(f"{cell} {tech.value}: K5 {ms5:.3f} ms ({planes.shape[1]} px "
+                f"x {st.light_count} lights x {s.sample_count} spp), plain "
+                f"{plain5_ms:.1f} ms on {idx.numel()} px; K5 vs plain exact "
+                f"{r5['exact']:.5f}, outside {r5['outside']:.2e} (tolerance: "
+                f"inexact <= {limit:g}), max |d| {r5['max_abs_err']:.3g}; K4 "
+                f"DIFFUSE_ONLY {ms4:.3f} ms on {idx.numel()} px, plain "
+                f"{plain4_ms:.1f} ms; vs plain exact {r4['exact']:.5f}, "
+                f"outside {r4['outside']:.2e} (tolerance: inexact <= "
+                f"{limit:g}), "
+                f"max |d| {r4['max_abs_err']:.3g}; K4 resolved vs K5 exact "
+                f"{r45['exact']:.5f} (tolerance: bit for bit) [{card}]")
+            check(r5["nonfinite_mismatch"] == 0
+                  and 1.0 - r5["exact"] <= limit,
+                  f"K5 disagrees with its plain version ({cell}, "
+                  f"{tech.value})")
+            check(r4["nonfinite_mismatch"] == 0
+                  and 1.0 - r4["exact"] <= limit,
+                  f"K4 DIFFUSE_ONLY disagrees with its plain version ({cell}, "
+                  f"{tech.value})")
+            check(r45["nonfinite_mismatch"] == 0 and r45["exact"] == 1.0,
+                  f"K4 resolved differs from K5 ({cell}, {tech.value})")
+            if cell == SWEEP_CELLS[0][0] \
+                    and tech == PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE:
+                k5_main = (ms5, plain5_ms,
+                           f"{planes.shape[1]} pixels x {st.light_count} "
+                           f"lights x 1 spp (PSA)", f"{idx.numel()} pixels")
+            del app, planes, noise, k5_args
+            torch.cuda.empty_cache()
+    print(json.dumps({"techniques": technique_rows}), flush=True)
+
+    # --- 8. the timing sweep through the port's harness: counted run --------
+    last = {}
+
+    def build_app(exp):
+        app = setups.build_default_application(exp, data_dir, device="cuda")
+        render_sync = app.render_frame_sync
+
+        def keep_frame():
+            last["image"] = render_sync()
+            return last["image"]
+        app.render_frame_sync = keep_frame
+        return app
+
+    for fn in counters.values():
+        fn.launches = 0
+    sweep_ms = {}
+    for cell, first in SWEEP_CELLS:
+        for t, tech in enumerate(PolygonSamplingTechnique):
+            exp = experiments[first + t]
+            exp = dataclasses.replace(exp, screenshot_path=os.path.join(
+                data_dir, "smoke", os.path.basename(exp.screenshot_path)))
+            result = harness.run_experiments(
+                [exp], build_app, min_warmup_seconds=0.0,
+                min_warmup_frames=SWEEP_WARMUP, measure_frames=SWEEP_MEASURED,
+                data_directory=data_dir, device="cuda")[0]
+            frame = last.pop("image")
+            check(tuple(frame.shape) == (exp.height, exp.width, 3),
+                  f"sweep frame shape {tuple(frame.shape)}")
+            check(bool(torch.isfinite(frame).all()),
+                  f"sweep frame {first + t} is not finite")
+            sentinels = int((frame == pink).all(dim=-1).sum())
+            check(sentinels == 0,
+                  f"sweep frame {first + t} has {sentinels} NaN sentinels")
+            # The 128-light cells divide both the flux and the exposure by
+            # 128 (experiment_list.c:364-409), so their frames are dark.
+            mean = float(frame.mean())
+            check(1e-4 < mean < 0.95,
+                  f"sweep frame {first + t} mean {mean:.4f} is implausible")
+            sweep_ms[(cell, tech.value)] = result.frame_time_ms
+            log(f"sweep {first + t:03d} {cell} {tech.value}: median "
+                f"{result.frame_time_ms:.3f} ms/frame ({SWEEP_WARMUP} "
+                f"warm-up, "
+                f"{SWEEP_MEASURED} measured, pipelined), mean {mean:.4f} "
+                f"[{card}]")
+            torch.cuda.empty_cache()
+    sweep_launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"timing sweep launches: {sweep_launches}")
+    check(sweep_launches["K5"] > 0, "the timing sweep did not launch K5")
+    check(sweep_launches["K4"] == 0, "the timing sweep launched K4")
+    print(json.dumps({"sweep_ms": {f"{c}/{t}": round(v, 4)
+                                   for (c, t), v in sweep_ms.items()},
+                      "card": card}), flush=True)
+
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -365,18 +563,30 @@ def run():
                "vulkan_renderer_tpu/render/trace_kernel.py:1224"),
         "K4": ("vulkan_renderer_tpu_torch/csrc/fused_shading.cu",
                "vulkan_renderer_tpu/render/fused.py:629"),
+        "K5": ("vulkan_renderer_tpu_torch/csrc/fused_resolved.cu",
+               "vulkan_renderer_tpu/render/fused.py:720"),
     }
+    check(k5_main is not None, "no PSA 128-light K5 measurement")
+    timings["K5"] = (k5_main[0], k5_main[1], None, k5_main[2], k5_main[3])
+    launches["K5"] = sweep_launches["K5"]
+    results["K4"]["max_abs_err"] = max(
+        [results["K4"]["max_abs_err"]]
+        + [r["k4_max_abs_err"] for r in technique_rows])
+    results["K5"] = dict(max_abs_err=max(r["k5_max_abs_err"]
+                                         for r in technique_rows))
     kernels = []
-    for name in ("K1", "K2", "K3", "K4"):
+    for name in ("K1", "K2", "K3", "K4", "K5"):
         ms, plain_ms, ms_sub, shape, plain_shape = timings[name]
         entry = {"name": name, "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1], "launches": launches[name],
                  "max_abs_err": results[name]["max_abs_err"],
                  "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
                  "shape": shape}
-        if plain_shape:
+        if plain_shape and ms_sub is not None:
             entry.update(plain_shape=plain_shape,
                          ms_at_plain_shape=round(ms_sub, 4))
+        elif plain_shape:
+            entry.update(plain_shape=plain_shape)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels, "frame_ms_median":
                       round(frame_median, 4), "card": card}))

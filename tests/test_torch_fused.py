@@ -143,12 +143,19 @@ def test_fused_plain_matches_reference(inputs, heuristic, biased):
 
 
 def test_unsupported_settings_raise():
-    for kwargs in (dict(sampling_strategy=SamplingStrategy.DIFFUSE_ONLY),
-                   dict(sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
+    for kwargs in (dict(sampling_strategy=(
+                       SamplingStrategy.DIFFUSE_SPECULAR_SEPARATELY)),
+                   dict(sampling_strategy=SamplingStrategy.DIFFUSE_GGX_MIS,
+                        mis_heuristic=MisHeuristic.BALANCE,
                         polygon_sampling_technique=(
                             PolygonSamplingTechnique.SOLID_ANGLE))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fused.check_supported(STATIC, RenderSettings(**kwargs))
+    # Every technique is fused under DIFFUSE_ONLY.
+    for tech in PolygonSamplingTechnique:
+        fused.check_supported(STATIC, RenderSettings(
+            sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
+            polygon_sampling_technique=tech))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused.check_supported(
             dataclasses.replace(STATIC, light_texturing=(1, 0)),

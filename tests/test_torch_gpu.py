@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1-K4 and a whole frame), on a tiny city. Marked gpu: they skip where
+(K1-K5 and a whole frame), on a tiny city and the roughness-planes
+stand-in. Marked gpu: they skip where
 torch.cuda.is_available() is False. This file imports no JAX, so on a
 machine with a card and no JAX it runs without the repository's
 conftest:
@@ -11,19 +12,28 @@ operations in the same order, so the tolerances are tight: exact
 occlusion and primitive ids, and float differences only from the
 card's transcendental and rsqrt instructions."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from vulkan_renderer_tpu.core.settings import MisHeuristic, RenderSettings
+from vulkan_renderer_tpu.core.settings import (MisHeuristic,
+                                               PolygonSamplingTechnique as Tech,
+                                               RenderSettings,
+                                               SamplingStrategy)
 from vulkan_renderer_tpu.scene.camera import FirstPersonCamera
 from vulkan_renderer_tpu.scene.lights import PolygonalLightSpec
 from vulkan_renderer_tpu_torch.assets.noise import white_noise_table
+from vulkan_renderer_tpu_torch.experiments.setups import (
+    _regular_polygon, _scene_default_camera)
 from vulkan_renderer_tpu_torch.render import fused, pipeline
 from vulkan_renderer_tpu_torch.render import trace_kernel as tk
 from vulkan_renderer_tpu_torch.render.shading import SceneStatic
 from vulkan_renderer_tpu_torch.scene.scene import load_scene
+from vulkan_renderer_tpu_torch.tools import kernel_check
 from vulkan_renderer_tpu_torch.tools.city import write_city_scene
+from vulkan_renderer_tpu_torch.tools.export_scene import write_test_scene
 
 pytestmark = pytest.mark.gpu
 
@@ -86,8 +96,10 @@ def test_closest_and_attrs_kernels_match_plain(city):
                                        "optimal_clamped", "optimal"])
 def test_fused_kernel_matches_plain(city, heuristic):
     scene, camera = city
+    # Shadows on: the frame exports K4's ray slots (with them off it
+    # takes K5).
     settings = RenderSettings(mis_heuristic=MisHeuristic(heuristic),
-                              sample_count=2)
+                              sample_count=2, trace_shadow_rays=True)
     captured = {}
 
     def record(planes, light_scalars, static, s):
@@ -95,8 +107,7 @@ def test_fused_kernel_matches_plain(city, heuristic):
         return fused.fused_light_shading_plain(planes, light_scalars, static,
                                                s)
 
-    kernels = pipeline.FrameKernels(tk.trace_closest, tk.closest_attrs,
-                                    record, tk.trace_anyhit)
+    kernels = dataclasses.replace(pipeline.KERNELS, fused_shading=record)
     pipeline.render_frame(scene, SceneStatic.for_scene(scene), camera,
                           settings, 64, 32, kernels=kernels)
     planes, light_scalars, static, s = captured["args"]
@@ -121,3 +132,88 @@ def test_frame_kernels_match_plain_versions(city):
     diff = (got - want).abs()
     assert float(diff.mean()) <= 1e-4
     assert float((diff.amax(dim=-1) <= 1e-3).float().mean()) >= 0.999
+
+
+# --- K4 DIFFUSE_ONLY and K5, every technique -------------------------------
+
+
+@pytest.fixture(scope="module")
+def planes_scene(tmp_path_factory):
+    """The roughness-planes stand-in lit by four lights of 3, 4, 5 and 7
+    vertices (mixed vertex counts: one launch per group)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    d = str(tmp_path_factory.mktemp("gpu_planes"))
+    vks = write_test_scene(d, "roughness_planes", texture_resolution=16)
+    lights = [PolygonalLightSpec(
+        translation=np.array([-3.0 + 2.0 * i, 1.0 - i, 2.0 + 0.5 * i],
+                             np.float32),
+        rotation_angles=np.array([np.pi - 0.2 * i, 0.1 * i, 0.0],
+                                 np.float32),
+        scaling_x=1.0, scaling_y=1.0,
+        radiant_flux=np.array([20.0, 18.0, 16.0], np.float32) / 4,
+        **({} if nv == 4 else {"vertices_plane_space": _regular_polygon(nv)}))
+        for i, nv in enumerate((3, 4, 5, 7))]
+    scene = load_scene(vks, d + "/roughness_planes_textures", lights, "cuda",
+                       noise=white_noise_table(64, 64, 8))
+    return scene, _scene_default_camera("roughness_planes")
+
+
+def _capture_resolved(scene, camera, settings):
+    """K5's inputs from a 64x32 frame with shadows off."""
+    captured = {}
+
+    def record(*args):
+        captured["args"] = args
+        return fused.fused_light_shading_resolved_plain(*args)
+
+    kernels = dataclasses.replace(pipeline.KERNELS, fused_resolved=record)
+    pipeline.render_frame(scene, SceneStatic.for_scene(scene), camera,
+                          settings, 64, 32, kernels=kernels)
+    return captured["args"]
+
+
+@pytest.mark.parametrize("tech", list(Tech), ids=lambda t: t.value)
+def test_diffuse_only_kernels_match_plain(planes_scene, tech):
+    """K4 under DIFFUSE_ONLY and K5 against their plain versions, and K4's
+    slots resolved with visibility 1 against K5. Tolerance: bit for bit,
+    the same float32 operations in the same order; the Arvo techniques,
+    whose azimuth sectors can flip where an ulp differs, up to 0.5% of
+    their values (ROADMAP Queue 3). K4 resolved equals K5 bit for bit."""
+    scene, camera = planes_scene
+    settings = RenderSettings(
+        sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
+        polygon_sampling_technique=tech, sample_count=2,
+        trace_shadow_rays=False)
+    planes, noise, light_scalars, static, s = _capture_resolved(
+        scene, camera, settings)
+    limit = 5e-3 if tech in (Tech.SOLID_ANGLE_ARVO,
+                             Tech.PROJECTED_SOLID_ANGLE_ARVO) else 0.0
+    got5 = fused.fused_light_shading_resolved(planes, noise, light_scalars,
+                                              static, s)
+    want5 = fused.fused_light_shading_resolved_plain(planes, noise,
+                                                     light_scalars, static, s)
+    r5 = kernel_check.compare(got5.T, want5.T)
+    assert 1.0 - r5["exact"] <= limit and r5["nonfinite_mismatch"] == 0, r5
+    planes4 = torch.cat([planes, noise.reshape(-1, planes.shape[1])])
+    got4 = fused.fused_light_shading(planes4, light_scalars, static, s)
+    want4 = fused.fused_light_shading_plain(planes4, light_scalars, static,
+                                            s)
+    r4 = kernel_check.compare(got4, want4)
+    assert 1.0 - r4["exact"] <= limit and r4["nonfinite_mismatch"] == 0, r4
+    r45 = kernel_check.compare(kernel_check.k4_resolved(got4, static, s).T,
+                               got5.T)
+    assert r45["exact"] == 1.0 and r45["nonfinite_mismatch"] == 0, r45
+    assert float(want5.abs().max()) > 0
+
+
+@pytest.mark.parametrize("heuristic", ["optimal_clamped", "optimal"])
+def test_resolved_mis_kernel_matches_plain(planes_scene, heuristic):
+    scene, camera = planes_scene
+    settings = RenderSettings(mis_heuristic=MisHeuristic(heuristic),
+                              sample_count=2, trace_shadow_rays=False)
+    args = _capture_resolved(scene, camera, settings)
+    got = fused.fused_light_shading_resolved(*args)
+    want = fused.fused_light_shading_resolved_plain(*args)
+    r = kernel_check.compare(got.T, want.T)
+    assert r["outside"] <= 1e-2 and r["nonfinite_mismatch"] == 0, r

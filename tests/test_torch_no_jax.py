@@ -1,6 +1,9 @@
 """The PyTorch port never imports JAX: in a fresh interpreter, import every
-module of vulkan_renderer_tpu_torch, write and load a tiny scene with the
-port's own tools, render a frame on the CPU, and check sys.modules."""
+module of vulkan_renderer_tpu_torch (the experiment harness, setups,
+registry, Application and the technique modules among them), write and
+load a tiny scene with the port's own tools, render a shadowed frame and a
+no-shadow DIFFUSE_ONLY frame (the K5 path) on the CPU, run a timing-sweep
+experiment through the harness, and check sys.modules."""
 
 import os
 import subprocess
@@ -38,13 +41,31 @@ camera = FirstPersonCamera(
 img = render_frame(scene, SceneStatic.for_scene(scene), camera,
                    RenderSettings(trace_shadow_rays=True), 32, 16)
 assert img.shape == (16, 32, 3) and bool(img.isfinite().all())
+from vulkan_renderer_tpu.core.settings import (PolygonSamplingTechnique,
+                                               SamplingStrategy)
+img = render_frame(scene, SceneStatic.for_scene(scene), camera,
+                   RenderSettings(
+                       sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
+                       polygon_sampling_technique=(
+                           PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE_ARVO)),
+                   32, 16)
+assert bool(img.isfinite().all())
+from vulkan_renderer_tpu_torch.experiments import harness
+assert harness.main(["-e", "193", "--device", "cpu", "--width", "16",
+                     "--height", "8", "--warmup-frames", "1",
+                     "--warmup-seconds", "0", "--measure-frames", "2",
+                     "--output-dir", d + "/out", "--data-directory",
+                     d + "/data", "--results-csv", d + "/r.csv"]) == 0
 print("JAX_IMPORTED", "jax" in sys.modules)
 # The JAX-free host modules of the reference package the port may use.
 allowed = {"vulkan_renderer_tpu", "vulkan_renderer_tpu.core",
-           "vulkan_renderer_tpu.core.settings", "vulkan_renderer_tpu.scene",
+           "vulkan_renderer_tpu.core.settings",
+           "vulkan_renderer_tpu.core.timer", "vulkan_renderer_tpu.scene",
            "vulkan_renderer_tpu.scene.camera",
            "vulkan_renderer_tpu.scene.lights", "vulkan_renderer_tpu.assets",
-           "vulkan_renderer_tpu.assets.vks", "vulkan_renderer_tpu.tools",
+           "vulkan_renderer_tpu.assets.vks",
+           "vulkan_renderer_tpu.assets.quicksave",
+           "vulkan_renderer_tpu.tools",
            "vulkan_renderer_tpu.tools.generate_noise",
            "vulkan_renderer_tpu.render",
            "vulkan_renderer_tpu.render.screenshot"}

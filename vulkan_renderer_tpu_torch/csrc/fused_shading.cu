@@ -1,820 +1,76 @@
-// K4: fused per-light shading, one thread per pixel.
+// K4: fused per-light shading with per-ray-slot outputs, one thread per
+// pixel.
 //
 // Replaces the Pallas kernel vulkan_renderer_tpu/render/fused.py::
-// fused_light_shading (kernel2 at :666, pallas_call at :672), whose math
-// lives in vulkan_renderer_tpu/ops/soa.py. Per pixel and light: the
-// world->shading transform with the winding flip, Sutherland-Hodgman clip
-// to z >= 0, PSA prepare and sample for the diffuse polygon and, under
-// DIFFUSE_SPECULAR_MIS, for the cosine-space polygon, the LTC density and
-// the MIS estimate (fused.py:330-467). Every operation below is the one of
-// the plain PyTorch version (vulkan_renderer_tpu_torch/ops/soa.py and
-// render/fused.py) in the same order; the build uses --fmad=false so the
-// two agree to the last bits wherever no transcendental is involved.
+// fused_light_shading (kernel2 at :666, pallas_call at :672). Per pixel and
+// light it prepares the light's sampler and draws the light's ray slots:
+// under DIFFUSE_SPECULAR_MIS (PSA and PSA-biased) two slots per sample,
+// diffuse and specular, with the LTC density and the MIS estimate; under
+// DIFFUSE_ONLY one slot per sample for any of the 13 techniques. The math
+// lives in techniques.cuh; every operation is the plain PyTorch version's
+// (render/fused.py fused_light_shading_plain) in the same order.
+// Visibility is deferred: the frame resolves base + sum_slot b * V(ray).
 //
-// Specialization: the polygon vertex count NV (3-8) is a template
-// parameter, so every vertex-lane array of clip / prepare / sample is
-// unrolled into registers; the MIS heuristic (K4_HEURISTIC) and biased PSA
-// (K4_BIASED) are compile-time defines, one library per combination. The
-// light loop and the sample loop run at run time: unrolling them blew up
-// Mosaic's compile time on the TPU (fused.py:741-745) and would blow up
-// register allocation here.
+// Specialization: the vertex count NV (3-8) is a template parameter, so
+// every polygon lane array is unrolled; technique, strategy and MIS
+// heuristic are compile-time defines (VR_TECHNIQUE, VR_MIS, VR_HEURISTIC),
+// one library per combination, and VR_NV_MASK limits the vertex counts a
+// library instantiates. The light loop and the sample loop run at run
+// time: unrolling them blew up Mosaic's compile time on the TPU
+// (fused.py:741-745) and would blow up register allocation here.
 //
-// Layout: input planes (NIN, P) and output planes (3 + 7 S, P), plane-major,
-// so thread p's loads and stores of one plane coalesce across the warp.
-// Lights are (L, 58) records (fused.py:49-60) read uniformly by all threads.
+// Layout: input planes (NIN, P) = the 62 base planes then the noise pairs
+// (light-major: light i's pair q at 62 + 2 (i ppl + q)); output (3 + 7 S, P):
+// base RGB, then per ray slot b RGB, direction xyz, t_max. Plane-major, so
+// a warp's loads and stores of one plane coalesce. Lights are (L, 58)
+// records (fused.py:49-60) read uniformly by all threads.
 //
 // What bounds it on the H100: arithmetic and registers. Each pixel-light
-// pair costs several thousand FP32 operations (two clips, two PSA prepares
-// with a sort, two samples with Newton steps, ~20 transcendentals), against
-// 62 + 2 pairs input floats and 7 output floats per slot, so it is far above
-// the memory roofline. The ~150 live floats of two prepared polygons exceed
-// the register budget at NV >= 5 and spill to local memory (L1-resident);
-// __launch_bounds__(128) lets the compiler use up to 255 registers a thread.
-// Splitting diffuse and specular into two passes is later work.
+// pair costs thousands of FP32 operations (clip, prepare with a sort,
+// Newton steps, tens of transcendentals) against 62 input floats and 7
+// output floats per slot, so it is far above the memory roofline. A
+// prepared polygon takes 50-200 live floats; past the 255-register budget
+// it spills to L1-resident local memory. __launch_bounds__(128) lets the
+// compiler use up to 255 registers a thread.
 
-#include "common.cuh"
-
-#ifndef K4_HEURISTIC
-#error "K4_HEURISTIC must be defined (0 balance, 1 power, 2 weighted, 3 optimal_clamped, 4 optimal)"
-#endif
-#ifndef K4_BIASED
-#error "K4_BIASED must be defined (0 or 1)"
-#endif
+#include "techniques.cuh"
 
 namespace {
 
-constexpr int kHeuristic = K4_HEURISTIC;
-constexpr bool kBiased = K4_BIASED != 0;
-
-// Constants rounded from double exactly as the plain version's Python
-// scalars are.
-constexpr double kPiD = 3.14159265358979323846;
-constexpr float kPi = (float)kPiD;
-constexpr float kHalfPi = (float)(0.5 * kPiD);
-constexpr float kQuarterPi = (float)(0.25 * kPiD);
-constexpr float kInvPi = (float)(1.0 / kPiD);
-
-// Light record layout (render/fused.py LS_*).
-constexpr int kLightScalars = 58;
-constexpr int kLsPlane = 24;
-constexpr int kLsRadiance = 28;
-constexpr int kBasePlanes = 62;
-
-struct V2 {
-  float x, y;
-};
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ bool signbit_f(float x) {
-  return (__float_as_uint(x) >> 31) != 0;
-}
-
-// --- error-free products (ops/math_utils.py two_product / kahan) -----------
-
-__device__ __forceinline__ void two_product(float a, float b, float& p,
-                                            float& e) {
-  p = a * b;
-  float a_hi = a * 4097.0f;
-  a_hi = a_hi - (a_hi - a);
-  const float a_lo = a - a_hi;
-  float b_hi = b * 4097.0f;
-  b_hi = b_hi - (b_hi - b);
-  const float b_lo = b - b_hi;
-  e = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo;
-}
-
-__device__ __forceinline__ float kahan(float a, float b, float c, float d) {
-  float p1, e1, p2, e2;
-  two_product(a, b, p1, e1);
-  two_product(c, d, p2, e2);
-  return (p1 - p2) + (e1 - e2);
-}
-
-__device__ __forceinline__ V3 cross3(V3 a, V3 b) {
-  return {kahan(a.y, b.z, a.z, b.y), kahan(a.z, b.x, a.x, b.z),
-          kahan(a.x, b.y, a.y, b.x)};
-}
-
-// --- atan variants (ops/math_utils.py) -------------------------------------
-
-__device__ __forceinline__ float atan_f32(float x) {
-  const float ax = fabsf(x);
-  const bool big = ax > (float)2.414213562373095;
-  const bool mid = (ax > (float)0.4142135623730950) && !big;
-  const float safe_ax = ax > 0.0f ? ax : 1.0f;
-  const float r = big ? -1.0f / (big ? safe_ax : 1.0f)
-                      : (mid ? (ax - 1.0f) / (ax + 1.0f) : ax);
-  const float offset = big ? kHalfPi : (mid ? kQuarterPi : 0.0f);
-  const float z = r * r;
-  float p = z * (float)8.05374449538e-2 - (float)1.38776856032e-1;
-  p = z * p + (float)1.99777106478e-1;
-  p = z * p - (float)3.33329491539e-1;
-  const float y = offset + (z * p * r + r);
-  return x < 0.0f ? -y : y;
-}
-
-__device__ __forceinline__ float fast_positive_atan(float y) {
-  const float ay = fabsf(y);
-  float rx = ay > 1.0f ? 1.0f / ay : ay;
-  float ry = rx * rx;
-  float rz = ry * (float)0.02083509974181652 + (float)(-0.08513300120830536);
-  rz = ry * rz + (float)0.18014100193977356;
-  rz = ry * rz + (float)(-0.3302994966506958);
-  ry = ry * rz + (float)0.9998660087585449;
-  rz = -2.0f * ry * rx + kHalfPi;
-  rz = ay > 1.0f ? rz : 0.0f;
-  rx = rx * ry + rz;
-  return y < 0.0f ? kPi - rx : rx;
-}
-
-__device__ __forceinline__ float positive_atan(float t) {
-  if (kBiased) return fast_positive_atan(t);
-  return atan_f32(t) + (t < 0.0f ? kPi : 0.0f);
-}
-
-// --- clipping to z >= 0 (ops/soa.py clip_soa) ------------------------------
-
-template <int N>
-__device__ __forceinline__ int clip(const V3 (&v)[N], V3 (&out)[N + 1]) {
-  bool above[N], emit[N];
-  V3 isect[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) above[k] = v[k].z > 0.0f;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const V3 v0 = v[k], v1 = v[(k + 1) % N];
-    const bool crosses = above[k] != above[(k + 1) % N];
-    emit[k] = crosses;
-    const float t = v0.z / (crosses ? v0.z - v1.z : 1.0f);
-    isect[k] = {t * v1.x + (v0.x - t * v0.x), t * v1.y + (v0.y - t * v0.y),
-                0.0f};
-  }
-  int offsets[N];
-  int running = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    offsets[k] = running;
-    running = running + (int)above[k] + (int)emit[k];
-  }
-#pragma unroll
-  for (int j = 0; j < N + 1; ++j) {
-    V3 acc = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const bool sc = above[k] && offsets[k] == j;
-      acc.x = acc.x + (sc ? v[k].x : 0.0f);
-      acc.y = acc.y + (sc ? v[k].y : 0.0f);
-      acc.z = acc.z + (sc ? v[k].z : 0.0f);
-      const bool si = emit[k] && offsets[k] + (int)above[k] == j;
-      acc.x = acc.x + (si ? isect[k].x : 0.0f);
-      acc.y = acc.y + (si ? isect[k].y : 0.0f);
-      acc.z = acc.z + (si ? isect[k].z : 0.0f);
-    }
-    out[j] = acc;
-  }
-  const int count = running >= 3 ? running : 0;
-#pragma unroll
-  for (int j = 1; j < N + 1; ++j)
-    if (count <= j) out[j] = out[0];
-  return count;
-}
-
-// --- ellipse helpers (ops/soa.py) ------------------------------------------
-
-__device__ __forceinline__ V2 ellipse_from_edge(V3 v0, V3 v1) {
-  const V3 n = cross3(v0, v1);
-  const bool nz_ok = n.z != 0.0f;
-  float scaling = 1.0f / (nz_ok ? n.z : 1.0f);
-  scaling = signbit_f(n.x) ? -scaling : scaling;
-  return {nz_ok ? n.x * scaling : INFINITY, n.y * scaling};
-}
-
-__device__ __forceinline__ V2 ellipse_transform(V2 e, V2 p) {
-  const float d = e.x * p.x + e.y * p.y;
-  return {d * e.x + p.x, d * e.y + p.y};
-}
-
-__device__ __forceinline__ float ellipse_det(V2 e) {
-  return e.x * e.x + e.y * e.y + 1.0f;
-}
-
-__device__ __forceinline__ float ellipse_dir_factor_rsq(V2 e, V2 d) {
-  const float ed = e.x * d.x + e.y * d.y;
-  return ed * ed + d.x * d.x + d.y * d.y;
-}
-
-__device__ __forceinline__ float ellipse_normalized_dir_factor(V2 e, V2 d) {
-  const float ed = e.x * d.x + e.y * d.y;
-  return rsqrtf(ed * ed + 1.0f);
-}
-
-__device__ __forceinline__ float area_between_from_tangents(
-    float inner_rsd, float inner_tan, float outer_rsd, float outer_tan) {
-  const float inner_area = inner_rsd * positive_atan(inner_tan);
-  const float result = outer_rsd * positive_atan(outer_tan) - inner_area;
-  return result > 0.0f ? 0.5f * result : 0.0f;
-}
-
-__device__ __forceinline__ float area_between_ellipses_in_sector(
-    V2 inner_e, float inner_rsd, V2 outer_e, float outer_rsd, V2 d0, V2 d1) {
-  const float det_dirs = vrt::jmax(d1.x * (-d0.y) + d1.y * d0.x, 0.0f);
-  const V2 it = ellipse_transform(inner_e, d1);
-  const V2 ot = ellipse_transform(outer_e, d1);
-  const float inner_dot = inner_rsd * (d0.x * it.x + d0.y * it.y);
-  const float outer_dot = outer_rsd * (d0.x * ot.x + d0.y * ot.y);
-  return area_between_from_tangents(inner_rsd, det_dirs / inner_dot,
-                                    outer_rsd, det_dirs / outer_dot);
-}
-
-__device__ __forceinline__ float ellipse_area_in_sector(V2 e, V2 d0, V2 d1) {
-  const float rsd = rsqrtf(ellipse_det(e));
-  const float det_dirs = vrt::jmax(d1.x * (-d0.y) + d1.y * d0.x, 0.0f);
-  const V2 et = ellipse_transform(e, d1);
-  const float e_dot = rsd * (d0.x * et.x + d0.y * et.y);
-  const float area = 0.5f * rsd * positive_atan(det_dirs / e_dot);
-  return rsd > 0.0f ? area : 0.0f;
-}
-
-// --- PSA prepare (ops/soa.py prepare_psa_soa) ------------------------------
-
-template <int M>
-struct PsaPoly {
-  V2 vertices[M];
-  V2 ellipses[M];
-  V2 sector_inner[M];
-  V2 sector_outer[M];
-  float sector_psa[M];
-  float psa;
-  int count;
-  bool central;
-};
-
-template <int M>
-__device__ __forceinline__ void prepare_psa(const V3 (&v)[M], int count_in,
-                                            PsaPoly<M>& poly) {
-  const int count = max(count_in, 3);
-  V2 raw[M];
-  bool raw_inner[M];
-#pragma unroll
-  for (int k = 0; k < M; ++k) {
-    raw[k] = ellipse_from_edge(v[k], v[(k + 1) % M]);
-    raw_inner[k] = signbit_f(raw[k].x);
-  }
-  // Lane k's previous edge: lane count-1 for k == 0, else k-1.
-  V2 last_raw = {0.0f, 0.0f};
-  bool last_inner = false;
-#pragma unroll
-  for (int k = 0; k < M; ++k) {
-    const bool is_last = count - 1 == k;
-    if (is_last) last_raw = raw[k];
-    last_inner = (is_last && raw_inner[k]) || (!is_last && last_inner);
-  }
-  V2 ellipses[M];
-  V2 picked = {0.0f, 0.0f};
-  bool seen = false;
-#pragma unroll
-  for (int k = 0; k < M; ++k) {
-    const V2 prev_raw = k == 0 ? last_raw : raw[k - 1];
-    const bool prev_inner = k == 0 ? last_inner : raw_inner[k - 1];
-    ellipses[k] = raw_inner[k] ? prev_raw : raw[k];
-    // The first inner->outer transition records the dropped inner ellipse.
-    const bool trans = (count > k) && prev_inner && !raw_inner[k];
-    if (trans && !seen) picked = prev_raw;
-    seen = seen || trans;
-  }
-  const V2 inner0 = seen ? picked : V2{1.0f, 0.0f};
-  const bool central = inner0.x > 0.0f;
-  poly.central = central;
-  poly.count = count;
-
-  if (central) {
-    float psa = 0.0f;
-#pragma unroll
-    for (int k = 0; k < M; ++k) {
-      const V2 vk = {v[k].x, v[k].y};
-      const V2 vn = {v[(k + 1) % M].x, v[(k + 1) % M].y};
-      const float s =
-          (count > k) ? ellipse_area_in_sector(ellipses[k], vk, vn) : 0.0f;
-      poly.sector_psa[k] = s;
-      psa = k == 0 ? s : psa + s;
-      poly.vertices[k] = vk;
-      poly.ellipses[k] = ellipses[k];
-    }
-    poly.psa = psa;
-  } else {
-    // CCW sort by a tie-preserving pseudo-angle, then the sector walk.
-    float keys[M];
-#pragma unroll
-    for (int k = 0; k < M; ++k) {
-      const float cr = kahan(v[0].x, v[k].y, v[0].y, v[k].x);
-      const float dt = v[0].x * v[k].x + v[0].y * v[k].y;
-      const float p = dt / (fabsf(dt) + fabsf(cr) + 1e-37f);
-      const float key = cr >= 0.0f ? 1.0f - p : p - 1.0f;
-      keys[k] = (count > k) ? key : 4.0f;
-    }
-    int rank[M];
-#pragma unroll
-    for (int k = 0; k < M; ++k) {
-      int r = 0;
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        if (j < k) r += (int)((keys[j] < keys[k]) || (keys[j] == keys[k]));
-        if (j > k) r += (int)(keys[j] < keys[k]);
-      }
-      rank[k] = r;
-    }
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      V2 av = {0.0f, 0.0f}, ae = {0.0f, 0.0f};
-#pragma unroll
-      for (int k = 0; k < M; ++k) {
-        if (rank[k] == j) {
-          av = {v[k].x, v[k].y};
-          ae = ellipses[k];
-        }
-      }
-      poly.vertices[j] = av;
-      // "+ 0.0f" canonicalizes -0.0 like the reference's masked sum.
-      poly.ellipses[j] = {ae.x + 0.0f, ae.y + 0.0f};
-    }
-    V2 inner_e = inner0;
-    V2 outer_e = poly.ellipses[0];
-#pragma unroll
-    for (int i = 0; i < M - 1; ++i) {
-      if (i > 0) {
-        if (signbit_f(poly.ellipses[i].x))
-          inner_e = poly.ellipses[i];
-        else
-          outer_e = poly.ellipses[i];
-      }
-      poly.sector_inner[i] = inner_e;
-      poly.sector_outer[i] = outer_e;
-    }
-    poly.sector_inner[M - 1] = poly.sector_inner[M - 2];
-    poly.sector_outer[M - 1] = poly.sector_outer[M - 2];
-    float psa = 0.0f;
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      float s = 0.0f;
-      if (i < M - 1 && count - 1 > i) {
-        s = area_between_ellipses_in_sector(
-            poly.sector_inner[i], rsqrtf(ellipse_det(poly.sector_inner[i])),
-            poly.sector_outer[i], rsqrtf(ellipse_det(poly.sector_outer[i])),
-            poly.vertices[i], poly.vertices[i + 1]);
-      }
-      poly.sector_psa[i] = s;
-      psa = i == 0 ? s : psa + s;
-    }
-    poly.psa = psa;
-  }
-}
-
-// --- PSA sampling (ops/soa.py sample_psa_soa) -------------------------------
-
-__device__ __forceinline__ V2 solve_homogeneous_quadratic(float q00, float q01,
-                                                          float q10,
-                                                          float q11) {
-  const float coeff_xy = 0.5f * (q01 + q10);
-  const float sqrt_disc =
-      sqrtf(vrt::jmax(coeff_xy * coeff_xy - q00 * q11, 0.0f));
-  const float scaled_root = fabsf(coeff_xy) + sqrt_disc;
-  const bool pos = coeff_xy >= 0.0f;
-  return {pos ? scaled_root : q11, pos ? -q00 : scaled_root};
-}
-
-__device__ __forceinline__ V2 sample_sector_between_ellipses(
-    float r0, float r1, float target_area, V2 inner_e, V2 outer_e, V2 dir_0,
-    V2 dir_1) {
-  float rl = rsqrtf(dir_0.x * dir_0.x + dir_0.y * dir_0.y);
-  const V2 q0 = {dir_0.x * rl, dir_0.y * rl};
-  rl = rsqrtf(dir_1.x * dir_1.x + dir_1.y * dir_1.y);
-  V2 q2 = {dir_1.x * rl, dir_1.y * rl};
-  const V2 q1 = {q0.x + q2.x, q0.y + q2.y};
-
-  const float nf00 = ellipse_normalized_dir_factor(inner_e, q0);
-  const float nf01 = rsqrtf(ellipse_dir_factor_rsq(inner_e, q1));
-  float nf02 = ellipse_normalized_dir_factor(inner_e, q2);
-  const float nf10 = ellipse_normalized_dir_factor(outer_e, q0);
-  const float nf11 = rsqrtf(ellipse_dir_factor_rsq(outer_e, q1));
-  float nf12 = ellipse_normalized_dir_factor(outer_e, q2);
-  const float area0 = nf10 * nf11 - nf00 * nf01;
-  const float area1 = nf11 * nf12 - nf01 * nf02;
-
-  // mix_fma(-area0, area1, r0)
-  float target_quad_area = r0 * area1 + (-area0 - r0 * (-area0));
-  const bool first_half = target_quad_area <= 0.0f;
-  if (first_half) {
-    q2 = q0;
-    nf02 = nf00;
-    nf12 = nf10;
-  }
-  target_quad_area = target_quad_area + (first_half ? area0 : -area1);
-  target_quad_area = target_quad_area * fabsf(q1.x * q2.y - q1.y * q2.x);
-
-  const V2 quad_normal_inner = ellipse_transform(
-      inner_e, {q1.x * nf01 + q2.x * nf02, q1.y * nf01 + q2.y * nf02});
-  const V2 quad_normal_outer = ellipse_transform(
-      outer_e, {q1.x * nf11 + q2.x * nf12, q1.y * nf11 + q2.y * nf12});
-  const float quad_offset_inner =
-      (quad_normal_inner.x * q1.x + quad_normal_inner.y * q1.y) * nf01;
-  const float quad_offset_outer =
-      (quad_normal_outer.x * q1.x + quad_normal_outer.y * q1.y) * nf11;
-
-  const V2 r90q2 = {-q2.y, q2.x};
-  const float sa = quad_offset_outer * nf12;
-  const V2 a = {sa * r90q2.x, sa * r90q2.y};
-  const float sb = quad_offset_inner * nf02;
-  const V2 b = {sb * r90q2.x + target_quad_area * quad_normal_inner.x,
-                sb * r90q2.y + target_quad_area * quad_normal_inner.y};
-  // outer2(a, b) = (a.x b.x, a.y b.x, a.x b.y, a.y b.y)
-  V2 current = solve_homogeneous_quadratic(
-      a.x * quad_normal_inner.x - b.x * quad_normal_outer.x,
-      a.y * quad_normal_inner.x - b.y * quad_normal_outer.x,
-      a.x * quad_normal_inner.y - b.x * quad_normal_outer.y,
-      a.y * quad_normal_inner.y - b.y * quad_normal_outer.y);
-
-  if (!kBiased) {
-    const bool stable = fabsf(r0 - 0.5f) <= 0.5f - 1.0e-5f;
-    const float inner_rsd = rsqrtf(ellipse_det(inner_e));
-    const float outer_rsd = rsqrtf(ellipse_det(outer_e));
-    const V2 r90q0 = {-q0.y, q0.x};
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      float scaling = 1.0f / (fabsf(current.x) + fabsf(current.y));
-      scaling = (current.x * q1.x + current.y * q1.y >= 0.0f) ? scaling
-                                                             : -scaling;
-      const V2 new_dir = {scaling * current.x, scaling * current.y};
-      const V2 inner_dir = ellipse_transform(inner_e, new_dir);
-      const V2 outer_dir = ellipse_transform(outer_e, new_dir);
-      const float det_dirs =
-          vrt::jmax(new_dir.x * r90q0.x + new_dir.y * r90q0.y, 0.0f);
-      const float error =
-          target_area -
-          area_between_from_tangents(
-              inner_rsd,
-              det_dirs / (inner_rsd * (q0.x * inner_dir.x + q0.y * inner_dir.y)),
-              outer_rsd,
-              det_dirs / (outer_rsd * (q0.x * outer_dir.x + q0.y * outer_dir.y)));
-      const V2 ad = {inner_dir.x - outer_dir.x, inner_dir.y - outer_dir.y};
-      const V2 rn = {-new_dir.y, new_dir.x};
-      const float e2 = 2.0f * error;
-      const V2 bd = {e2 * inner_dir.x, e2 * inner_dir.y};
-      const V2 stepped = solve_homogeneous_quadratic(
-          ad.x * rn.x - bd.x * outer_dir.x, ad.y * rn.x - bd.y * outer_dir.x,
-          ad.x * rn.y - bd.x * outer_dir.y, ad.y * rn.y - bd.y * outer_dir.y);
-      if (stable) current = stepped;
-    }
-  }
-  if (!((current.x * q1.x + current.y * q1.y) >= 0.0f))
-    current = {-current.x, -current.y};
-  const float inner_factor = 1.0f / ellipse_dir_factor_rsq(inner_e, current);
-  const float outer_factor = 1.0f / ellipse_dir_factor_rsq(outer_e, current);
-  // mix_fma(inner_factor, outer_factor, r1)
-  const float radius =
-      sqrtf(r1 * outer_factor + (inner_factor - r1 * inner_factor));
-  return {radius * current.x, radius * current.y};
-}
-
-// First sector whose cumulative PSA exceeds target, else the last valid
-// one (ops/soa.py _select_sector_soa); -1 when no lane is selected.
-template <int M>
-__device__ __forceinline__ int select_sector(const float (&sector_psa)[M],
-                                             float target, int num_sectors,
-                                             float& remaining) {
-  float running = 0.0f;
-  float prev[M];
-  bool sel[M];
-  bool any_before = false;
-#pragma unroll
-  for (int k = 0; k < M; ++k) {
-    prev[k] = running;
-    running = running + sector_psa[k];
-    const bool reached = (target < running) && (num_sectors > k);
-    sel[k] = reached && !any_before;
-    any_before = any_before || reached;
-  }
-  int chosen = -1;
-  remaining = 0.0f;
-#pragma unroll
-  for (int k = 0; k < M; ++k) {
-    const bool s = (any_before && sel[k]) || (!any_before && num_sectors - 1 == k);
-    remaining = remaining + (s ? target - prev[k] : 0.0f);
-    if (s) chosen = k;
-  }
-  return chosen;
-}
-
-template <int M>
-__device__ __forceinline__ V3 sample_psa(const PsaPoly<M>& poly, float r0,
-                                         float r1) {
-  const float target = r0 * poly.psa;
-  V2 dir;
-  if (poly.central) {
-    float rem;
-    const int s = select_sector<M>(poly.sector_psa, target, poly.count, rem);
-    V2 outer = {0.0f, 0.0f}, dir0 = {0.0f, 0.0f};
-#pragma unroll
-    for (int k = 0; k < M; ++k)
-      if (s == k) {
-        outer = poly.ellipses[k];
-        dir0 = poly.vertices[k];
-      }
-    const float sqrt_det = sqrtf(ellipse_det(outer));
-    const float angle = 2.0f * rem * sqrt_det;
-    const V2 t0 = ellipse_transform(outer, dir0);
-    const V2 r90 = {-t0.y, t0.x};
-    const float ca = cosf(angle) * sqrt_det;
-    const float sa = sinf(angle);
-    dir = {ca * dir0.x + sa * r90.x, ca * dir0.y + sa * r90.y};
-    const float scale = sqrtf(r1 / ellipse_dir_factor_rsq(outer, dir));
-    dir = {scale * dir.x, scale * dir.y};
-  } else {
-    float rem;
-    const int s =
-        select_sector<M>(poly.sector_psa, target, poly.count - 1, rem);
-    V2 inner = {0.0f, 0.0f}, outer = {0.0f, 0.0f}, dir0 = {0.0f, 0.0f},
-       dir1 = {0.0f, 0.0f};
-    float sector = 0.0f;
-#pragma unroll
-    for (int k = 0; k < M; ++k)
-      if (s == k) {
-        inner = poly.sector_inner[k];
-        outer = poly.sector_outer[k];
-        dir0 = poly.vertices[k];
-        dir1 = poly.vertices[(k + 1) % M];
-        sector = poly.sector_psa[k];
-      }
-    const float rr0 = rem / (sector > 0.0f ? sector : 1.0f);
-    dir = sample_sector_between_ellipses(rr0, r1, rem, inner, outer, dir0,
-                                         dir1);
-  }
-  return {dir.x, dir.y, sqrtf(vrt::jmax(1.0f - dir.x * dir.x - dir.y * dir.y,
-                                        0.0f))};
-}
-
-// --- BRDF, LTC density, MIS (ops/soa.py) -----------------------------------
-
-__device__ __forceinline__ float schlick(float f0, float f90, float c) {
-  const float flipped = 1.0f - c;
-  const float fsq = flipped * flipped;
-  return f0 + (f90 - f0) * (fsq * flipped * fsq);
-}
-
-__device__ __forceinline__ float dot3(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-
-struct Pixel {
-  V3 position, normal, outgoing, albedo, fresnel_0;
-  float lambert_out, roughness, ltc_albedo, ltc_det;
-  bool hit;
-  float w2s[12], w2c[12], s2c[9], c2s[9];
-};
-
-__device__ __forceinline__ V3 evaluate_brdf(const Pixel& px, V3 incoming) {
-  const V3 h = {incoming.x + px.outgoing.x, incoming.y + px.outgoing.y,
-                incoming.z + px.outgoing.z};
-  const float rl = rsqrtf(dot3(h, h));
-  const V3 half = {rl * h.x, rl * h.y, rl * h.z};
-  const float lambert_in = dot3(px.normal, incoming);
-  const float out_dot_half = dot3(px.outgoing, half);
-  const float rough = px.roughness;
-
-  const float f90 = out_dot_half * out_dot_half * (2.0f * rough) + 0.5f;
-  const float ff = schlick(1.0f, f90, px.lambert_out) *
-                   schlick(1.0f, f90, lambert_in);
-  V3 brdf = {0.0f + ff * px.albedo.x, 0.0f + ff * px.albedo.y,
-             0.0f + ff * px.albedo.z};
-
-  const float ndh = dot3(px.normal, half);
-  const float r_sq = rough * rough;
-  float ggx = (ndh * r_sq - ndh) * ndh + 1.0f;
-  ggx = r_sq / (ggx * ggx);
-  const float lo = px.lambert_out;
-  const float masking = lambert_in * sqrtf((-lo * r_sq + lo) * lo + r_sq);
-  const float shadowing =
-      lo * sqrtf((-lambert_in * r_sq + lambert_in) * lambert_in + r_sq);
-  const float gs = ggx * (0.5f / (masking + shadowing));
-  const float codh = vrt::jclip(out_dot_half, 0.0f, 1.0f);
-  brdf.x = brdf.x + gs * schlick(px.fresnel_0.x, 1.0f, codh);
-  brdf.y = brdf.y + gs * schlick(px.fresnel_0.y, 1.0f, codh);
-  brdf.z = brdf.z + gs * schlick(px.fresnel_0.z, 1.0f, codh);
-  return {kInvPi * brdf.x, kInvPi * brdf.y, kInvPi * brdf.z};
-}
-
-__device__ __forceinline__ float ltc_density(const float (&s2c)[9], float det,
-                                             V3 d, float rcp_psa) {
-  const float dx = s2c[0] * d.x + s2c[1] * d.y + s2c[2] * d.z;
-  const float dy = s2c[3] * d.x + s2c[4] * d.y + s2c[5] * d.z;
-  const float dz = s2c[6] * d.x + s2c[7] * d.y + s2c[8] * d.z;
-  const float len_sq = dx * dx + dy * dy + dz * dz;
-  const float density = vrt::jmax(dz, 0.0f) * det / (len_sq * len_sq);
-  return density * rcp_psa;
-}
-
-// One channel of mis_estimate_soa for the compile-time heuristic.
-__device__ __forceinline__ float mis_estimate(float integrand,
-                                              float sampled_weight,
-                                              float sampled_density,
-                                              float other_weight,
-                                              float other_density,
-                                              float vis) {
-  if (kHeuristic == 0) {  // balance
-    return (1.0f / (sampled_density + other_density)) * integrand;
-  } else if (kHeuristic == 1) {  // power
-    const float wod =
-        sampled_density / (sampled_density * sampled_density +
-                           other_density * other_density);
-    return wod * integrand;
-  }
-  const float wsum =
-      sampled_density * sampled_weight + other_density * other_weight;
-  if (kHeuristic == 2) {  // weighted
-    return sampled_weight * integrand / wsum;
-  }
-  const float balance = 1.0f / (sampled_density + other_density);
-  if (kHeuristic == 3) {  // optimal_clamped
-    float mixed = -vis * balance + balance;
-    mixed = vis * (sampled_weight / wsum) + mixed;
-    return mixed * integrand;
-  }
-  // optimal
-  return vis * sampled_weight + balance * (integrand - vis * wsum);
-}
-
-// --- the kernel --------------------------------------------------------------
+using namespace shade;
 
 template <int NV>
 __global__ void __launch_bounds__(128)
 fused_shading_kernel(const float* __restrict__ planes, int pixel_count,
-                     int nin, const float* __restrict__ lights,
+                     const float* __restrict__ lights,
                      const int* __restrict__ light_ids, int group_size,
                      int sample_count, bool first_group, float vis,
                      float* __restrict__ out) {
-  constexpr int M = NV + 1;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= pixel_count) return;
   const size_t P = (size_t)pixel_count;
-  auto in = [&](int k) { return planes[(size_t)k * P + p]; };
+  const Pixel px = load_pixel(planes, P, p);
+  const int ppl = rays_per_light(sample_count);
 
-  Pixel px;
-  px.position = {in(0), in(1), in(2)};
-  px.normal = {in(3), in(4), in(5)};
-  px.outgoing = {in(6), in(7), in(8)};
-  px.lambert_out = in(9);
-  px.albedo = {in(10), in(11), in(12)};
-  px.fresnel_0 = {in(13), in(14), in(15)};
-  px.roughness = in(16);
-  px.hit = in(17) > 0.5f;
-  px.ltc_albedo = in(18);
-  px.ltc_det = in(19);
-#pragma unroll
-  for (int k = 0; k < 12; ++k) px.w2s[k] = in(20 + k);
-#pragma unroll
-  for (int k = 0; k < 12; ++k) px.w2c[k] = in(32 + k);
-#pragma unroll
-  for (int k = 0; k < 9; ++k) px.s2c[k] = in(44 + k);
-#pragma unroll
-  for (int k = 0; k < 9; ++k) px.c2s[k] = in(53 + k);
-
-  const int ppl = 2 * sample_count;
-  const float scale = 1.0f / (float)sample_count;
   float base[3] = {0.0f, 0.0f, 0.0f};
-
   for (int li = 0; li < group_size; ++li) {
     const int light = light_ids[li];
     const float* ls = lights + (size_t)light * kLightScalars;
-    const float pl0 = ls[kLsPlane], pl1 = ls[kLsPlane + 1],
-                pl2 = ls[kLsPlane + 2], pl3 = ls[kLsPlane + 3];
-    const float rad[3] = {ls[kLsRadiance], ls[kLsRadiance + 1],
-                          ls[kLsRadiance + 2]};
-
-    // Winding flip when the shading point is behind the light plane.
-    const float side = (px.position.x * pl0 + px.position.y * pl1 +
-                        px.position.z * pl2) + pl3;
-    const float flip = side < 0.0f ? -1.0f : 1.0f;
-    float w2s[12], w2c[12];
+    const float* nz = planes + (size_t)(kBasePlanes + 2 * light * ppl) * P + p;
+    float lbase[3];
+    shade_light<NV>(px, ls, nz, P, sample_count, vis, lbase,
+                    [&](int q, const float* b, V3 d, float t_max) {
+                      float* o = out + (size_t)(3 + 7 * (light * ppl + q)) * P + p;
+                      o[0] = b[0];
+                      o[P] = b[1];
+                      o[2 * P] = b[2];
+                      o[3 * P] = d.x;
+                      o[4 * P] = d.y;
+                      o[5 * P] = d.z;
+                      o[6 * P] = t_max;
+                    });
 #pragma unroll
-    for (int k = 0; k < 12; ++k) {
-      w2s[k] = (k >= 4 && k < 8) ? flip * px.w2s[k] : px.w2s[k];
-      w2c[k] = (k >= 4 && k < 8) ? flip * px.w2c[k] : px.w2c[k];
-    }
-
-    V3 vs[NV], vc[NV];
-#pragma unroll
-    for (int k = 0; k < NV; ++k) {
-      const float x = ls[3 * k], y = ls[3 * k + 1], z = ls[3 * k + 2];
-      vs[k] = {(w2s[0] * x + w2s[1] * y + w2s[2] * z) + w2s[3],
-               (w2s[4] * x + w2s[5] * y + w2s[6] * z) + w2s[7],
-               (w2s[8] * x + w2s[9] * y + w2s[10] * z) + w2s[11]};
-      vc[k] = {(w2c[0] * x + w2c[1] * y + w2c[2] * z) + w2c[3],
-               (w2c[4] * x + w2c[5] * y + w2c[6] * z) + w2c[7],
-               (w2c[8] * x + w2c[9] * y + w2c[10] * z) + w2c[11]};
-    }
-    V3 clipped[M];
-    PsaPoly<M> poly_d, poly_s;
-    const int ccount = clip<NV>(vs, clipped);
-    prepare_psa<M>(clipped, ccount, poly_d);
-    const int ccount_c = clip<NV>(vc, clipped);
-    prepare_psa<M>(clipped, ccount_c, poly_s);
-
-    const float psa_d = poly_d.psa;
-    const bool diffuse_ok = (ccount > 0) && (psa_d > 0.0f);
-    const float rcp_psa_d = 1.0f / (psa_d > 0.0f ? psa_d : 1.0f);
-    const float psa_s = ccount_c > 0 ? poly_s.psa : 0.0f;
-    const bool specular_ok = psa_s > 0.0f;
-    const float rcp_psa_s = 1.0f / (psa_s > 0.0f ? psa_s : 1.0f);
-    const float specular_weight = px.ltc_albedo * psa_s;
-    float diffuse_weight[3] = {vrt::jmax(px.albedo.x, 0.01f) * psa_d,
-                               vrt::jmax(px.albedo.y, 0.01f) * psa_d,
-                               vrt::jmax(px.albedo.z, 0.01f) * psa_d};
-    float specular_weight3[3] = {specular_weight, specular_weight,
-                                 specular_weight};
-    if (kHeuristic == 4) {  // optimal weights carry radiance / pi
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float rop = rad[c] * kInvPi;
-        diffuse_weight[c] = diffuse_weight[c] * rop;
-        specular_weight3[c] = specular_weight3[c] * rop;
-      }
-    }
-
-    float lbase[3] = {0.0f, 0.0f, 0.0f};
-    const int noise0 = kBasePlanes + 2 * light * ppl;
-    for (int s = 0; s < sample_count; ++s) {
-      const V3 d_diffuse = sample_psa<M>(poly_d, in(noise0 + 4 * s),
-                                         in(noise0 + 4 * s + 1));
-      const V3 d_spec_c = sample_psa<M>(poly_s, in(noise0 + 4 * s + 2),
-                                        in(noise0 + 4 * s + 3));
-      V3 d_specular = {
-          px.c2s[0] * d_spec_c.x + px.c2s[1] * d_spec_c.y +
-              px.c2s[2] * d_spec_c.z,
-          px.c2s[3] * d_spec_c.x + px.c2s[4] * d_spec_c.y +
-              px.c2s[5] * d_spec_c.z,
-          px.c2s[6] * d_spec_c.x + px.c2s[7] * d_spec_c.y +
-              px.c2s[8] * d_spec_c.z};
-      const float rl = rsqrtf(dot3(d_specular, d_specular));
-      d_specular = {rl * d_specular.x, rl * d_specular.y, rl * d_specular.z};
-      for (int j = 0; j < 2; ++j) {
-        const V3 d_sh = j == 0 ? d_diffuse : d_specular;
-        const bool in_upper = d_sh.z > 0.0f;
-        const float diffuse_density = d_sh.z * rcp_psa_d;
-        const float specular_density =
-            ltc_density(px.s2c, px.ltc_det, d_sh, rcp_psa_s);
-        const V3 d_world = {
-            d_sh.x * w2s[0] + d_sh.y * w2s[4] + d_sh.z * w2s[8],
-            d_sh.x * w2s[1] + d_sh.y * w2s[5] + d_sh.z * w2s[9],
-            d_sh.x * w2s[2] + d_sh.y * w2s[6] + d_sh.z * w2s[10]};
-        // radiance x BRDF assuming visibility (shading.py
-        // radiance_brdf_deferred) and the shadow ray's t_max.
-        const float lambert = dot3(px.normal, d_world);
-        const bool geo = lambert > 0.0f;
-        const float denom = d_world.x * pl0 + d_world.y * pl1 +
-                            d_world.z * pl2;
-        const float dist = (px.position.x * pl0 + px.position.y * pl1 +
-                            px.position.z * pl2) + pl3;
-        const float t_max = -dist / (denom != 0.0f ? denom : 1.0f);
-        const V3 brdf = evaluate_brdf(px, d_world);
-        const float value[3] = {geo ? rad[0] * brdf.x : 0.0f,
-                                geo ? rad[1] * brdf.y : 0.0f,
-                                geo ? rad[2] * brdf.z : 0.0f};
-        const bool gate =
-            (j == 0 ? (in_upper && diffuse_ok)
-                    : (in_upper && diffuse_ok && specular_ok)) && px.hit;
-        const float dd_safe = diffuse_density > 0.0f ? diffuse_density : 1.0f;
-        const int slot = light * ppl + 2 * s + j;
-        float* o = out + (size_t)(3 + 7 * slot) * P + p;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float integrand1 = d_sh.z * value[c];
-          const float sw = j == 0 ? diffuse_weight[c] : specular_weight3[c];
-          const float sd = j == 0 ? diffuse_density : specular_density;
-          const float ow = j == 0 ? specular_weight3[c] : diffuse_weight[c];
-          const float od = j == 0 ? specular_density : diffuse_density;
-          const float est0 = mis_estimate(0.0f, sw, sd, ow, od, vis);
-          const float est1 = mis_estimate(integrand1, sw, sd, ow, od, vis);
-          const float est_delta = est1 - est0;
-          float a_term, b_term;
-          if (j == 0) {
-            a_term = specular_ok ? est0 : 0.0f;
-            b_term = specular_ok ? est_delta : (1.0f / dd_safe) * integrand1;
-          } else {
-            a_term = est0;
-            b_term = est_delta;
-          }
-          lbase[c] = lbase[c] + (gate ? a_term : 0.0f);
-          o[(size_t)c * P] = scale * (gate ? b_term : 0.0f);
-        }
-        o[3 * P] = d_world.x;
-        o[4 * P] = d_world.y;
-        o[5 * P] = d_world.z;
-        o[6 * P] = geo ? t_max : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) base[c] = base[c] + scale * lbase[c];
+    for (int c = 0; c < 3; ++c) base[c] = base[c] + lbase[c];
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -823,34 +79,37 @@ fused_shading_kernel(const float* __restrict__ planes, int pixel_count,
   }
 }
 
+// Launches the NV instantiation if VR_NV_MASK compiles it in.
 template <int NV>
-int launch(const float* planes, int pixel_count, int nin, const float* lights,
+int launch(const float* planes, int pixel_count, const float* lights,
            const int* light_ids, int group_size, int sample_count,
            int first_group, float vis, float* out, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (pixel_count + threads - 1) / threads;
-  fused_shading_kernel<NV><<<blocks, threads, 0, stream>>>(
-      planes, pixel_count, nin, lights, light_ids, group_size, sample_count,
-      first_group != 0, vis, out);
-  return (int)cudaGetLastError();
+  if constexpr (((VR_NV_MASK >> NV) & 1) != 0) {
+    const int threads = 128;
+    const int blocks = (pixel_count + threads - 1) / threads;
+    fused_shading_kernel<NV><<<blocks, threads, 0, stream>>>(
+        planes, pixel_count, lights, light_ids, group_size, sample_count,
+        first_group != 0, vis, out);
+    return (int)cudaGetLastError();
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" int k4_fused_shading(const float* planes, int pixel_count,
-                                int nin, const float* lights,
-                                const int* light_ids, int group_size,
-                                int vertex_count, int sample_count,
-                                int first_group, float vis, float* out,
-                                int nout, cudaStream_t stream) {
-  (void)nout;
+                                const float* lights, const int* light_ids,
+                                int group_size, int vertex_count,
+                                int sample_count, int first_group, float vis,
+                                float* out, cudaStream_t stream) {
   switch (vertex_count) {
-    case 3: return launch<3>(planes, pixel_count, nin, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 4: return launch<4>(planes, pixel_count, nin, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 5: return launch<5>(planes, pixel_count, nin, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 6: return launch<6>(planes, pixel_count, nin, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 7: return launch<7>(planes, pixel_count, nin, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 8: return launch<8>(planes, pixel_count, nin, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
+    case 3: return launch<3>(planes, pixel_count, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
+    case 4: return launch<4>(planes, pixel_count, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
+    case 5: return launch<5>(planes, pixel_count, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
+    case 6: return launch<6>(planes, pixel_count, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
+    case 7: return launch<7>(planes, pixel_count, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
+    case 8: return launch<8>(planes, pixel_count, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -79,6 +79,27 @@ def build_library(name: str, defines: dict | None = None) -> Path:
     return out
 
 
+def build_many(jobs, workers: int | None = None) -> float:
+    """Build several (name, defines) libraries at once, one nvcc process
+    each; returns the wall seconds. A failed build raises."""
+    import concurrent.futures
+    start = time.perf_counter()
+    workers = workers or min(len(jobs), os.cpu_count() or 1)
+    with concurrent.futures.ThreadPoolExecutor(max(workers, 1)) as pool:
+        for future in [pool.submit(build_library, name, defines)
+                       for name, defines in jobs]:
+            future.result()
+    return time.perf_counter() - start
+
+
+def register_report(report: str) -> list[str]:
+    """The ptxas lines of a build report naming each kernel instantiation
+    with its registers and spills."""
+    return [line.strip() for line in report.splitlines()
+            if "Compiling entry" in line or "registers" in line
+            or "spill" in line]
+
+
 def load_library(name: str, functions: dict, defines: dict | None = None
                  ) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu; `functions` maps each C

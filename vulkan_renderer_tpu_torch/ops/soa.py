@@ -20,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .math_utils import M_PI, atan_f32, fast_positive_atan, two_product
+from .math_utils import (M_HALF_PI, M_PI, atan_f32, fast_positive_atan,
+                         two_product)
 
 # 0.5 - acceptable error, rounded in float32 as the reference computes it.
 _STABLE_LIMIT = float(np.float32(0.5) - np.float32(1.0e-5))
@@ -76,6 +77,12 @@ def cross3(a, b):
             kahan_soa(a[0], b[1], a[1], b[0]))
 
 
+def cross3_fast(a, b):
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
 def rot90(v):
     return (-v[1], v[0])
 
@@ -88,6 +95,29 @@ def positive_atan_soa(t, biased: bool):
     if biased:
         return fast_positive_atan(t)
     return atan_f32(t) + torch.where(t < 0.0, M_PI, 0.0)
+
+
+def atan2_soa(y, x):
+    """arctan2 built on the Cephes atan, as the JAX package's atan2_soa:
+    every azimuth of the port comes through one formula."""
+    base = atan_f32(y / torch.where(x != 0.0, x, 1.0))
+    # x < 0: shift by +/- pi toward y's sign (atan2(+-0, -1) = +-pi).
+    neg_y = (y < 0.0) | (torch.signbit(y) & (y == 0.0))
+    shifted = base + torch.where(neg_y, -M_PI, M_PI)
+    res = torch.where(x > 0.0, base, shifted)
+    on_axis = torch.where(
+        y == 0.0,
+        torch.where(x >= 0.0, 0.0, torch.where(neg_y, -M_PI, M_PI)),
+        torch.where(y > 0.0, M_HALF_PI, -M_HALF_PI))
+    return torch.where(x == 0.0,
+                       torch.where(y == 0.0, torch.zeros_like(base),
+                                   on_axis),
+                       torch.where(y == 0.0, on_axis, res))
+
+
+def acos_soa(x):
+    """acos(x) = atan2(sqrt(1 - x^2), x) (the JAX package's acos_soa)."""
+    return atan2_soa(torch.sqrt(torch.clamp(1.0 - x * x, min=0.0)), x)
 
 
 # ---------------------------------------------------------------------------

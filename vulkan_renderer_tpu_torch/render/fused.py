@@ -1,18 +1,26 @@
-"""Fused per-light shading: kernel K4 (csrc/fused_shading.cu) and its plain
-PyTorch version.
+"""Fused per-light shading: kernels K4 (csrc/fused_shading.cu) and K5
+(csrc/fused_resolved.cu) and their plain PyTorch versions.
 
-Replaces the Pallas kernel vulkan_renderer_tpu/render/fused.py::
-fused_light_shading (kernel2, pallas_call :672). Per pixel and light:
-world->shading transform with the winding flip, Sutherland-Hodgman clip,
-PSA prepare and sample, and under DIFFUSE_SPECULAR_MIS the cosine-space
-polygon, LTC density and the MIS estimate (fused.py:330-467, math in
-ops/soa.py). Visibility is deferred: the frame's color is
-base + sum_slot b * V(slot ray).
+K4 replaces the Pallas kernel vulkan_renderer_tpu/render/fused.py::
+fused_light_shading (kernel2, pallas_call :672): per pixel and light, the
+light's sampler (world->shading transform, clip, prepare) and its ray
+slots. Under DIFFUSE_SPECULAR_MIS (PSA and PSA-biased) each sample gives a
+diffuse and a specular slot with the LTC density and the MIS estimate
+(fused.py:330-467, math in ops/soa.py); under DIFFUSE_ONLY each sample
+gives one slot, for all 13 techniques (fused.py:156-327, math in
+ops/soa_techniques.py and ops/soa_arvo_psa.py). Visibility is deferred:
+the frame's color is base + sum_slot b * V(slot ray).
 
-Inputs are the (NIN, P) planes of _BASE_PLANES followed by the noise
-pairs, and the (L, 58) per-light records of pack_light_scalars; the output
+K5 replaces fused_light_shading_resolved (one_group.kernel, pallas_call
+:816): the same shading with visibility resolved to 1 (no shadow rays),
+accumulated into one RGB value per pixel.
+
+K4 inputs are the (NIN, P) planes of BASE_PLANES followed by the noise
+pairs, and the (L, 58) per-light records of pack_light_scalars; its output
 is (3 + 7 S, P): base RGB, then per ray slot b RGB, direction xyz, t_max
-(S = light_count * 2 * sample_count).
+(S = light_count * rays_per_light). K5 takes the 62 base planes, the noise
+light-major (L, 2 rays_per_light, P) and the light records, and returns
+(P, 3).
 """
 
 from __future__ import annotations
@@ -22,14 +30,18 @@ import ctypes
 import numpy as np
 import torch
 
-from vulkan_renderer_tpu.core.settings import (MisHeuristic,
+from vulkan_renderer_tpu.core.settings import (ErrorDisplay, MisHeuristic,
                                                PolygonSamplingTechnique,
                                                RenderSettings,
                                                SamplingStrategy)
 
 from ..kernels import build
 from ..ops import soa
+from ..ops import soa_techniques as st
 from ..ops.soa import vadd, vdot, vscale, vwh
+from ..ops.soa_arvo_psa import prepare_arvo_psa_soa, sample_arvo_psa_soa
+
+Tech = PolygonSamplingTechnique
 
 # Per-light record layout (fused.py:49-60): 8 vertices x 3, plane (4),
 # surface radiance (3), rotation columns (9), translation (3),
@@ -55,29 +67,32 @@ BASE_PLANES = (
 )
 _PLANE_INDEX = {name: k for k, name in enumerate(BASE_PLANES)}
 
-# Heuristic ids shared with csrc/fused_shading.cu (K4_HEURISTIC).
+# Ids shared with csrc/techniques.cuh (VR_HEURISTIC, VR_TECHNIQUE).
 HEURISTIC_IDS = {MisHeuristic.BALANCE: 0, MisHeuristic.POWER: 1,
                  MisHeuristic.WEIGHTED: 2, MisHeuristic.OPTIMAL_CLAMPED: 3,
                  MisHeuristic.OPTIMAL: 4}
+TECHNIQUE_IDS = {t: i for i, t in enumerate(PolygonSamplingTechnique)}
+_PSA_PAIR = (Tech.PROJECTED_SOLID_ANGLE, Tech.PROJECTED_SOLID_ANGLE_BIASED)
 
 
 def check_supported(static, settings: RenderSettings) -> None:
-    """Raise NotImplementedError for what K4 does not cover yet."""
-    if settings.polygon_sampling_technique not in (
-            PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE,
-            PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE_BIASED):
-        raise NotImplementedError(
-            f"technique {settings.polygon_sampling_technique.value}: K4 "
-            "covers PSA / PSA-biased only; the other techniques come with "
-            "the timing sweep (ROADMAP Queue 1, item 10)")
-    if settings.sampling_strategy != SamplingStrategy.DIFFUSE_SPECULAR_MIS:
-        raise NotImplementedError(
-            f"strategy {settings.sampling_strategy.value}: K4 covers "
-            "DIFFUSE_SPECULAR_MIS only (DIFFUSE_ONLY: ROADMAP Queue 1, "
-            "item 10; the per-pixel strategies: item 11)")
-    if settings.error_display.value != "none":
+    """Raise for what K4 and K5 do not cover: the JAX package's
+    fused_supported predicate (fused.py:63-94) as errors. All 13
+    techniques with DIFFUSE_ONLY, the PSA pair also with
+    DIFFUSE_SPECULAR_MIS; untextured lights, no error display."""
+    if settings.error_display != ErrorDisplay.NONE:
         raise NotImplementedError(
             "error displays are not ported (ROADMAP Queue 1, item 11)")
+    allowed = (SamplingStrategy.DIFFUSE_ONLY,)
+    if settings.polygon_sampling_technique in _PSA_PAIR:
+        allowed += (SamplingStrategy.DIFFUSE_SPECULAR_MIS,)
+    if settings.sampling_strategy not in allowed:
+        raise NotImplementedError(
+            f"strategy {settings.sampling_strategy.value} with technique "
+            f"{settings.polygon_sampling_technique.value}: the fused kernels "
+            "cover DIFFUSE_ONLY for every technique and DIFFUSE_SPECULAR_MIS "
+            "for the PSA pair (the per-pixel strategies: ROADMAP Queue 1, "
+            "item 11)")
     if any(t != 0 for t in static.light_texturing):
         raise NotImplementedError(
             "textured / IES lights are not ported (ROADMAP Queue 1, "
@@ -88,7 +103,36 @@ def check_supported(static, settings: RenderSettings) -> None:
 
 
 def rays_per_light(settings: RenderSettings) -> int:
-    return 2 * settings.sample_count
+    n = settings.sample_count
+    if settings.sampling_strategy == SamplingStrategy.DIFFUSE_ONLY:
+        return n
+    return 2 * n
+
+
+def kernel_defines(settings: RenderSettings) -> dict:
+    """The compile-time configuration of K4 and K5 (csrc/techniques.cuh)."""
+    mis = settings.sampling_strategy == SamplingStrategy.DIFFUSE_SPECULAR_MIS
+    return {"VR_TECHNIQUE": TECHNIQUE_IDS[settings.polygon_sampling_technique],
+            "VR_MIS": int(mis),
+            "VR_HEURISTIC": HEURISTIC_IDS[settings.mis_heuristic] if mis
+            else 0}
+
+
+def vertex_count_mask(static) -> int:
+    """VR_NV_MASK: the vertex counts a library instantiates."""
+    mask = 0
+    for nv in static.light_vertex_counts:
+        mask |= 1 << nv
+    return mask
+
+
+def vertex_groups(static) -> list[tuple[int, list[int]]]:
+    """(vertex count, light indices) in ascending vertex count: one kernel
+    launch per group."""
+    groups: dict[int, list[int]] = {}
+    for i, nv in enumerate(static.light_vertex_counts):
+        groups.setdefault(nv, []).append(i)
+    return sorted(groups.items())
 
 
 def pack_light_scalars(lights, light_count: int) -> torch.Tensor:
@@ -129,6 +173,16 @@ def pack_planes(data, ltc, hit, noise_pairs) -> torch.Tensor:
     return torch.cat(cols, dim=0).to(torch.float32).contiguous()
 
 
+def light_major_noise(noise_pairs: torch.Tensor, light_count: int,
+                      pairs_per_light: int) -> torch.Tensor:
+    """(P, L * ppl, 2) -> (L, 2 ppl, P), K5's noise layout
+    (fused.py:767-769)."""
+    p = noise_pairs.shape[0]
+    return noise_pairs.reshape(p, light_count, pairs_per_light, 2) \
+        .permute(1, 2, 3, 0).reshape(light_count, 2 * pairs_per_light, p) \
+        .to(torch.float32).contiguous()
+
+
 def unpack_outputs(out: torch.Tensor, slot_count: int):
     """(3 + 7 S, P) -> (base (P, 3), b (P, S, 3), dirs (P, S, 3),
     t_max (P, S))."""
@@ -144,15 +198,39 @@ def unpack_outputs(out: torch.Tensor, slot_count: int):
 
 
 def _light_record(ls: torch.Tensor, i: int, nv: int) -> dict:
+    """One light's scalars (fused.py _read_light), as 0-d tensors."""
+    def vec(start, count=3):
+        return tuple(ls[i, start + c] for c in range(count))
     return dict(
-        verts=[tuple(ls[i, 3 * k + c] for c in range(3)) for k in range(nv)],
-        plane=tuple(ls[i, LS_PLANE + c] for c in range(4)),
-        radiance=tuple(ls[i, LS_RADIANCE + c] for c in range(3)))
+        verts=[vec(LS_VERTS + 3 * k) for k in range(nv)],
+        plane=vec(LS_PLANE, 4), radiance=vec(LS_RADIANCE),
+        rot_cols=[vec(LS_ROTATION + 3 * k) for k in range(3)],
+        translation=vec(LS_TRANSLATION), scaling=vec(LS_SCALING, 2),
+        area=ls[i, LS_AREA],
+        fan_tri=[ls[i, LS_FAN + 2 * k] for k in range(6)],
+        fan_cum=[ls[i, LS_FAN + 2 * k + 1] for k in range(6)])
+
+
+def _unpack_px(planes: torch.Tensor) -> dict:
+    def g(name):
+        return planes[_PLANE_INDEX[name]]
+
+    px = {"position": (g("pos0"), g("pos1"), g("pos2")),
+          "normal": (g("nrm0"), g("nrm1"), g("nrm2")),
+          "outgoing": (g("out0"), g("out1"), g("out2")),
+          "lambert_out": g("lambert_out"),
+          "diffuse_albedo": (g("alb0"), g("alb1"), g("alb2")),
+          "fresnel_0": (g("f00"), g("f01"), g("f02")),
+          "roughness": g("rough"), "hit": g("hit") > 0.5,
+          "ltc_albedo": g("ltc_albedo"), "ltc_det": g("ltc_det")}
+    for name in BASE_PLANES[20:]:
+        px[name] = g(name)
+    return px
 
 
 def _rad_brdf(px, light, d_world):
-    """radiance x BRDF assuming visibility, the geometric lambert gate and
-    the shadow ray's t_max (shading.py radiance_brdf_deferred)."""
+    """radiance x BRDF assuming visibility, the geometric lambert and the
+    shadow ray's t_max (shading.py radiance_brdf_deferred)."""
     lambert = vdot(px["normal"], d_world)
     geo = lambert > 0.0
     p = light["plane"]
@@ -165,41 +243,197 @@ def _rad_brdf(px, light, d_world):
         px["diffuse_albedo"], px["fresnel_0"], px["roughness"], d_world)
     value = tuple(torch.where(geo, light["radiance"][c] * brdf[c], 0.0)
                   for c in range(3))
-    return value, torch.where(geo, t_max, 0.0)
+    return value, lambert, torch.where(geo, t_max, 0.0)
 
 
-def _shade_one_light(px, light, nv: int, heuristic: str, biased: bool,
-                     sample_count: int, mis_visibility_estimate: float,
-                     noise):
-    """PSA + DIFFUSE_SPECULAR_MIS for one light (fused.py:330-467).
-    Returns (base vec3, [(b vec3, dir vec3, t_max) per ray slot])."""
-    p = light["plane"]
-    side = vdot(px["position"], p[:3]) + p[3]
-    flip = torch.where(side < 0.0, -1.0, 1.0)
-
-    def flipped_rows(prefix):
-        rows = [tuple(px[f"{prefix}{i}{j}"] for j in range(3))
-                for i in range(3)]
-        trans = [px[f"{prefix}{i}3"] for i in range(3)]
+def _rows(px, prefix, flip=None):
+    """The 3x4 world->space matrix as rows and translations; with flip,
+    row 1 negated behind the light (glsl:444-452)."""
+    rows = [tuple(px[f"{prefix}{i}{j}"] for j in range(3)) for i in range(3)]
+    trans = [px[f"{prefix}{i}3"] for i in range(3)]
+    if flip is not None:
         rows[1] = tuple(flip * c for c in rows[1])
         trans[1] = flip * trans[1]
-        return rows, trans
+    return rows, trans
 
-    def affine(rows, trans, v):
-        return tuple(vdot(rows[i], v) + trans[i] for i in range(3))
 
-    w2s_rows, w2s_trans = flipped_rows("w2s")
+def _flip(px, light):
+    p = light["plane"]
+    side = vdot(px["position"], p[:3]) + p[3]
+    return torch.where(side < 0.0, -1.0, 1.0)
+
+
+def _affine(rows, trans, v):
+    return tuple(vdot(rows[i], v) + trans[i] for i in range(3))
+
+
+def _rot_t_apply(rows, d):
+    return tuple(d[0] * rows[0][c] + d[1] * rows[1][c] + d[2] * rows[2][c]
+                 for c in range(3))
+
+
+def _diffuse_slots(px, light, sample, ok, n: int, noise):
+    """DIFFUSE_ONLY slots of one light: sample(r0, r1) -> (d_world,
+    density, per-sample gate or None); ok is the light's gate or None."""
+    zero = torch.zeros_like(px["roughness"])
+    zero3 = (zero, zero, zero)
+    slots = []
+    inv_n = 1.0 / n
+    for s in range(n):
+        r0, r1 = noise[s]
+        d_world, density, sample_ok = sample(r0, r1)
+        value1, lambert, t_max = _rad_brdf(px, light, d_world)
+        scale = torch.where(density > 0.0,
+                            lambert / torch.where(density > 0.0, density,
+                                                  1.0), 0.0)
+        gate = px["hit"] if ok is None else (ok & px["hit"])
+        if sample_ok is not None:
+            gate = gate & sample_ok
+        b = vwh(gate, vscale(scale, value1), zero3)
+        slots.append((vscale(inv_n, b), d_world, t_max))
+    return zero3, slots
+
+
+def _shade_one_light_diffuse(px, light, nv: int, tech, n: int, noise):
+    """DIFFUSE_ONLY for the techniques other than the PSA family
+    (fused.py:156-282; the reference's per-technique branches,
+    shading_pass.frag.glsl:329-502)."""
+    ok = None
+    if tech == Tech.BASELINE:
+        corner = tuple(light["translation"][c] - px["position"][c]
+                       for c in range(3))
+        cols = light["rot_cols"]
+
+        def sample(r0, r1):
+            d = soa.vnormalize(tuple(corner[c] + r0 * cols[0][c]
+                                     + r1 * cols[1][c] for c in range(3)))
+            return d, torch.ones_like(r0), None
+    elif tech == Tech.AREA_TURK:
+        def sample(r0, r1):
+            pos = st.sample_area_turk_soa(light["verts"], light["fan_tri"],
+                                          light["fan_cum"], nv, r0, r1)
+            offset = tuple(pos[c] - px["position"][c] for c in range(3))
+            dist_sq = vdot(offset, offset)
+            rcp = 1.0 / torch.sqrt(dist_sq)
+            d = tuple(offset[c] * rcp for c in range(3))
+            pl = light["plane"]
+            projected = torch.abs(d[0] * pl[0] + d[1] * pl[1]
+                                  + d[2] * pl[2]) * light["area"]
+            density = dist_sq / torch.where(projected > 0.0, projected, 1.0)
+            return d, torch.where(projected > 0.0, density, 0.0), None
+    elif tech in (Tech.SOLID_ANGLE, Tech.SOLID_ANGLE_ARVO):
+        dirs = [soa.vnormalize(tuple(light["verts"][k][c] - px["position"][c]
+                                     for c in range(3))) for k in range(nv)]
+        arvo = tech == Tech.SOLID_ANGLE_ARVO
+        prep = st.prepare_sa_arvo_soa(dirs, None, nv) if arvo \
+            else st.prepare_sa_soa(dirs, None, nv)
+        ok = prep.solid_angle > 0.0
+        density = 1.0 / torch.where(ok, prep.solid_angle, 1.0)
+
+        def sample(r0, r1):
+            d = st.sample_sa_arvo_soa(prep, r0, r1, nv) if arvo \
+                else st.sample_sa_soa(prep, r0, r1, nv)
+            return d, density, None
+    elif tech == Tech.RECTANGLE_SOLID_ANGLE_URENA:
+        cols = light["rot_cols"]
+        prep = st.prepare_urena_soa(light["translation"],
+                                    light["scaling"][0], light["scaling"][1],
+                                    cols[0], cols[1], cols[2],
+                                    px["position"])
+        ok = prep.solid_angle > 0.0
+        density = 1.0 / torch.where(ok, prep.solid_angle, 1.0)
+
+        def sample(r0, r1):
+            return st.sample_urena_soa(prep, r0, r1), density, None
+    else:
+        # The shading-space family: clipped solid angle and the Hart warps
+        # (render/shading.py:501-556), no winding flip.
+        rows, trans = _rows(px, "w2s")
+        verts = [_affine(rows, trans, light["verts"][k]) for k in range(nv)]
+        if tech in (Tech.BILINEAR_COSINE_WARP_HART,
+                    Tech.BIQUADRATIC_COSINE_WARP_HART):
+            count, m = None, nv
+        else:
+            verts, count = soa.clip_soa(verts, nv)
+            m = nv + 1
+            ok = count > 0
+            count = torch.clamp(count, min=3)
+        dirs = [soa.vnormalize(v) for v in verts]
+        if tech == Tech.CLIPPED_SOLID_ANGLE:
+            prep = st.prepare_sa_soa(dirs, count, m)
+            density = 1.0 / torch.where(prep.solid_angle > 0.0,
+                                        prep.solid_angle, 1.0)
+
+            def sample_sh(r0, r1):
+                return st.sample_sa_soa(prep, r0, r1, m), density
+            poly = prep
+        elif tech in (Tech.BILINEAR_COSINE_WARP_HART,
+                      Tech.BILINEAR_COSINE_WARP_CLIPPING_HART):
+            prep = st.prepare_hart_bilinear_soa(dirs, count, m)
+
+            def sample_sh(r0, r1):
+                return st.sample_hart_bilinear_soa(prep, r0, r1, m)
+            poly = prep.poly
+        else:
+            prep = st.prepare_hart_biquadratic_soa(dirs, count, m)
+
+            def sample_sh(r0, r1):
+                return st.sample_hart_biquadratic_soa(prep, r0, r1, m)
+            poly = prep.poly
+        sa_ok = poly.solid_angle > 0.0
+        ok = sa_ok if ok is None else (sa_ok & ok)
+
+        def sample(r0, r1):
+            d_sh, density = sample_sh(r0, r1)
+            return _rot_t_apply(rows, d_sh), density, None
+    return _diffuse_slots(px, light, sample, ok, n, noise)
+
+
+def _shade_one_light_arvo_psa(px, light, nv: int, n: int, noise):
+    """DIFFUSE_ONLY Arvo PSA (fused.py:285-327), with the PSA winding flip;
+    horizon samples (z <= 1e-5) are dropped."""
+    rows, trans = _rows(px, "w2s", _flip(px, light))
     clipped, ccount = soa.clip_soa(
-        [affine(w2s_rows, w2s_trans, light["verts"][k]) for k in range(nv)],
+        [_affine(rows, trans, light["verts"][k]) for k in range(nv)], nv)
+    poly = prepare_arvo_psa_soa(clipped, ccount, nv + 1)
+    ok = (ccount > 0) & (poly.psa > 0.0)
+    rcp_psa = 1.0 / torch.where(poly.psa > 0.0, poly.psa, 1.0)
+
+    def sample(r0, r1):
+        d_sh = sample_arvo_psa_soa(poly, r0, r1, 3)
+        return (_rot_t_apply(rows, d_sh), d_sh[2] * rcp_psa,
+                d_sh[2] > 1e-5)
+    return _diffuse_slots(px, light, sample, ok, n, noise)
+
+
+def _shade_one_light_psa(px, light, nv: int, settings: RenderSettings,
+                         noise):
+    """PSA / PSA-biased with DIFFUSE_ONLY or DIFFUSE_SPECULAR_MIS
+    (fused.py:345-467). Returns (base vec3, [(b, dir, t_max) per slot])."""
+    biased = settings.polygon_sampling_technique \
+        == Tech.PROJECTED_SOLID_ANGLE_BIASED
+    heuristic = settings.mis_heuristic.value
+    vis = float(settings.mis_visibility_estimate)
+    n = settings.sample_count
+    flip = _flip(px, light)
+    w2s_rows, w2s_trans = _rows(px, "w2s", flip)
+    clipped, ccount = soa.clip_soa(
+        [_affine(w2s_rows, w2s_trans, light["verts"][k]) for k in range(nv)],
         nv)
     poly_d = soa.prepare_psa_soa(clipped, ccount, nv + 1, biased)
     psa_d = poly_d.psa
     diffuse_ok = (ccount > 0) & (psa_d > 0.0)
     rcp_psa_d = 1.0 / torch.where(psa_d > 0.0, psa_d, 1.0)
 
-    w2c_rows, w2c_trans = flipped_rows("w2c")
+    if settings.sampling_strategy == SamplingStrategy.DIFFUSE_ONLY:
+        def sample(r0, r1):
+            d_sh = soa.sample_psa_soa(poly_d, r0, r1, biased)
+            return _rot_t_apply(w2s_rows, d_sh), d_sh[2] * rcp_psa_d, None
+        return _diffuse_slots(px, light, sample, diffuse_ok, n, noise)
+
+    w2c_rows, w2c_trans = _rows(px, "w2c", flip)
     clipped_c, ccount_c = soa.clip_soa(
-        [affine(w2c_rows, w2c_trans, light["verts"][k]) for k in range(nv)],
+        [_affine(w2c_rows, w2c_trans, light["verts"][k]) for k in range(nv)],
         nv)
     poly_s = soa.prepare_psa_soa(clipped_c, ccount_c, nv + 1, biased)
     psa_s = torch.where(ccount_c > 0, poly_s.psa, 0.0)
@@ -224,7 +458,7 @@ def _shade_one_light(px, light, nv: int, heuristic: str, biased: bool,
     zero3 = (zero, zero, zero)
     base = zero3
     slots = []
-    for s in range(sample_count):
+    for s in range(n):
         d_diffuse = soa.sample_psa_soa(poly_d, *noise[2 * s], biased)
         d_spec_c = soa.sample_psa_soa(poly_s, *noise[2 * s + 1], biased)
         d_specular = soa.vnormalize(tuple(
@@ -235,9 +469,8 @@ def _shade_one_light(px, light, nv: int, heuristic: str, biased: bool,
             diffuse_density = d_sh[2] * rcp_psa_d
             specular_density = soa.ltc_density_soa(s2c, px["ltc_det"], d_sh,
                                                    rcp_psa_s)
-            d_world = tuple(d_sh[0] * w2s_rows[0][c] + d_sh[1] * w2s_rows[1][c]
-                            + d_sh[2] * w2s_rows[2][c] for c in range(3))
-            value1, t_max = _rad_brdf(px, light, d_world)
+            d_world = _rot_t_apply(w2s_rows, d_sh)
+            value1, _, t_max = _rad_brdf(px, light, d_world)
             integrand1 = vscale(d_sh[2], value1)
             if j == 0:
                 weights = (diffuse_weight, diffuse_density,
@@ -245,10 +478,8 @@ def _shade_one_light(px, light, nv: int, heuristic: str, biased: bool,
             else:
                 weights = (specular_weight3, specular_density,
                            diffuse_weight, diffuse_density)
-            est0 = soa.mis_estimate_soa(heuristic, zero3, *weights,
-                                        mis_visibility_estimate)
-            est1 = soa.mis_estimate_soa(heuristic, integrand1, *weights,
-                                        mis_visibility_estimate)
+            est0 = soa.mis_estimate_soa(heuristic, zero3, *weights, vis)
+            est1 = soa.mis_estimate_soa(heuristic, integrand1, *weights, vis)
             est_delta = tuple(est1[c] - est0[c] for c in range(3))
             if j == 0:
                 dd_safe = torch.where(diffuse_density > 0.0,
@@ -264,9 +495,22 @@ def _shade_one_light(px, light, nv: int, heuristic: str, biased: bool,
             gate = gate & px["hit"]
             base = vadd(base, vwh(gate, a_term, zero3))
             slots.append((vwh(gate, b_term, zero3), d_world, t_max))
-    scale = 1.0 / sample_count
+    scale = 1.0 / n
     return (vscale(scale, base),
             [(vscale(scale, b), d, t) for (b, d, t) in slots])
+
+
+def _shade_one_light(px, light, nv: int, settings: RenderSettings, noise):
+    """One light's (base vec3, [(b, dir, t_max) per ray slot])
+    (fused.py:330-344 dispatch); noise: (r0, r1) plane pairs."""
+    tech = settings.polygon_sampling_technique
+    if tech == Tech.PROJECTED_SOLID_ANGLE_ARVO:
+        return _shade_one_light_arvo_psa(px, light, nv,
+                                         settings.sample_count, noise)
+    if tech not in _PSA_PAIR:
+        return _shade_one_light_diffuse(px, light, nv, tech,
+                                        settings.sample_count, noise)
+    return _shade_one_light_psa(px, light, nv, settings, noise)
 
 
 def fused_light_shading_plain(planes: torch.Tensor,
@@ -274,56 +518,74 @@ def fused_light_shading_plain(planes: torch.Tensor,
                               settings: RenderSettings) -> torch.Tensor:
     """Plain version of K4: (NIN, P) planes -> (3 + 7 S, P)."""
     check_supported(static, settings)
-    heuristic = settings.mis_heuristic.value
-    biased = (settings.polygon_sampling_technique
-              == PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE_BIASED)
-    n = settings.sample_count
     ppl = rays_per_light(settings)
-
-    def g(name):
-        return planes[_PLANE_INDEX[name]]
-
-    px = {"position": (g("pos0"), g("pos1"), g("pos2")),
-          "normal": (g("nrm0"), g("nrm1"), g("nrm2")),
-          "outgoing": (g("out0"), g("out1"), g("out2")),
-          "lambert_out": g("lambert_out"),
-          "diffuse_albedo": (g("alb0"), g("alb1"), g("alb2")),
-          "fresnel_0": (g("f00"), g("f01"), g("f02")),
-          "roughness": g("rough"), "hit": g("hit") > 0.5,
-          "ltc_albedo": g("ltc_albedo"), "ltc_det": g("ltc_det")}
-    for name in BASE_PLANES[20:]:
-        px[name] = g(name)
-
+    px = _unpack_px(planes)
     n_base = len(BASE_PLANES)
     zero = torch.zeros_like(px["roughness"])
     base = (zero, zero, zero)
     outs = []
     for i in range(static.light_count):
         nv = static.light_vertex_counts[i]
-        noise = []
-        for q in range(ppl):
-            k = n_base + 2 * (i * ppl + q)
-            noise.append((planes[k], planes[k + 1]))
+        noise = [(planes[n_base + 2 * (i * ppl + q)],
+                  planes[n_base + 2 * (i * ppl + q) + 1])
+                 for q in range(ppl)]
         lbase, slots = _shade_one_light(
-            px, _light_record(light_scalars, i, nv), nv, heuristic, biased,
-            n, float(settings.mis_visibility_estimate), noise)
+            px, _light_record(light_scalars, i, nv), nv, settings, noise)
         base = vadd(base, lbase)
         for (b, d, t) in slots:
             outs.extend([b[0], b[1], b[2], d[0], d[1], d[2], t])
     return torch.stack(list(base) + outs, dim=0)
 
 
+def fused_light_shading_resolved_plain(planes: torch.Tensor,
+                                       noise: torch.Tensor,
+                                       light_scalars: torch.Tensor, static,
+                                       settings: RenderSettings
+                                       ) -> torch.Tensor:
+    """Plain version of K5: (62, P) base planes, (L, 2 ppl, P) noise ->
+    (P, 3) = base + sum over lights and slots of b. Sums go per light
+    base + (0 + b_0 + b_1 + ...), lights in ascending vertex-count groups,
+    groups added in turn: the order K5 uses."""
+    check_supported(static, settings)
+    ppl = rays_per_light(settings)
+    px = _unpack_px(planes)
+    zero = torch.zeros_like(px["roughness"])
+    zero3 = (zero, zero, zero)
+    out = None
+    for nv, ids in vertex_groups(static):
+        group = zero3
+        for i in ids:
+            pairs = [(noise[i, 2 * q], noise[i, 2 * q + 1])
+                     for q in range(ppl)]
+            lbase, slots = _shade_one_light(
+                px, _light_record(light_scalars, i, nv), nv, settings, pairs)
+            bsum = zero3
+            for (b, _, _) in slots:
+                bsum = vadd(bsum, b)
+            group = vadd(group, vadd(lbase, bsum))
+        out = group if out is None else vadd(out, group)
+    return torch.stack(out, dim=1)
+
+
 # ---------------------------------------------------------------------------
-# Kernel K4
+# Kernels K4 and K5
 # ---------------------------------------------------------------------------
 
-_K4_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # planes, P, NIN
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # lights, ids, n
-                ctypes.c_int, ctypes.c_int,     # vertex count, sample count
-                ctypes.c_int,                   # first group (writes base)
-                ctypes.c_float,                 # mis visibility estimate
-                ctypes.c_void_p, ctypes.c_int,  # out, NOUT
-                ctypes.c_void_p]                # stream
+_K4_ARGTYPES = [ctypes.c_void_p, ctypes.c_int,    # planes, P
+                ctypes.c_void_p, ctypes.c_void_p,  # lights, light ids
+                ctypes.c_int,                     # lights in the group
+                ctypes.c_int, ctypes.c_int,       # vertex count, sample count
+                ctypes.c_int,                     # first group (writes)
+                ctypes.c_float,                   # mis visibility estimate
+                ctypes.c_void_p, ctypes.c_void_p]  # out, stream
+_K5_ARGTYPES = _K4_ARGTYPES[:2] + [ctypes.c_void_p] + _K4_ARGTYPES[2:]
+
+
+def _library(name: str, entry: str, argtypes, static, settings):
+    return build.load_library(
+        name, {entry: argtypes},
+        defines={**kernel_defines(settings),
+                 "VR_NV_MASK": vertex_count_mask(static)})
 
 
 def fused_light_shading(planes: torch.Tensor, light_scalars: torch.Tensor,
@@ -337,38 +599,73 @@ def fused_light_shading(planes: torch.Tensor, light_scalars: torch.Tensor,
                                          settings)
     build.require_cuda(planes, light_scalars)
     check_supported(static, settings)
-    biased = int(settings.polygon_sampling_technique
-                 == PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE_BIASED)
     ppl = rays_per_light(settings)
-    n_base = len(BASE_PLANES)
-    nin = n_base + 2 * ppl * static.light_count
+    nin = len(BASE_PLANES) + 2 * ppl * static.light_count
     p = planes.shape[1]
     build.check_tensor(planes, "planes", torch.float32, (nin, p))
     build.check_tensor(light_scalars, "light_scalars", torch.float32,
                        (static.light_count, LIGHT_SCALARS))
-    if p == 0:
-        return planes.new_zeros((3 + 7 * ppl * static.light_count, 0))
-    lib = build.load_library(
-        "fused_shading",
-        {"k4_fused_shading": _K4_ARGTYPES},
-        defines={"K4_HEURISTIC": HEURISTIC_IDS[settings.mis_heuristic],
-                 "K4_BIASED": biased})
     nout = 3 + 7 * ppl * static.light_count
+    if p == 0:
+        return planes.new_zeros((nout, 0))
+    lib = _library("fused_shading", "k4_fused_shading", _K4_ARGTYPES, static,
+                   settings)
     out = torch.empty((nout, p), dtype=torch.float32, device=planes.device)
-    groups: dict[int, list[int]] = {}
-    for i, nv in enumerate(static.light_vertex_counts):
-        groups.setdefault(nv, []).append(i)
-    for first, (nv, ids) in enumerate(sorted(groups.items())):
+    for first, (nv, ids) in enumerate(vertex_groups(static)):
         ids_t = torch.tensor(ids, dtype=torch.int32, device=planes.device)
         with torch.cuda.device(planes.device):
             err = lib.k4_fused_shading(
-                build.ptr(planes), p, nin, build.ptr(light_scalars),
+                build.ptr(planes), p, build.ptr(light_scalars),
                 build.ptr(ids_t), len(ids), nv, settings.sample_count,
                 int(first == 0), float(settings.mis_visibility_estimate),
-                build.ptr(out), nout, build.stream(planes.device))
+                build.ptr(out), build.stream(planes.device))
         build.check_launch(err, "k4_fused_shading")
         fused_light_shading.launches += 1
     return out
 
 
 fused_light_shading.launches = 0
+
+
+def fused_light_shading_resolved(planes: torch.Tensor, noise: torch.Tensor,
+                                 light_scalars: torch.Tensor, static,
+                                 settings: RenderSettings) -> torch.Tensor:
+    """(62, P) base planes, (L, 2 ppl, P) light-major noise, (L, 58) light
+    records -> (P, 3) color with visibility 1.
+
+    CPU tensors take fused_light_shading_resolved_plain; CUDA tensors
+    launch K5 (one launch per distinct light vertex count)."""
+    if planes.device.type == "cpu":
+        return fused_light_shading_resolved_plain(planes, noise,
+                                                  light_scalars, static,
+                                                  settings)
+    build.require_cuda(planes, noise, light_scalars)
+    check_supported(static, settings)
+    ppl = rays_per_light(settings)
+    p = planes.shape[1]
+    build.check_tensor(planes, "planes", torch.float32,
+                       (len(BASE_PLANES), p))
+    build.check_tensor(noise, "noise", torch.float32,
+                       (static.light_count, 2 * ppl, p))
+    build.check_tensor(light_scalars, "light_scalars", torch.float32,
+                       (static.light_count, LIGHT_SCALARS))
+    if p == 0:
+        return planes.new_zeros((0, 3))
+    lib = _library("fused_resolved", "k5_fused_resolved", _K5_ARGTYPES,
+                   static, settings)
+    out = torch.empty((3, p), dtype=torch.float32, device=planes.device)
+    for first, (nv, ids) in enumerate(vertex_groups(static)):
+        ids_t = torch.tensor(ids, dtype=torch.int32, device=planes.device)
+        with torch.cuda.device(planes.device):
+            err = lib.k5_fused_resolved(
+                build.ptr(planes), p, build.ptr(noise),
+                build.ptr(light_scalars), build.ptr(ids_t), len(ids), nv,
+                settings.sample_count, int(first == 0),
+                float(settings.mis_visibility_estimate), build.ptr(out),
+                build.stream(planes.device))
+        build.check_launch(err, "k5_fused_resolved")
+        fused_light_shading_resolved.launches += 1
+    return out.T
+
+
+fused_light_shading_resolved.launches = 0

@@ -8,7 +8,9 @@ on its accelerator path (Pallas tracers + fused shader), stage by stage:
 3. the noise image (ops/noise.py);
 4. the per-pixel preamble: texture fetch and material decode, light
    display, LTC coefficients (:78-120);
-5. fused light shading (K4);
+5. fused light shading: with shadow rays, K4 exports every ray slot;
+   without them, K5 accumulates each pixel's color with visibility 1
+   (:503-514);
 6. the sample-major shadow megabatch; a ray whose weight is zero gets
    t_max = -1 and is dead (:537-552);
 7. shadow any-hit (K1);
@@ -35,8 +37,9 @@ from ..ops.ltc import get_ltc_coefficients
 from ..ops.noise import get_noise_image
 from ..ops.srgb import linear_to_srgb
 from .fused import (check_supported, fused_light_shading,
-                    fused_light_shading_plain, pack_light_scalars,
-                    pack_planes, rays_per_light)
+                    fused_light_shading_plain, fused_light_shading_resolved,
+                    fused_light_shading_resolved_plain, light_major_noise,
+                    pack_light_scalars, pack_planes, rays_per_light)
 from .shading import (FrameConstants, SceneStatic, finish_shading_data,
                       get_polygon_radiance, pairs_per_light)
 from .trace_kernel import (closest_attrs, closest_attrs_plain, trace_anyhit,
@@ -46,20 +49,22 @@ from .trace_kernel import (closest_attrs, closest_attrs_plain, trace_anyhit,
 
 @dataclasses.dataclass(frozen=True)
 class FrameKernels:
-    """The four kernel entry points a frame calls, with the signatures of
-    the wrappers in trace_kernel.py and fused.py."""
+    """The kernel entry points a frame calls, with the signatures of the
+    wrappers in trace_kernel.py and fused.py."""
     trace_closest: Callable    # K2
     closest_attrs: Callable    # K3
     fused_shading: Callable    # K4
     trace_anyhit: Callable     # K1
+    fused_resolved: Callable   # K5
 
 
 # The frame's kernels: CUDA on CUDA tensors, plain versions on the CPU.
 KERNELS = FrameKernels(trace_closest, closest_attrs, fused_light_shading,
-                       trace_anyhit)
+                       trace_anyhit, fused_light_shading_resolved)
 # The plain versions on any device: the on-card reference of a frame.
 PLAIN_VERSIONS = FrameKernels(trace_closest_plain, closest_attrs_plain,
-                              fused_light_shading_plain, trace_anyhit_plain)
+                              fused_light_shading_plain, trace_anyhit_plain,
+                              fused_light_shading_resolved_plain)
 
 
 def make_frame_constants(camera: FirstPersonCamera, width: int, height: int,
@@ -152,29 +157,40 @@ def render_frame_constants(scene, static: SceneStatic,
 
     data, ltc, base0 = pixel_preamble(scene, static, settings, constants,
                                       hit, ray_dirs, attrs, position)
+    light_scalars = pack_light_scalars(scene.lights, static.light_count)
+    if not settings.trace_shadow_rays:
+        # No shadow rays: every slot's visibility is 1, so K5 accumulates
+        # the color in registers and no slot plane is stored (:503-514).
+        empty = noise_pairs[:, :0]
+        colors = base0 + kernels.fused_resolved(
+            pack_planes(data, ltc, hit, empty),
+            light_major_noise(noise_pairs[:, :ppl * static.light_count],
+                              static.light_count, ppl),
+            light_scalars, static, settings)
+        return _resolve(colors, constants, settings, width, height)
+
     out = kernels.fused_shading(
-        pack_planes(data, ltc, hit, noise_pairs),
-        pack_light_scalars(scene.lights, static.light_count), static,
+        pack_planes(data, ltc, hit, noise_pairs), light_scalars, static,
         settings)
     slots = static.light_count * rays_per_light(settings)
-    base = base0 + out[0:3].T
     rest = out[3:].reshape(slots, 7, p)     # slot-major: (S, 7, P)
     b = rest[:, 0:3]                        # (S, 3, P)
+    # Sample-major megabatch: every pixel's ray of slot 0, then slot 1...
+    shade_origins = torch.where(hit[:, None], data.position, cam)
+    flat_origins = shade_origins.repeat(slots, 1)
+    flat_dirs = rest[:, 3:6].permute(0, 2, 1).reshape(-1, 3).contiguous()
+    live = torch.any(b != 0.0, dim=1).reshape(-1)
+    flat_tmax = torch.where(live, rest[:, 6].reshape(-1), -1.0)
+    occluded = kernels.trace_anyhit(scene.clusters, flat_origins, flat_dirs,
+                                    flat_tmax.contiguous())
+    visibility = torch.where(occluded, 0.0, 1.0).reshape(slots, 1, p)
+    colors = base0 + out[0:3].T + torch.sum(b * visibility, dim=0).T
+    return _resolve(colors, constants, settings, width, height)
 
-    if settings.trace_shadow_rays:
-        # Sample-major megabatch: every pixel's ray of slot 0, then slot 1...
-        shade_origins = torch.where(hit[:, None], data.position, cam)
-        flat_origins = shade_origins.repeat(slots, 1)
-        flat_dirs = rest[:, 3:6].permute(0, 2, 1).reshape(-1, 3).contiguous()
-        live = torch.any(b != 0.0, dim=1).reshape(-1)
-        flat_tmax = torch.where(live, rest[:, 6].reshape(-1), -1.0)
-        occluded = kernels.trace_anyhit(scene.clusters, flat_origins, flat_dirs,
-                                flat_tmax.contiguous())
-        visibility = torch.where(occluded, 0.0, 1.0).reshape(slots, 1, p)
-    else:
-        visibility = torch.ones((slots, 1, p), device=b.device)
 
-    colors = base + torch.sum(b * visibility, dim=0).T
+def _resolve(colors, constants: FrameConstants, settings: RenderSettings,
+             width: int, height: int) -> torch.Tensor:
+    """(P, 3) linear color -> (height, width, 3) output image."""
     # NaN/Inf -> pink (glsl:861-864), then exposure.
     bad = torch.any(torch.isnan(colors) | torch.isinf(colors), dim=-1,
                     keepdim=True)

@@ -23,7 +23,7 @@ from vulkan_renderer_tpu.scene.lights import (PolygonalLightSpec,
 
 from ..assets import vkt
 from ..assets.ltc_table import default_ltc_table
-from ..assets.noise import NoiseTable, load_noise_table
+from ..assets.noise import NoiseTable, noise_table_for_settings
 from ..core.device import get_device
 from ..ops.ltc import LtcTable
 from ..ops.math_utils import (decode_normal_octahedral_32bit_np,
@@ -161,9 +161,12 @@ def build_scene(mesh: SceneMesh, texture_dir: str,
                 light_specs: list[PolygonalLightSpec], device,
                 noise: NoiseTable | None = None,
                 data_directory: str = "data",
-                cluster_size: int = 64) -> Scene:
+                cluster_size: int = 64,
+                noise_type: str = "ahmed_2d") -> Scene:
     """Scene on `device` from a parsed mesh, its textures and light specs.
-    noise defaults to the Ahmed table (RenderSettings' default noise)."""
+    The noise table is `noise` if given, else the table of `noise_type`
+    (RenderSettings.noise_type; a name that is no noise type takes white
+    noise, as the JAX package's Application does)."""
     device = get_device(device)
     positions, normals, uvs = mesh_triangles(mesh)
     atlas = build_texture_atlas_np(
@@ -171,7 +174,7 @@ def build_scene(mesh: SceneMesh, texture_dir: str,
     clusters = build_clusters_np(positions, normals, uvs,
                                  mesh.material_indices, cluster_size)
     if noise is None:
-        noise = load_noise_table("ahmed_2d", data_directory)
+        noise = noise_table_for_settings(noise_type, data_directory)
     ltc_table, ltc_constants = default_ltc_table()
     return Scene(
         triangle_positions=torch.from_numpy(positions).to(device),

@@ -1,4 +1,5 @@
-"""Triangle soup -> .vks, plus the procedural cornell-box test scene.
+"""Triangle soup -> .vks, plus the procedural test scenes (cornell box,
+roughness planes).
 
 Counterpart of vulkan_renderer_tpu/tools/export_scene.py without JAX. The
 pipeline is the reference Blender exporter's: Morton sort of triangles by
@@ -146,6 +147,25 @@ def make_cornell_box(size: float = 2.0) -> tuple:
             np.array(mats, np.uint8), ["white", "red", "green"])
 
 
+def make_plane_scene(size: float = 10.0, material_count: int = 1) -> tuple:
+    """Textured ground plane (the roughness-planes and MIS-plane stand-in):
+    material_count quads side by side in the z = 0 plane."""
+    tris, norms, uvs, mats = [], [], [], []
+    width = size / material_count
+    for m in range(material_count):
+        x0 = -size / 2 + m * width
+        t, n, u, mm = _quad([x0, -size / 2, 0], [x0 + width, -size / 2, 0],
+                            [x0 + width, size / 2, 0], [x0, size / 2, 0],
+                            m, uv_scale=4.0)
+        tris.extend(t)
+        norms.extend(n)
+        uvs.extend(u)
+        mats.extend(mm)
+    names = [f"plane{m}" for m in range(material_count)]
+    return (np.array(tris), np.array(norms), np.array(uvs),
+            np.array(mats, np.uint8), names)
+
+
 def checkerboard_texture(resolution: int = 256, squares: int = 8,
                          color_a=(0.725, 0.71, 0.68),
                          color_b=(0.325, 0.31, 0.25)) -> np.ndarray:
@@ -172,15 +192,23 @@ def write_material_textures(tex_dir: str, name: str, base: np.ndarray,
                  vkt.encode_texture(normal, vkt.VK_FORMAT_BC5_UNORM_BLOCK))
 
 
-def write_test_scene(directory: str, texture_resolution: int = 128) -> str:
-    """The cornell box: .vks plus <dir>/cornell_box_textures/*.vkt.
-    Returns the .vks path."""
+def write_test_scene(directory: str, scene: str = "cornell_box",
+                     texture_resolution: int = 128) -> str:
+    """A procedural test scene, "cornell_box" or "roughness_planes": .vks
+    plus <dir>/<scene>_textures/*.vkt. Returns the .vks path."""
+    if scene == "cornell_box":
+        tris, norms, uvs, mats, names = make_cornell_box()
+        base_colors = [(0.73, 0.73, 0.73), (0.61, 0.06, 0.06),
+                       (0.12, 0.45, 0.09)]
+    elif scene == "roughness_planes":
+        tris, norms, uvs, mats, names = make_plane_scene(material_count=5)
+        base_colors = [(0.7, 0.7, 0.7)] * 5
+    else:
+        raise ValueError(scene)
     os.makedirs(directory, exist_ok=True)
-    tex_dir = os.path.join(directory, "cornell_box_textures")
+    tex_dir = os.path.join(directory, f"{scene}_textures")
     os.makedirs(tex_dir, exist_ok=True)
-    tris, norms, uvs, mats, names = make_cornell_box()
-    base_colors = [(0.73, 0.73, 0.73), (0.61, 0.06, 0.06), (0.12, 0.45, 0.09)]
-    vks_path = os.path.join(directory, "cornell_box.vks")
+    vks_path = os.path.join(directory, f"{scene}.vks")
     save_vks(vks_path, build_scene_mesh(tris, norms, uvs, mats, names))
     r = texture_resolution
     for i, name in enumerate(names):
