@@ -21,7 +21,10 @@ It
    with DIFFUSE_SPECULAR_MIS and clamped-optimal MIS, shadows on) with
    every kernel launch counter reset just before and read just after,
    checks the image, and times it (warm-up, then the median of 7 frames)
-   along with each kernel and its plain version;
+   along with each kernel and its plain version; then, with shadows off
+   (the default settings, which take K5 under DIFFUSE_SPECULAR_MIS),
+   holds K5 against its plain version bit for bit on 4,096 of the bench
+   frame's pixels for PSA and PSA-biased with each of the 5 heuristics;
 7. for every technique, captures K5's inputs from the harness's own
    timing-sweep frames at 1920x1080 (the 128-light x 1-spp central
    quadrilaterals, experiment 102 + t, and the 1-light x 128-spp decentral
@@ -131,7 +134,8 @@ def run():
     from vulkan_renderer_tpu_torch.render import fused, pipeline
     from vulkan_renderer_tpu_torch.render import trace_kernel as tk
     from vulkan_renderer_tpu_torch.render.fused import (
-        PolygonSamplingTechnique, RenderSettings, SamplingStrategy)
+        MisHeuristic, PolygonSamplingTechnique, RenderSettings,
+        SamplingStrategy)
     from vulkan_renderer_tpu_torch.render.pipeline import FirstPersonCamera
     from vulkan_renderer_tpu_torch.render.shading import SceneStatic
     from vulkan_renderer_tpu_torch.scene.scene import (PolygonalLightSpec,
@@ -176,6 +180,16 @@ def run():
                                     light_vertex_counts=(nv,))
             for name in ("fused_shading", "fused_resolved"):
                 jobs.append((name, kernel_defines(tech_settings, static_nv)))
+    # K5 under DIFFUSE_SPECULAR_MIS (the default settings with shadows off):
+    # the PSA pair with every heuristic, at the bench layout.
+    mis_variants = [dataclasses.replace(
+        settings, polygon_sampling_technique=tech, mis_heuristic=heuristic,
+        trace_shadow_rays=False)
+        for tech in (PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE,
+                     PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE_BIASED)
+        for heuristic in MisHeuristic]
+    jobs += [("fused_resolved", kernel_defines(s, bench_static))
+             for s in mis_variants]
     wall = build.build_many(jobs)
     log(f"kernel build: {len(jobs)} libraries, {wall:.2f} s wall")
     for tag, (seconds, report) in sorted(build.BUILD_REPORTS.items()):
@@ -395,6 +409,43 @@ def run():
         log(f"{name}: kernel {ms:.3f} ms on {shape}; plain {plain_ms:.3f} ms"
             f"{where} [{card}]")
 
+    # --- 6b. K5 under DIFFUSE_SPECULAR_MIS against its plain version --------
+    # The default settings with shadows off take K5 in MIS mode: the bench
+    # frame's inputs, the PSA pair with every heuristic. Tolerance: bit for
+    # bit (the same float32 operations in the same order).
+    mis_rows = []
+    for s in mis_variants:
+        k5_args = {}
+
+        def record_k5(*args):
+            k5_args["args"] = args
+            return fused.fused_light_shading_resolved(*args)
+
+        with torch.no_grad():
+            pipeline.render_frame_constants(
+                scene, static, s, pipeline.make_frame_constants(
+                    camera, WIDTH, HEIGHT, s, noise_numbers, device),
+                WIDTH, HEIGHT, dataclasses.replace(
+                    pipeline.KERNELS, fused_resolved=record_k5))
+        planes, noise, ls, st, s = k5_args["args"]
+        idx = subset_indices(torch, SWEEP_SUBSET, planes.shape[1], device)
+        sub_planes = planes[:, idx].contiguous()
+        sub_noise = noise[:, :, idx].contiguous()
+        got5 = fused.fused_light_shading_resolved(sub_planes, sub_noise, ls,
+                                                  st, s)
+        want5 = fused.fused_light_shading_resolved_plain(sub_planes,
+                                                         sub_noise, ls, st, s)
+        r5 = kernel_check.compare(got5.T, want5.T)
+        variant = (f"{s.polygon_sampling_technique.value}/"
+                   f"{s.mis_heuristic.value}")
+        mis_rows.append(dict(variant=variant, **r5))
+        log(f"K5 MIS {variant} vs plain ({idx.numel()} of {planes.shape[1]} "
+            f"px x {st.light_count} lights): exact {r5['exact']:.6f} "
+            f"(tolerance: bit for bit), max |d| {r5['max_abs_err']:.3g}")
+        check(r5["nonfinite_mismatch"] == 0 and r5["exact"] == 1.0,
+              f"K5 MIS disagrees with its plain version ({variant})")
+        check(float(want5.abs().max()) > 0, f"K5 MIS {variant} is all zero")
+
     # --- 7. K5 and K4 DIFFUSE_ONLY against their plain versions -------------
     experiments = harness.create_experiment_list()
     arvo = (PolygonSamplingTechnique.SOLID_ANGLE_ARVO,
@@ -572,8 +623,9 @@ def run():
     results["K4"]["max_abs_err"] = max(
         [results["K4"]["max_abs_err"]]
         + [r["k4_max_abs_err"] for r in technique_rows])
-    results["K5"] = dict(max_abs_err=max(r["k5_max_abs_err"]
-                                         for r in technique_rows))
+    results["K5"] = dict(max_abs_err=max(
+        [r["k5_max_abs_err"] for r in technique_rows]
+        + [r["max_abs_err"] for r in mis_rows]))
     kernels = []
     for name in ("K1", "K2", "K3", "K4", "K5"):
         ms, plain_ms, ms_sub, shape, plain_shape = timings[name]

@@ -115,7 +115,8 @@ def port_inputs(data, ltc, hit, noise, specs):
     planes = fused.pack_planes(
         ShadingData(**{k: torch.from_numpy(v) for k, v in data.items()}),
         LtcCoefficients(**{k: torch.from_numpy(v) for k, v in ltc.items()}),
-        torch.from_numpy(hit), torch.from_numpy(noise))
+        torch.from_numpy(hit),
+        torch.from_numpy(noise.reshape(noise.shape[0], -1).T))
     light_scalars = fused.pack_light_scalars(
         lights_from_specs(specs, "cpu"), len(specs))
     return planes, light_scalars, static

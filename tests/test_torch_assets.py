@@ -176,8 +176,11 @@ def test_noise_image_is_bit_exact(rng, width, height, pairs):
     for seed in range(3):
         rnd = rng.integers(0, 2**32, size=4, dtype=np.uint64) \
             .astype(np.uint32)
-        got = get_noise_image(torch.from_numpy(table.astype(np.int32)),
-                              width, height, pairs, int(mask), rnd).numpy()
+        planes = get_noise_image(torch.from_numpy(table.astype(np.int32)),
+                                 width, height, pairs, int(mask), rnd)
+        assert planes.shape == (2 * pairs, width * height)
+        # The port's plane-major layout, as the reference's (P, pairs, 2).
+        got = planes.T.reshape(width * height, pairs, 2).numpy()
         want = np.asarray(j_ops_noise.get_noise_image(
             jnp.asarray(table), width, height, pairs, mask, jnp.asarray(rnd)))
         np.testing.assert_array_equal(got, want)

@@ -127,7 +127,8 @@ def test_fused_plain_matches_reference(inputs, heuristic, biased):
     planes = fused.pack_planes(
         ShadingData(**{k: torch.from_numpy(v) for k, v in data.items()}),
         LtcCoefficients(**{k: torch.from_numpy(v) for k, v in ltc.items()}),
-        torch.from_numpy(hit), torch.from_numpy(noise))
+        torch.from_numpy(hit),
+        torch.from_numpy(noise.reshape(noise.shape[0], -1).T))
     out = fused.fused_light_shading(
         planes, fused.pack_light_scalars(lights_from_specs(SPECS, "cpu"), 2),
         STATIC, settings)

@@ -207,13 +207,22 @@ def test_diffuse_only_kernels_match_plain(planes_scene, tech):
     assert float(want5.abs().max()) > 0
 
 
-@pytest.mark.parametrize("heuristic", ["optimal_clamped", "optimal"])
-def test_resolved_mis_kernel_matches_plain(planes_scene, heuristic):
+@pytest.mark.parametrize("tech", [Tech.PROJECTED_SOLID_ANGLE,
+                                  Tech.PROJECTED_SOLID_ANGLE_BIASED],
+                         ids=lambda t: t.value)
+@pytest.mark.parametrize("heuristic", list(MisHeuristic),
+                         ids=lambda h: h.value)
+def test_resolved_mis_kernel_matches_plain(planes_scene, tech, heuristic):
+    """K5 under DIFFUSE_SPECULAR_MIS (the default settings with shadows
+    off) against its plain version: bit for bit, the same float32
+    operations in the same order."""
     scene, camera = planes_scene
-    settings = RenderSettings(mis_heuristic=MisHeuristic(heuristic),
-                              sample_count=2, trace_shadow_rays=False)
+    settings = RenderSettings(polygon_sampling_technique=tech,
+                              mis_heuristic=heuristic, sample_count=2,
+                              trace_shadow_rays=False)
     args = _capture_resolved(scene, camera, settings)
     got = fused.fused_light_shading_resolved(*args)
     want = fused.fused_light_shading_resolved_plain(*args)
     r = kernel_check.compare(got.T, want.T)
-    assert r["outside"] <= 1e-2 and r["nonfinite_mismatch"] == 0, r
+    assert r["exact"] == 1.0 and r["nonfinite_mismatch"] == 0, r
+    assert float(want.abs().max()) > 0

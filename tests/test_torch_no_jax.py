@@ -53,7 +53,7 @@ assert bool(img.isfinite().all())
 from vulkan_renderer_tpu_torch.experiments import harness
 assert harness.main(["-e", "193", "--device", "cpu", "--width", "16",
                      "--height", "8", "--warmup-frames", "1",
-                     "--warmup-seconds", "0", "--measure-frames", "2",
+                     "--measure-frames", "2",
                      "--output-dir", d + "/out", "--data-directory",
                      d + "/data", "--results-csv", d + "/r.csv"]) == 0
 print("JAX_IMPORTED", "jax" in sys.modules)

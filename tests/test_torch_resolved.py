@@ -18,7 +18,6 @@ value, and the finite pattern is identical."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from _torch_shading_inputs import (agreement, jax_reference, light_specs,
                                    noise_pairs, port_inputs, shading_inputs)
@@ -51,12 +50,8 @@ def _resolved(inputs, specs, settings):
     planes, light_scalars, static = port_inputs(data, ltc, hit, noise, specs)
     ppl = fused.rays_per_light(settings)
     n_base = len(fused.BASE_PLANES)
-    noise_lm = fused.light_major_noise(torch.from_numpy(noise),
-                                       static.light_count, ppl)
-    # The light-major noise is K4's noise planes regrouped by light.
-    np.testing.assert_array_equal(
-        noise_lm.reshape(-1, noise.shape[0]).numpy(),
-        planes[n_base:].numpy())
+    # K5's light-major noise is K4's noise planes viewed by light.
+    noise_lm = planes[n_base:].view(static.light_count, 2 * ppl, -1)
     got = fused.fused_light_shading_resolved(
         planes[:n_base].contiguous(), noise_lm, light_scalars, static,
         settings)
@@ -128,6 +123,6 @@ def test_resolved_matches_jax_pallas_interpret(inputs):
     n_base = len(fused.BASE_PLANES)
     got = fused.fused_light_shading_resolved(
         planes[:n_base].contiguous(),
-        fused.light_major_noise(torch.from_numpy(noise), 2, 2),
+        planes[n_base:].view(2, 4, -1),
         light_scalars, static, settings).numpy()
     _check(got, want, Tech.SOLID_ANGLE)

@@ -79,13 +79,14 @@ def build_library(name: str, defines: dict | None = None) -> Path:
     return out
 
 
-def build_many(jobs, workers: int | None = None) -> float:
+def build_many(jobs) -> float:
     """Build several (name, defines) libraries at once, one nvcc process
-    each; returns the wall seconds. A failed build raises."""
+    each, as many at a time as there are CPU cores; returns the wall
+    seconds. A failed build raises."""
     import concurrent.futures
     start = time.perf_counter()
-    workers = workers or min(len(jobs), os.cpu_count() or 1)
-    with concurrent.futures.ThreadPoolExecutor(max(workers, 1)) as pool:
+    workers = max(min(len(jobs), os.cpu_count() or 1), 1)
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
         for future in [pool.submit(build_library, name, defines)
                        for name, defines in jobs]:
             future.result()

@@ -5,8 +5,8 @@ reference scrambles per FRAME, not per pixel: a fetch reads
 table[layer, (y + off_y) & mask_y, (x + off_x) & mask_x] with offsets and
 layer shared by every pixel. Those three uint32 scalars per fetch are
 computed on the host in numpy (torch lacks uint32 shifts); the image is
-then a roll + tile of one table layer per fetch, bit-identical to the JAX
-package's get_noise_pairs.
+then one wrapped gather of a table layer per fetch, bit-identical to the
+JAX package's get_noise_pairs.
 """
 
 from __future__ import annotations
@@ -38,20 +38,25 @@ def get_noise_image(table: torch.Tensor, width: int, height: int,
                     noise_random_numbers) -> torch.Tensor:
     """table: (layers, H, W, 4) int32 holding UNORM16 values.
 
-    Returns (height * width, pair_count, 2) float32 in [0, 1], pixels
-    row-major, pairs in the order the shader consumes them."""
-    fetch_count = (pair_count + 1) // 2
+    Returns (2 * pair_count, height * width) float32 in [0, 1]: plane
+    2 j + c holds component c of pair j (pairs in the order the shader
+    consumes them) for every pixel, pixels row-major. This is the layout of
+    K4's noise planes and, viewed as (lights, 2 * pairs per light, P), of
+    K5's light-major noise, so neither kernel's input needs a copy."""
     th, tw = table.shape[1], table.shape[2]
-    reps_y = -(-height // th)
-    reps_x = -(-width // tw)
-    images = []
-    for i in range(fetch_count):
+    ys = torch.arange(height, device=table.device)
+    xs = torch.arange(width, device=table.device)
+    planes = torch.empty((2 * pair_count, height, width), dtype=torch.float32,
+                         device=table.device)
+    for i in range((pair_count + 1) // 2):
         off_x, off_y, layer = fetch_scalars(i, texture_index_mask,
                                             noise_random_numbers)
-        # value[p] = layer[(p + off) & mask] == roll(layer, -off)[p]; the
-        # table sides are powers of two, so tiling wraps the same way.
-        rolled = torch.roll(table[layer], (-(off_y & (th - 1)),
-                                           -(off_x & (tw - 1))), (0, 1))
-        images.append(rolled.repeat(reps_y, reps_x, 1)[:height, :width])
-    img = torch.cat(images, dim=-1).to(torch.float32) * (1.0 / 65535.0)
-    return img.reshape(height * width, fetch_count * 2, 2)[:, :pair_count]
+        channels = min(4, 2 * pair_count - 4 * i)
+        values = table[layer, :, :, :channels].permute(2, 0, 1) \
+            .to(torch.float32) * (1.0 / 65535.0)
+        # value[y, x] = layer[(y + off_y) & mask_y, (x + off_x) & mask_x]:
+        # the table sides are powers of two.
+        planes[4 * i:4 * i + channels] = values[
+            :, ((ys + off_y) & (th - 1))[:, None],
+            ((xs + off_x) & (tw - 1))[None, :]]
+    return planes.reshape(2 * pair_count, height * width)

@@ -157,9 +157,9 @@ def pack_light_scalars(lights, light_count: int) -> torch.Tensor:
     return torch.stack(rows).to(torch.float32).contiguous()
 
 
-def pack_planes(data, ltc, hit, noise_pairs) -> torch.Tensor:
+def pack_planes(data, ltc, hit, noise_planes) -> torch.Tensor:
     """ShadingData / LtcCoefficients with (P, ...) fields, hit (P,) bool,
-    noise_pairs (P, PAIRS, 2) -> (NIN, P) float32 planes."""
+    noise_planes (2 PAIRS, P) (ops/noise.py) -> (NIN, P) float32 planes."""
     cols = [data.position.T, data.normal.T, data.outgoing.T,
             data.lambert_outgoing[None], data.diffuse_albedo.T,
             data.fresnel_0.T, data.roughness[None],
@@ -169,18 +169,8 @@ def pack_planes(data, ltc, hit, noise_pairs) -> torch.Tensor:
             ltc.world_to_cosine_space.reshape(-1, 12).T,
             ltc.shading_to_cosine_space.reshape(-1, 9).T,
             ltc.cosine_to_shading_space.reshape(-1, 9).T,
-            noise_pairs.reshape(noise_pairs.shape[0], -1).T]
+            noise_planes]
     return torch.cat(cols, dim=0).to(torch.float32).contiguous()
-
-
-def light_major_noise(noise_pairs: torch.Tensor, light_count: int,
-                      pairs_per_light: int) -> torch.Tensor:
-    """(P, L * ppl, 2) -> (L, 2 ppl, P), K5's noise layout
-    (fused.py:767-769)."""
-    p = noise_pairs.shape[0]
-    return noise_pairs.reshape(p, light_count, pairs_per_light, 2) \
-        .permute(1, 2, 3, 0).reshape(light_count, 2 * pairs_per_light, p) \
-        .to(torch.float32).contiguous()
 
 
 def unpack_outputs(out: torch.Tensor, slot_count: int):

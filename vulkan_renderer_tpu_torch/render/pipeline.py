@@ -38,7 +38,7 @@ from ..ops.noise import get_noise_image
 from ..ops.srgb import linear_to_srgb
 from .fused import (check_supported, fused_light_shading,
                     fused_light_shading_plain, fused_light_shading_resolved,
-                    fused_light_shading_resolved_plain, light_major_noise,
+                    fused_light_shading_resolved_plain,
                     pack_light_scalars, pack_planes, rays_per_light)
 from .shading import (FrameConstants, SceneStatic, finish_shading_data,
                       get_polygon_radiance, pairs_per_light)
@@ -151,7 +151,7 @@ def render_frame_constants(scene, static: SceneStatic,
     position = cam + t_safe[:, None] * ray_dirs
 
     ppl = pairs_per_light(settings)
-    noise_pairs = get_noise_image(
+    noise_planes = get_noise_image(
         scene.noise_table, width, height, max(ppl * static.light_count, 1),
         scene.noise_texture_index_mask, constants.noise_random_numbers)
 
@@ -161,16 +161,16 @@ def render_frame_constants(scene, static: SceneStatic,
     if not settings.trace_shadow_rays:
         # No shadow rays: every slot's visibility is 1, so K5 accumulates
         # the color in registers and no slot plane is stored (:503-514).
-        empty = noise_pairs[:, :0]
+        # The noise planes viewed light-major: (L, 2 ppl, P), no copy.
+        noise_lm = noise_planes[:2 * ppl * static.light_count].view(
+            static.light_count, 2 * ppl, p)
         colors = base0 + kernels.fused_resolved(
-            pack_planes(data, ltc, hit, empty),
-            light_major_noise(noise_pairs[:, :ppl * static.light_count],
-                              static.light_count, ppl),
+            pack_planes(data, ltc, hit, noise_planes[:0]), noise_lm,
             light_scalars, static, settings)
         return _resolve(colors, constants, settings, width, height)
 
     out = kernels.fused_shading(
-        pack_planes(data, ltc, hit, noise_pairs), light_scalars, static,
+        pack_planes(data, ltc, hit, noise_planes), light_scalars, static,
         settings)
     slots = static.light_count * rays_per_light(settings)
     rest = out[3:].reshape(slots, 7, p)     # slot-major: (S, 7, P)
