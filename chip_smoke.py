@@ -14,7 +14,12 @@ It
 3. writes the procedural bench city (300 buildings, detail 10) into data/
    with the port's own writer and loads it onto the card;
 4. holds every kernel against its plain PyTorch version on the card at
-   the bench frame's shapes (brute-force plain tracers on ray subsets);
+   the bench frame's shapes: K2 on all 518,400 primary rays (primitive
+   and t equal exactly, ties included), K1 on 131,072 live shadow rays
+   (0 mismatches); then counts the BVH tracers' box and triangle tests
+   per ray with their counting builds (-DVR_COUNT_TESTS=1) over the whole
+   bench frame, beside the upper bound of the old flat supercluster scan
+   taken from the plain version's candidate masks;
 5. renders a 128x64 frame through the kernels and through the plain
    versions and compares the images;
 6. renders the bench frame (960x540, 1 spp, four quad street lights, PSA
@@ -37,10 +42,13 @@ It
    and read after: K5 must run, K4 must not; each frame is checked and each
    cell's median ms printed beside the card.
 
-The line before the last is a JSON object listing the kernels; the last
-line is {"ok": true, "device": {...}}. Any failed check, missing GPU or
-missing package exits non-zero without that line. JAX is never imported;
-the script uses only the PyTorch port.
+The line before the last is a JSON object listing the kernels, each with
+its launches on the main path, time, plain version's time and bound
+(bytes over 3.35 TB/s or operations over 67 TFLOP/s, whichever is
+larger); the last line is {"ok": true, "device": {...}}. Any failed
+check, missing GPU or missing package exits non-zero without that line.
+Neither JAX nor any module of the JAX package (vulkan_renderer_tpu) is
+imported; the script uses only the PyTorch port.
 """
 
 import dataclasses
@@ -53,8 +61,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT = 960, 540
 SMALL_WIDTH, SMALL_HEIGHT = 128, 64
-PRIMARY_SUBSET = 4096
-SHADOW_SUBSET = 16384
+SHADOW_SUBSET = 131072
+PRIMARY_COUNT_SUBSET = 65536  # primary rays for the old scan's counts
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
+FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# Float32 operations per test, counted from csrc/common.cuh slab (per axis
+# 2 sub, 2 mul, min, max; 4 min/max to combine; 4 comparisons) and the two
+# Moeller-Trumbore bodies (crosses, dots, sign or reciprocal, 6-7 tests).
+SLAB_OPS, ANYHIT_TRI_OPS, CLOSEST_TRI_OPS = 26, 55, 57
+SC_GROUP = 32  # clusters per supercluster of the old flat scan
 TIMED_FRAMES = 7
 SWEEP_SUBSET = 4096
 SWEEP_WIDTH, SWEEP_HEIGHT = 1920, 1080
@@ -99,6 +114,60 @@ def cuda_once(torch, fn):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end), out
+
+
+def check_no_reference_modules():
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "vulkan_renderer_tpu"))
+    if loaded:
+        raise SmokeFailure(f"modules of JAX or the JAX package were "
+                           f"imported: {loaded[:8]}")
+
+
+def bound_ms(bytes_moved, operations):
+    """(least ms, the side that binds) at the H100's peak rates."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = operations / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def old_scan_counts(torch, tk, clusters, origins, dirs, t_max, closest):
+    """Box and triangle tests per ray of the flat two-level scan that the
+    BVH replaced (147 supercluster boxes in id order, the 32 member boxes
+    of each that passes, then 64 triangles per cluster, or for K2 its 8
+    sub-boxes and 8 triangles per sub-box that passes), from the plain
+    version's candidate masks: an upper bound, without early exit or
+    pruning by the best t. Returns (boxes, subboxes, triangles) per ray."""
+    k = clusters.cluster_count
+    ks = -(-k // SC_GROUP)
+    pad = torch.full((ks * SC_GROUP - k, 3), float("nan"),
+                     device=dirs.device)
+
+    def reduce(boxes, fn, fill):
+        boxes = torch.cat([boxes, pad]).reshape(ks, SC_GROUP, 3)
+        return fn(torch.where(torch.isnan(boxes), fill, boxes), dim=1)
+
+    sc_lo = reduce(clusters.aabb_lo, torch.amin, float("inf"))
+    sc_hi = reduce(clusters.aabb_hi, torch.amax, float("-inf"))
+    totals = [0, 0, 0]
+    for i in range(0, dirs.shape[0], 4096):
+        o, d, tm = (a[i:i + 4096] for a in (origins, dirs, t_max))
+        inv = tk.inverse_directions(d)
+        sc_mask, _ = tk.ray_box_slab(sc_lo, sc_hi, o, inv, tm)
+        member = tk.cluster_candidates(clusters, o, inv, tm)
+        member &= torch.repeat_interleave(sc_mask, SC_GROUP, dim=1)[:, :k]
+        totals[0] += ks * d.shape[0] + SC_GROUP * int(sc_mask.sum())
+        if closest:
+            totals[1] += clusters.subbox_count * int(member.sum())
+            for k0 in range(0, k, 256):
+                sub = tk.subbox_candidates(clusters, k0, min(k, k0 + 256),
+                                           o, inv, tm)
+                totals[2] += int((sub & member[:, k0:k0 + 256, None])
+                                 .sum())
+        else:
+            totals[2] += clusters.cluster_size * int(member.sum())
+    return [t / dirs.shape[0] for t in totals]
 
 
 def subset_indices(torch, count, available, device):
@@ -157,8 +226,7 @@ def run():
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     device = get_device("cuda")
-    if "jax" in sys.modules:
-        raise SmokeFailure("jax was imported")
+    check_no_reference_modules()
 
     settings = RenderSettings(
         sampling_strategy=SamplingStrategy.DIFFUSE_SPECULAR_MIS,
@@ -169,7 +237,10 @@ def run():
     # --- 2. kernel builds ------------------------------------------------
     bench_static = SceneStatic(light_count=4, light_texturing=(0,) * 4,
                                light_vertex_counts=(4,) * 4)
+    # The tracers also in their counting builds (box and triangle tests).
     jobs = [("anyhit", {}), ("closest", {}),
+            ("anyhit", {"VR_COUNT_TESTS": 1}),
+            ("closest", {"VR_COUNT_TESTS": 1}),
             ("fused_shading", kernel_defines(settings, bench_static))]
     for tech in PolygonSamplingTechnique:
         tech_settings = RenderSettings(
@@ -215,9 +286,14 @@ def run():
                        specs, device, data_directory=data_dir)
     torch.cuda.synchronize()
     static = SceneStatic.for_scene(scene)
+    extent = (scene.clusters.aabb_hi - scene.clusters.aabb_lo).median(
+        dim=0).values
     log(f"scene: {scene.triangle_positions.shape[0]} triangles, "
         f"{scene.clusters.cluster_count} clusters of "
-        f"{scene.clusters.cluster_size}, built in "
+        f"{scene.clusters.cluster_size} (median box extent "
+        f"{[round(float(e), 2) for e in extent]} m), "
+        f"{scene.clusters.bvh_nodes.shape[0]} BVH nodes "
+        f"({scene.clusters.bvh_nodes.numel() * 4} bytes), built in "
         f"{time.perf_counter() - start:.2f} s")
     camera = FirstPersonCamera(
         position_world_space=np.array([0.0, 0.0, 2.0], np.float32),
@@ -246,25 +322,27 @@ def run():
     results = {}
 
     # --- 4. kernels against their plain versions -----------------------------
+    # K2 on every primary ray of the bench frame. Tolerance: exact. The
+    # kernel walks the BVH in another order than the plain version scans,
+    # and both return the lexicographic minimum of (t, primitive id).
     clusters, origins, dirs, t_max = captured["trace_closest"]
-    idx = subset_indices(torch, PRIMARY_SUBSET, dirs.shape[0], device)
-    sub = [a[idx].contiguous() for a in (origins, dirs, t_max)]
-    prim_k, t_k = tk.trace_closest(clusters, *sub)
-    prim_p, t_p = tk.trace_closest_plain(clusters, *sub)
+    prim_k, t_k = tk.trace_closest(clusters, origins, dirs, t_max)
+    plain2_ms, (prim_p, t_p) = cuda_once(
+        torch, lambda: tk.trace_closest_plain(clusters, origins, dirs,
+                                              t_max))
     hit_k, hit_p = prim_k >= 0, prim_p >= 0
     both = hit_k & hit_p
+    prim_wrong = int((prim_k != prim_p).sum())
+    t_wrong = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum())
     t_err = (t_k - t_p).abs()[both]
-    tie = (t_k - t_p).abs() <= 1e-6 * torch.clamp(t_p.abs(), min=1.0)
-    wrong = (hit_k != hit_p) | (both & (prim_k != prim_p) & ~tie)
     k2_err = float(t_err.max()) if t_err.numel() else 0.0
-    log(f"K2 closest vs plain ({idx.numel()} rays, all clusters): hits "
-        f"{int(hit_k.sum())}/{int(hit_p.sum())}, non-tie mismatches "
-        f"{int(wrong.sum())} (tolerance 0), max |dt| {k2_err:.3g} "
-        f"(tolerance 1e-5 * t)")
-    check(int(wrong.sum()) == 0, "K2 disagrees with its plain version")
-    check(bool((t_err <= 1e-5 * torch.clamp(t_p[both].abs(), min=1.0))
-               .all()), "K2 t outside tolerance")
-    results["K2"] = dict(max_abs_err=k2_err, compared=idx.numel())
+    log(f"K2 closest vs plain (all {dirs.shape[0]} primary rays): hits "
+        f"{int(hit_k.sum())}/{int(hit_p.sum())}, primitive mismatches "
+        f"{prim_wrong}, t bit mismatches {t_wrong} (tolerance 0, ties "
+        f"included), max |dt| {k2_err:.3g}")
+    check(prim_wrong == 0 and t_wrong == 0,
+          "K2 disagrees with its plain version")
+    results["K2"] = dict(max_abs_err=k2_err, compared=dirs.shape[0])
 
     clusters, prim, a_orig, a_dirs, dcam = captured["closest_attrs"]
     attrs_k = tk.closest_attrs(clusters, prim, a_orig, a_dirs, dcam)
@@ -305,7 +383,8 @@ def run():
     sidx = live[subset_indices(torch, SHADOW_SUBSET, live.numel(), device)]
     ssub = [a[sidx].contiguous() for a in (s_orig, s_dirs, s_tmax)]
     occ_k = tk.trace_anyhit(clusters, *ssub)
-    occ_p = tk.trace_anyhit_plain(clusters, *ssub)
+    plain1_ms, occ_p = cuda_once(
+        torch, lambda: tk.trace_anyhit_plain(clusters, *ssub))
     k1_wrong = int((occ_k != occ_p).sum())
     log(f"K1 any-hit vs plain ({sidx.numel()} live shadow rays of "
         f"{live.numel()} live / {s_tmax.numel()}): occluded "
@@ -314,6 +393,32 @@ def run():
     check(k1_wrong == 0, "K1 disagrees with its plain version")
     results["K1"] = dict(max_abs_err=float(k1_wrong > 0),
                          compared=sidx.numel())
+
+    # --- 4b. box and triangle tests per ray ----------------------------------
+    test_counts = {}
+    for name, args, rays in (
+            ("K2", captured["trace_closest"], dirs.shape[0]),
+            ("K1", captured["trace_anyhit"], live.numel())):
+        counts = torch.zeros(3, dtype=torch.int64, device=device)
+        fn = tk.trace_closest if name == "K2" else tk.trace_anyhit
+        fn(*args, test_counts=counts)
+        boxes, subboxes, tris = (int(c) for c in counts.tolist())
+        test_counts[name] = dict(boxes=boxes, subboxes=subboxes,
+                                 triangles=tris, rays=rays)
+        log(f"{name} BVH tests per {'live ' if name == 'K1' else ''}ray "
+            f"({rays} rays): child boxes {boxes / rays:.2f}, sub-boxes "
+            f"{subboxes / rays:.2f}, triangles {tris / rays:.2f}")
+    pidx = subset_indices(torch, PRIMARY_COUNT_SUBSET, dirs.shape[0],
+                          device)
+    sub_primary = [a[pidx].contiguous() for a in (origins, dirs, t_max)]
+    for name, args, closest in (("K2", sub_primary, True),
+                                ("K1", ssub, False)):
+        boxes, subboxes, tris = old_scan_counts(torch, tk, clusters, *args,
+                                                closest)
+        log(f"{name} old flat scan, upper bound without early exit or "
+            f"best-t pruning ({args[1].shape[0]} rays of the plain "
+            f"checks): boxes {boxes:.2f}, sub-boxes {subboxes:.2f}, "
+            f"triangles {tris:.2f} per ray")
 
     # --- 5. small frame: kernels vs plain versions ---------------------------
     with torch.no_grad():
@@ -384,10 +489,8 @@ def run():
     s_args = captured["trace_anyhit"]
     timings = {
         "K2": (cuda_ms(torch, lambda: tk.trace_closest(*c_args), 5),
-               cuda_ms(torch, lambda: tk.trace_closest_plain(clusters, *sub),
-                       1),
-               cuda_ms(torch, lambda: tk.trace_closest(clusters, *sub), 5),
-               f"{c_args[2].shape[0]} rays", f"{sub[1].shape[0]} rays"),
+               plain2_ms, None, f"{c_args[2].shape[0]} rays",
+               f"{c_args[2].shape[0]} rays"),
         "K3": (cuda_ms(torch, lambda: tk.closest_attrs(*a_args), 10),
                cuda_ms(torch, lambda: tk.closest_attrs_plain(*a_args), 3),
                None, f"{a_args[3].shape[0]} rays", None),
@@ -397,15 +500,15 @@ def run():
                None, f"{f_args[0].shape[1]} pixels x "
                f"{static.light_count} lights", None),
         "K1": (cuda_ms(torch, lambda: tk.trace_anyhit(*s_args), 3),
-               cuda_ms(torch, lambda: tk.trace_anyhit_plain(clusters, *ssub),
-                       1),
+               plain1_ms,
                cuda_ms(torch, lambda: tk.trace_anyhit(clusters, *ssub), 5),
                f"{s_args[2].shape[0]} rays ({live.numel()} live)",
                f"{ssub[1].shape[0]} live rays"),
     }
     for name, (ms, plain_ms, ms_sub, shape, plain_shape) in timings.items():
-        where = f" (plain on {plain_shape}; kernel there {ms_sub:.3f} ms)" \
-            if plain_shape else ""
+        where = "" if plain_shape is None else \
+            f" (plain on {plain_shape})" if ms_sub is None else \
+            f" (plain on {plain_shape}; kernel there {ms_sub:.3f} ms)"
         log(f"{name}: kernel {ms:.3f} ms on {shape}; plain {plain_ms:.3f} ms"
             f"{where} [{card}]")
 
@@ -545,6 +648,8 @@ def run():
                 k5_main = (ms5, plain5_ms,
                            f"{planes.shape[1]} pixels x {st.light_count} "
                            f"lights x 1 spp (PSA)", f"{idx.numel()} pixels")
+                k5_bytes = 4 * (planes.numel() + noise.numel()
+                                + ls.numel() + 3 * planes.shape[1])
             del app, planes, noise, k5_args
             torch.cuda.empty_cache()
     print(json.dumps({"techniques": technique_rows}), flush=True)
@@ -626,6 +731,29 @@ def run():
     results["K5"] = dict(max_abs_err=max(
         [r["k5_max_abs_err"] for r in technique_rows]
         + [r["max_abs_err"] for r in mis_rows]))
+    # Bounds from this run's inputs: each input byte read once, each
+    # output byte written once; the tracers' operations from their counted
+    # box and triangle tests. K3-K5 count bytes only (their operations are
+    # not counted here): a lower bound.
+    tables = 4 * (clusters.planes.numel() + clusters.subboxes.numel()
+                  + clusters.bvh_nodes.numel())
+    bounds = {}
+    for name, args, out_bytes, tri_ops in (
+            ("K1", s_args, 1, ANYHIT_TRI_OPS),
+            ("K2", c_args, 8, CLOSEST_TRI_OPS)):
+        c = test_counts[name]
+        bounds[name] = bound_ms(
+            args[2].shape[0] * (28 + out_bytes) + tables,
+            (c["boxes"] + c["subboxes"]) * SLAB_OPS
+            + c["triangles"] * tri_ops)
+    a_prim = a_args[1]
+    bounds["K3"] = bound_ms(a_prim.numel() * (28 + 18 * 4)
+                            + int((a_prim >= 0).sum()) * 25 * 4, 0)
+    f_planes, f_lights = f_args[0], f_args[1]
+    k4_out = 3 + 7 * static.light_count * fused.rays_per_light(settings)
+    bounds["K4"] = bound_ms(4 * (f_planes.numel() + f_lights.numel()
+                                 + k4_out * f_planes.shape[1]), 0)
+    bounds["K5"] = bound_ms(k5_bytes, 0)
     kernels = []
     for name in ("K1", "K2", "K3", "K4", "K5"):
         ms, plain_ms, ms_sub, shape, plain_shape = timings[name]
@@ -633,13 +761,18 @@ def run():
                  "replaces": sources[name][1], "launches": launches[name],
                  "max_abs_err": results[name]["max_abs_err"],
                  "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                 "bound_ms": round(bounds[name][0], 5),
+                 "bound_by": bounds[name][1], "library_ms": None,
                  "shape": shape}
+        if name in test_counts:
+            entry["tests"] = test_counts[name]
         if plain_shape and ms_sub is not None:
             entry.update(plain_shape=plain_shape,
                          ms_at_plain_shape=round(ms_sub, 4))
         elif plain_shape:
             entry.update(plain_shape=plain_shape)
         kernels.append(entry)
+    check_no_reference_modules()
     print(json.dumps({"kernels": kernels, "frame_ms_median":
                       round(frame_median, 4), "card": card}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,16 @@
-"""Shared inputs of the port's fused-shading parity tests: seeded shading
-data, LTC coefficients from the packaged fits, hit mask, noise and light
-records, made with numpy and handed to both packages, and a comparison of
-the JAX package's plain-XLA shading with the port's plain versions."""
+"""Shared inputs of the port's parity tests: seeded shading data, LTC
+coefficients from the packaged fits, hit mask, noise and light records,
+made with numpy and handed to both packages, and a comparison of the JAX
+package's plain-XLA shading with the port's plain versions.
 
+The two packages have their own RenderSettings, PolygonalLightSpec and
+FirstPersonCamera classes (the port imports nothing of the JAX package).
+to_port / to_jax rebuild one package's object as the other's from the same
+field values, mapping enum members by name, so each package is handed its
+own class."""
+
+import dataclasses
+import enum
 import functools
 
 import jax
@@ -10,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from vulkan_renderer_tpu.core import settings as j_settings
 from vulkan_renderer_tpu.ops.brdf import ShadingData as JShadingData
 from vulkan_renderer_tpu.ops.ltc import (LtcTable as JLtcTable,
                                          get_ltc_coefficients,
@@ -17,16 +26,51 @@ from vulkan_renderer_tpu.ops.ltc import (LtcTable as JLtcTable,
 from vulkan_renderer_tpu.render import fused as j_fused
 from vulkan_renderer_tpu.render.shading import SceneStatic as JSceneStatic
 from vulkan_renderer_tpu.render.shading import pairs_per_light
+from vulkan_renderer_tpu.scene import camera as j_camera
+from vulkan_renderer_tpu.scene import lights as j_lights
 from vulkan_renderer_tpu.scene.lights import (PolygonalLightSpec,
                                               stack_lights,
                                               update_polygonal_light)
 from vulkan_renderer_tpu_torch.assets.ltc_table import default_ltc_table
+from vulkan_renderer_tpu_torch.core import settings as t_settings
 from vulkan_renderer_tpu_torch.ops.ltc import LtcCoefficients
 from vulkan_renderer_tpu_torch.render import fused
 from vulkan_renderer_tpu_torch.render.shading import SceneStatic, ShadingData
+from vulkan_renderer_tpu_torch.scene import camera as t_camera
+from vulkan_renderer_tpu_torch.scene import lights as t_lights
 from vulkan_renderer_tpu_torch.scene.scene import lights_from_specs
 
 PIXELS = 160
+
+_JAX_MODULES = (j_settings, j_lights, j_camera)
+_PORT_MODULES = (t_settings, t_lights, t_camera)
+
+
+def _named(modules, name):
+    return next(getattr(m, name) for m in modules if hasattr(m, name))
+
+
+def _rebuild(obj, modules):
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_rebuild(o, modules) for o in obj)
+    values = {}
+    for field in dataclasses.fields(obj):
+        value = getattr(obj, field.name)
+        if isinstance(value, enum.Enum):
+            value = _named(modules, type(value).__name__)[value.name]
+        values[field.name] = value
+    return _named(modules, type(obj).__name__)(**values)
+
+
+def to_port(obj):
+    """A RenderSettings, PolygonalLightSpec or FirstPersonCamera (or a list
+    of them) of either package as the port's class."""
+    return _rebuild(obj, _PORT_MODULES)
+
+
+def to_jax(obj):
+    """The same as the JAX package's class."""
+    return _rebuild(obj, _JAX_MODULES)
 
 
 def regular_polygon(n):
@@ -118,7 +162,7 @@ def port_inputs(data, ltc, hit, noise, specs):
         torch.from_numpy(hit),
         torch.from_numpy(noise.reshape(noise.shape[0], -1).T))
     light_scalars = fused.pack_light_scalars(
-        lights_from_specs(specs, "cpu"), len(specs))
+        lights_from_specs(to_port(specs), "cpu"), len(specs))
     return planes, light_scalars, static
 
 

@@ -4,6 +4,7 @@ noise tables and the noise image, the texture atlas and fetch, cluster
 tables and the scene build. Inputs come from seeded numpy generators and
 go through both packages."""
 
+import dataclasses
 import filecmp
 import os
 
@@ -13,28 +14,36 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_shading_inputs import to_jax, to_port
 from vulkan_renderer_tpu.assets import ltc_table as j_ltc_table
 from vulkan_renderer_tpu.assets import noise as j_noise
+from vulkan_renderer_tpu.assets import quicksave as j_quicksave
+from vulkan_renderer_tpu.assets import vks as j_vks
 from vulkan_renderer_tpu.assets import vkt as j_vkt
+from vulkan_renderer_tpu.core import settings as j_settings
 from vulkan_renderer_tpu.ops import ltc as j_ltc
 from vulkan_renderer_tpu.ops import math_utils as j_math
 from vulkan_renderer_tpu.ops import noise as j_ops_noise
+from vulkan_renderer_tpu.render import screenshot as j_screenshot
 from vulkan_renderer_tpu.render import texture as j_texture
-from vulkan_renderer_tpu.render import trace_kernel as j_trace
 from vulkan_renderer_tpu.render.wavefront import build_clusters
 from vulkan_renderer_tpu.scene.lights import PolygonalLightSpec
 from vulkan_renderer_tpu.scene.scene import load_scene as j_load_scene
 from vulkan_renderer_tpu.tools import city as j_city
 from vulkan_renderer_tpu.tools import export_scene as j_export
-from vulkan_renderer_tpu_torch.assets import ltc_table, noise, vkt
+from vulkan_renderer_tpu.tools import generate_noise as j_generate_noise
+from vulkan_renderer_tpu_torch.assets import (ltc_table, noise, quicksave,
+                                              vks, vkt)
+from vulkan_renderer_tpu_torch.core import settings as t_settings
 from vulkan_renderer_tpu_torch.ops import ltc, math_utils
 from vulkan_renderer_tpu_torch.ops.noise import get_noise_image
 from vulkan_renderer_tpu_torch.render import clusters as t_clusters
-from vulkan_renderer_tpu_torch.render import texture
+from vulkan_renderer_tpu_torch.render import screenshot, texture
 from vulkan_renderer_tpu_torch.render.trace_kernel import (
     cluster_candidates, inverse_directions, ray_box_slab)
 from vulkan_renderer_tpu_torch.scene import scene as t_scene
-from vulkan_renderer_tpu_torch.tools import city, export_scene
+from vulkan_renderer_tpu_torch.tools import city, export_scene, \
+    generate_noise
 
 
 def _tree_equal(a_dir, b_dir):
@@ -60,6 +69,76 @@ def test_city_and_cornell_files_match_reference_bytes(tmp_path):
     names = _tree_equal(str(a), str(b))
     assert "c.vks" in names and "cornell_box.vks" in names
     assert len(names) == 2 + 3 * (6 + 3)
+
+
+def _write_vks(pkg, path, src):
+    pkg.save_vks(path, pkg.load_vks(src))
+
+
+def _write_quicksave(pkg, path, src):
+    save = pkg.load_quicksave(src)
+    assert save.camera.rotation_x == np.float32(0.25)
+    pkg.save_quicksave(path, save)
+
+
+@pytest.mark.parametrize("kind", ["vks", "quicksave", "png", "hdr",
+                                  "sobol_2d", "owen_2d", "burley_owen_2d",
+                                  "ahmed_2d"])
+def test_copied_file_formats_match_reference_bytes(tmp_path, rng, kind):
+    """The port's own copies of the JAX package's JAX-free modules (.vks
+    reader and writer, quicksave, screenshot writers, Sobol-family noise
+    generator) write the same bytes from the same inputs."""
+    a, b = tmp_path / "port", tmp_path / "jax"
+    a.mkdir()
+    b.mkdir()
+    if kind == "vks":
+        src = j_export.write_test_scene(str(tmp_path), texture_resolution=8)
+        _write_vks(vks, str(a / "s.vks"), src)
+        _write_vks(j_vks, str(b / "s.vks"), src)
+    elif kind == "quicksave":
+        camera = j_quicksave.FirstPersonCamera(
+            position_world_space=np.array([1.0, 2.0, 3.0], np.float32),
+            rotation_x=0.25, rotation_z=1.5)
+        lights = [LIGHT, j_quicksave.PolygonalLightSpec(
+            vertices_plane_space=np.array([[0, 0], [1, 0], [0.5, 1]],
+                                          np.float32),
+            texture_file_path="lamp.vkt")]
+        src = str(tmp_path / "src.save")
+        j_quicksave.save_quicksave(src, j_quicksave.Quicksave(camera,
+                                                              lights))
+        _write_quicksave(quicksave, str(a / "s.save"), src)
+        _write_quicksave(j_quicksave, str(b / "s.save"), src)
+    elif kind in ("png", "hdr"):
+        image = rng.uniform(0.0, 4.0, (9, 13, 3)).astype(np.float32)
+        if kind == "png":
+            image = np.clip(image / 4.0, 0.0, 1.0)
+        screenshot.take_screenshot(str(a / f"s.{kind}"), image)
+        j_screenshot.take_screenshot(str(b / f"s.{kind}"), image)
+    else:
+        generate_noise.generate_sobol_family(str(a), kind, 32, 32, 4)
+        j_generate_noise.generate_sobol_family(str(b), kind, 32, 32, 4)
+    assert len(_tree_equal(str(a), str(b))) == 1
+
+
+def test_settings_copy_matches_reference():
+    """The port's RenderSettings has the JAX package's fields, defaults,
+    enum members and legality rules; to_port / to_jax map between them."""
+    for name in ("SamplingStrategy", "MisHeuristic",
+                 "PolygonSamplingTechnique", "ErrorDisplay"):
+        ours, ref = getattr(t_settings, name), getattr(j_settings, name)
+        assert [(m.name, m.value) for m in ours] == \
+            [(m.name, m.value) for m in ref]
+    ours = t_settings.RenderSettings()
+    ref = j_settings.RenderSettings()
+    assert [f.name for f in dataclasses.fields(ours)] == \
+        [f.name for f in dataclasses.fields(ref)]
+    assert to_jax(ours) == ref and to_port(ref) == ours
+    with pytest.raises(ValueError, match="illegal RenderSettings"):
+        t_settings.RenderSettings(
+            sampling_strategy=t_settings.SamplingStrategy.DIFFUSE_GGX_MIS,
+            polygon_sampling_technique=(
+                t_settings.PolygonSamplingTechnique.BASELINE))
+    assert ours.sampling_strategy != ref.sampling_strategy  # other classes
 
 
 def test_morton_order_and_checkerboard_match(rng):
@@ -237,20 +316,20 @@ def test_cluster_tables_match_reference():
         np.testing.assert_array_equal(got[key], np.asarray(getattr(want,
                                                                    key)))
     assert np.isnan(got["subboxes"][-1]).any()
-    member_rows, sc_lo, sc_hi = j_trace._supercluster_aabbs(want)
-    p_sc_lo, p_sc_hi, m_lo, m_hi = t_clusters.supercluster_tables_np(
-        got["aabb_lo"], got["aabb_hi"])
-    np.testing.assert_array_equal(p_sc_lo, np.asarray(sc_lo))
-    np.testing.assert_array_equal(p_sc_hi, np.asarray(sc_hi))
-    ks = p_sc_lo.shape[0]
-    rows = np.asarray(member_rows)
-    np.testing.assert_array_equal(m_lo.reshape(ks, -1), rows[:, :96])
-    np.testing.assert_array_equal(m_hi.reshape(ks, -1), rows[:, 96:])
+    # The JAX package's tables carried over give the same cluster BVH,
+    # bit for bit.
+    carried = t_clusters.clusters_from_numpy(
+        {key: np.asarray(getattr(want, key)) for key in
+         ("aabb_lo", "aabb_hi", "planes", "attrs", "subboxes")}, "cpu")
+    own = t_clusters.clusters_from_numpy(got, "cpu")
+    np.testing.assert_array_equal(own.bvh_nodes.numpy().view(np.int32),
+                                  carried.bvh_nodes.numpy().view(np.int32))
 
 
 def test_nan_pad_boxes_never_hit(rng):
-    """NaN padding boxes (superclusters, sub-boxes) must fail the slab test
-    for every ray, including axis-parallel ones whose 1/d is 1e30."""
+    """NaN padding boxes (the BVH's padding leaves, sub-boxes) must fail
+    the slab test for every ray, including axis-parallel ones whose 1/d is
+    1e30."""
     r = 256
     origins = torch.from_numpy(rng.normal(size=(r, 3)).astype(np.float32))
     dirs = torch.from_numpy(rng.normal(size=(r, 3)).astype(np.float32))
@@ -272,8 +351,13 @@ def test_nan_pad_boxes_never_hit(rng):
         t_clusters.build_clusters_np(tris, norms, uvs, mats), "cpu")
     cand = cluster_candidates(clusters, origins * 0.0, inv,
                               t_cap)
-    assert not bool(cand[:, clusters.cluster_count:].any())
-    assert bool(cand[:, :clusters.cluster_count].any())
+    assert cand.shape == (r, clusters.cluster_count) and bool(cand.any())
+    boxes, refs = t_clusters.bvh_children(clusters.bvh_nodes.numpy())
+    padding = torch.from_numpy(boxes[-1 - refs >= clusters.cluster_count])
+    assert padding.shape[0] > 0 and bool(torch.isnan(padding).all())
+    mask, _ = ray_box_slab(padding[:, :3], padding[:, 3:], origins * 0.0,
+                           inv, t_cap)
+    assert not bool(mask.any())
 
 
 LIGHT = PolygonalLightSpec(
@@ -292,17 +376,22 @@ def test_scene_build_matches_reference(tmp_path):
                           noise_type=j_noise.NoiseType.WHITE,
                           data_directory=str(tmp_path))
     carried = t_scene.scene_from_numpy(t_scene.tree_leaves(jscene), "cpu")
-    own = t_scene.load_scene(vks, tex, [LIGHT], "cpu",
+    own = t_scene.load_scene(vks, tex, [to_port(LIGHT)], "cpu",
                              noise=noise.white_noise_table())
     # Dequantization and the octahedral decode: float32 rounding only.
     np.testing.assert_allclose(own.triangle_positions.numpy(),
                                carried.triangle_positions.numpy(), atol=1e-6)
-    for field in ("aabb_lo", "aabb_hi", "planes", "attrs", "subboxes",
-                  "sc_lo", "sc_hi", "member_lo", "member_hi"):
+    for field in ("aabb_lo", "aabb_hi", "planes", "attrs", "subboxes"):
         np.testing.assert_allclose(
             getattr(own.clusters, field).numpy(),
             getattr(carried.clusters, field).numpy(), atol=2e-6,
             err_msg=field)
+    # The trees have the same shape; their boxes follow the cluster boxes.
+    own_boxes, own_refs = t_clusters.bvh_children(
+        own.clusters.bvh_nodes.numpy())
+    boxes, refs = t_clusters.bvh_children(carried.clusters.bvh_nodes.numpy())
+    np.testing.assert_array_equal(own_refs, refs)
+    np.testing.assert_allclose(own_boxes, boxes, atol=2e-6)
     for field in ("texels", "mip_offset", "mip_width", "mip_height",
                   "mip_count"):
         a = getattr(own.material_atlas, field).numpy()

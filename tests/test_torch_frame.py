@@ -13,6 +13,7 @@ structure-of-arrays twin, re-intersection vs t * direction), so a
 import numpy as np
 import pytest
 
+from _torch_shading_inputs import to_port
 from vulkan_renderer_tpu.assets.noise import NoiseType
 from vulkan_renderer_tpu.core.settings import RenderSettings
 from vulkan_renderer_tpu.render.pipeline import render_frame as j_render
@@ -76,8 +77,8 @@ def _compare(jscene, camera, shadows):
     want = np.asarray(j_render(jscene, jstatic, camera, settings, WIDTH,
                                HEIGHT))
     scene = scene_from_numpy(tree_leaves(jscene), "cpu")
-    got = render_frame(scene, SceneStatic.for_scene(scene), camera,
-                       settings, WIDTH, HEIGHT).numpy()
+    got = render_frame(scene, SceneStatic.for_scene(scene), to_port(camera),
+                       to_port(settings), WIDTH, HEIGHT).numpy()
     assert got.shape == want.shape == (HEIGHT, WIDTH, 3)
     assert np.isfinite(got).all()
     diff = np.abs(got - want)
@@ -90,6 +91,17 @@ def _compare(jscene, camera, shadows):
 def test_cornell_frame_matches_reference(cornell, shadows):
     got = _compare(*cornell, shadows)
     assert 0.05 < got.mean() < 0.95
+
+
+def test_frame_refuses_jax_settings(cornell):
+    """The JAX package's RenderSettings is another class whose enum
+    members compare unequal to the port's: the frame raises TypeError
+    instead of taking a wrong branch on them."""
+    jscene, camera = cornell
+    scene = scene_from_numpy(tree_leaves(jscene), "cpu")
+    with pytest.raises(TypeError, match="port's RenderSettings"):
+        render_frame(scene, SceneStatic.for_scene(scene), to_port(camera),
+                     RenderSettings(), WIDTH, HEIGHT)
 
 
 @pytest.mark.parametrize("shadows", [True, False])

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_shading_inputs import to_port
 from vulkan_renderer_tpu.core.settings import (MisHeuristic,
                                                PolygonSamplingTechnique,
                                                RenderSettings,
@@ -95,7 +96,8 @@ def _settings(heuristic, biased):
 
 
 def test_light_scalars_match_reference():
-    got = fused.pack_light_scalars(lights_from_specs(SPECS, "cpu"), 2)
+    got = fused.pack_light_scalars(lights_from_specs(to_port(SPECS), "cpu"),
+                                   2)
     want = j_fused._pack_light_scalars(
         stack_lights([update_polygonal_light(s) for s in SPECS]), 2)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -130,8 +132,9 @@ def test_fused_plain_matches_reference(inputs, heuristic, biased):
         torch.from_numpy(hit),
         torch.from_numpy(noise.reshape(noise.shape[0], -1).T))
     out = fused.fused_light_shading(
-        planes, fused.pack_light_scalars(lights_from_specs(SPECS, "cpu"), 2),
-        STATIC, settings)
+        planes, fused.pack_light_scalars(
+            lights_from_specs(to_port(SPECS), "cpu"), 2),
+        STATIC, to_port(settings))
     got = [g.numpy() for g in fused.unpack_outputs(out, 8)]
     for name, g, w in zip(("base", "b", "dirs", "t_max"), got, want):
         assert g.shape == w.shape, name
@@ -151,14 +154,17 @@ def test_unsupported_settings_raise():
                         polygon_sampling_technique=(
                             PolygonSamplingTechnique.SOLID_ANGLE))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fused.check_supported(STATIC, RenderSettings(**kwargs))
+            fused.check_supported(STATIC, to_port(RenderSettings(**kwargs)))
     # Every technique is fused under DIFFUSE_ONLY.
     for tech in PolygonSamplingTechnique:
-        fused.check_supported(STATIC, RenderSettings(
+        fused.check_supported(STATIC, to_port(RenderSettings(
             sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
-            polygon_sampling_technique=tech))
+            polygon_sampling_technique=tech)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused.check_supported(
             dataclasses.replace(STATIC, light_texturing=(1, 0)),
-            RenderSettings())
-    fused.check_supported(STATIC, RenderSettings())
+            to_port(RenderSettings()))
+    fused.check_supported(STATIC, to_port(RenderSettings()))
+    # The JAX package's settings class is refused, not misread.
+    with pytest.raises(TypeError, match="port's RenderSettings"):
+        fused.check_supported(STATIC, RenderSettings())

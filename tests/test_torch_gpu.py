@@ -1,16 +1,18 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (K1-K5 and a whole frame), on a tiny city and the roughness-planes
 stand-in. Marked gpu: they skip where
-torch.cuda.is_available() is False. This file imports no JAX, so on a
-machine with a card and no JAX it runs without the repository's
-conftest:
+torch.cuda.is_available() is False. This file imports only the port (no
+JAX, nothing of the JAX package), so on a machine with a card and no JAX
+it runs without the repository's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 The kernels are built with --fmad=false and run the plain versions'
 operations in the same order, so the tolerances are tight: exact
-occlusion and primitive ids, and float differences only from the
-card's transcendental and rsqrt instructions."""
+occlusion, primitive ids and hit distances (the tracers walk the
+cluster BVH in another order than the plain versions scan, and still
+return the same lexicographic minimum of (t, primitive id)), and float
+differences only from the card's transcendental and rsqrt instructions."""
 
 import dataclasses
 
@@ -18,18 +20,17 @@ import numpy as np
 import pytest
 import torch
 
-from vulkan_renderer_tpu.core.settings import (MisHeuristic,
-                                               PolygonSamplingTechnique as Tech,
-                                               RenderSettings,
-                                               SamplingStrategy)
-from vulkan_renderer_tpu.scene.camera import FirstPersonCamera
-from vulkan_renderer_tpu.scene.lights import PolygonalLightSpec
 from vulkan_renderer_tpu_torch.assets.noise import white_noise_table
+from vulkan_renderer_tpu_torch.core.settings import (
+    MisHeuristic, PolygonSamplingTechnique as Tech, RenderSettings,
+    SamplingStrategy)
 from vulkan_renderer_tpu_torch.experiments.setups import (
     _regular_polygon, _scene_default_camera)
 from vulkan_renderer_tpu_torch.render import fused, pipeline
 from vulkan_renderer_tpu_torch.render import trace_kernel as tk
 from vulkan_renderer_tpu_torch.render.shading import SceneStatic
+from vulkan_renderer_tpu_torch.scene.camera import FirstPersonCamera
+from vulkan_renderer_tpu_torch.scene.lights import PolygonalLightSpec
 from vulkan_renderer_tpu_torch.scene.scene import load_scene
 from vulkan_renderer_tpu_torch.tools import kernel_check
 from vulkan_renderer_tpu_torch.tools.city import write_city_scene

@@ -15,6 +15,7 @@ import os
 import numpy as np
 import pytest
 
+from _torch_shading_inputs import to_jax, to_port
 from vulkan_renderer_tpu.assets.noise import (INITIAL_RANDOM_SEED as
                                               J_SEED, NoiseType,
                                               advance_noise_random_numbers as
@@ -41,7 +42,9 @@ def test_experiment_lists_agree():
     ref = j_harness.create_experiment_list()
     assert len(ours) == len(ref) == 328
     for i, (a, b) in enumerate(zip(ours, ref)):
-        assert dataclasses.asdict(a) == dataclasses.asdict(b), i
+        # Each package has its own settings class: compare field values.
+        assert dataclasses.asdict(dataclasses.replace(
+            a, settings=to_jax(a.settings))) == dataclasses.asdict(b), i
     sweep = [i for i, e in enumerate(ours)
              if "timings_" in e.screenshot_path]
     assert sweep == list(range(50, 310))
@@ -71,7 +74,8 @@ def test_roughness_planes_files_match_reference_bytes(tmp_path):
 def test_layouts_match_reference(layout):
     exp = j_harness.Experiment(1, 1, "arcade", RenderSettings(), "x",
                                light_layout=layout)
-    ours = setups.experiment_lights(exp)
+    ours = setups.experiment_lights(harness.Experiment(
+        1, 1, "arcade", to_port(RenderSettings()), "x", light_layout=layout))
     ref = j_setups.experiment_lights(exp)
     assert len(ours) == len(ref)
     for a, b in zip(ours, ref):
@@ -142,7 +146,7 @@ def _app_frame(planes_dir, noise_type):
         planes_dir + "/roughness_planes_textures",
         camera=setups._scene_default_camera("roughness_planes"),
         lights=setups.timing_lights(4, True, 2))
-    app = Application(spec, settings, width=64, height=32,
+    app = Application(spec, to_port(settings), width=64, height=32,
                       data_directory=planes_dir, device="cpu")
     return app, app.render_frame_sync().numpy()
 
@@ -150,13 +154,14 @@ def _app_frame(planes_dir, noise_type):
 def _jax_frame(planes_dir, app, noise):
     jscene = j_load_scene(planes_dir + "/roughness_planes.vks",
                           planes_dir + "/roughness_planes_textures",
-                          app.scene_spec.lights, noise_type=noise,
+                          to_jax(app.scene_spec.lights), noise_type=noise,
                           data_directory=planes_dir)
     _, randoms = j_advance(J_SEED, True)
     return np.asarray(j_render(
         jscene, JSceneStatic(light_count=2, light_texturing=(0, 0),
                              traversal="bruteforce"),
-        app.scene_spec.camera, app.settings, 64, 32, randoms))
+        to_jax(app.scene_spec.camera), to_jax(app.settings), 64, 32,
+        randoms))
 
 
 def test_noise_type_reaches_the_frame(planes_dir):

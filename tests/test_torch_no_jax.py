@@ -1,9 +1,11 @@
-"""The PyTorch port never imports JAX: in a fresh interpreter, import every
-module of vulkan_renderer_tpu_torch (the experiment harness, setups,
-registry, Application and the technique modules among them), write and
-load a tiny scene with the port's own tools, render a shadowed frame and a
-no-shadow DIFFUSE_ONLY frame (the K5 path) on the CPU, run a timing-sweep
-experiment through the harness, and check sys.modules."""
+"""The PyTorch port imports neither JAX nor anything of the JAX package: in
+a fresh interpreter, import every module of vulkan_renderer_tpu_torch (the
+experiment harness, setups, registry, Application and the technique
+modules among them), write and load a tiny scene with the port's own
+tools, render a shadowed frame and a no-shadow DIFFUSE_ONLY frame (the K5
+path) on the CPU, run a timing-sweep experiment through the harness, and
+check that sys.modules holds no jax and no module of vulkan_renderer_tpu
+(data files of the JAX package are read by path, not by import)."""
 
 import os
 import subprocess
@@ -18,9 +20,10 @@ import numpy as np
 import vulkan_renderer_tpu_torch as port
 for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(info.name)
-from vulkan_renderer_tpu.core.settings import RenderSettings
-from vulkan_renderer_tpu.scene.camera import FirstPersonCamera
-from vulkan_renderer_tpu.scene.lights import PolygonalLightSpec
+from vulkan_renderer_tpu_torch.core.settings import (
+    PolygonSamplingTechnique, RenderSettings, SamplingStrategy)
+from vulkan_renderer_tpu_torch.scene.camera import FirstPersonCamera
+from vulkan_renderer_tpu_torch.scene.lights import PolygonalLightSpec
 from vulkan_renderer_tpu_torch.assets.noise import white_noise_table
 from vulkan_renderer_tpu_torch.render.pipeline import render_frame
 from vulkan_renderer_tpu_torch.render.shading import SceneStatic
@@ -41,8 +44,6 @@ camera = FirstPersonCamera(
 img = render_frame(scene, SceneStatic.for_scene(scene), camera,
                    RenderSettings(trace_shadow_rays=True), 32, 16)
 assert img.shape == (16, 32, 3) and bool(img.isfinite().all())
-from vulkan_renderer_tpu.core.settings import (PolygonSamplingTechnique,
-                                               SamplingStrategy)
 img = render_frame(scene, SceneStatic.for_scene(scene), camera,
                    RenderSettings(
                        sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
@@ -57,20 +58,8 @@ assert harness.main(["-e", "193", "--device", "cpu", "--width", "16",
                      "--output-dir", d + "/out", "--data-directory",
                      d + "/data", "--results-csv", d + "/r.csv"]) == 0
 print("JAX_IMPORTED", "jax" in sys.modules)
-# The JAX-free host modules of the reference package the port may use.
-allowed = {"vulkan_renderer_tpu", "vulkan_renderer_tpu.core",
-           "vulkan_renderer_tpu.core.settings",
-           "vulkan_renderer_tpu.core.timer", "vulkan_renderer_tpu.scene",
-           "vulkan_renderer_tpu.scene.camera",
-           "vulkan_renderer_tpu.scene.lights", "vulkan_renderer_tpu.assets",
-           "vulkan_renderer_tpu.assets.vks",
-           "vulkan_renderer_tpu.assets.quicksave",
-           "vulkan_renderer_tpu.tools",
-           "vulkan_renderer_tpu.tools.generate_noise",
-           "vulkan_renderer_tpu.render",
-           "vulkan_renderer_tpu.render.screenshot"}
 used = {m for m in sys.modules if m.split(".")[0] == "vulkan_renderer_tpu"}
-print("OTHER_REFERENCE_MODULES", sorted(used - allowed))
+print("REFERENCE_MODULES", sorted(used))
 """
 
 
@@ -80,4 +69,4 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "JAX_IMPORTED False" in proc.stdout, proc.stdout
-    assert "OTHER_REFERENCE_MODULES []" in proc.stdout, proc.stdout
+    assert "REFERENCE_MODULES []" in proc.stdout, proc.stdout

@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 
 from _torch_shading_inputs import (agreement, jax_reference, light_specs,
-                                   noise_pairs, port_inputs, shading_inputs)
+                                   noise_pairs, port_inputs, shading_inputs,
+                                   to_port)
 from vulkan_renderer_tpu.core.settings import (MisHeuristic,
                                                PolygonSamplingTechnique,
                                                RenderSettings,
@@ -48,13 +49,13 @@ def _resolved(inputs, specs, settings):
     base, b, _, _ = jax_reference(data, ltc, hit, noise, specs, settings)
     want = base + b.sum(axis=1)
     planes, light_scalars, static = port_inputs(data, ltc, hit, noise, specs)
-    ppl = fused.rays_per_light(settings)
+    ppl = fused.rays_per_light(to_port(settings))
     n_base = len(fused.BASE_PLANES)
     # K5's light-major noise is K4's noise planes viewed by light.
     noise_lm = planes[n_base:].view(static.light_count, 2 * ppl, -1)
     got = fused.fused_light_shading_resolved(
         planes[:n_base].contiguous(), noise_lm, light_scalars, static,
-        settings)
+        to_port(settings))
     return got.numpy(), want
 
 
@@ -124,5 +125,5 @@ def test_resolved_matches_jax_pallas_interpret(inputs):
     got = fused.fused_light_shading_resolved(
         planes[:n_base].contiguous(),
         planes[n_base:].view(2, 4, -1),
-        light_scalars, static, settings).numpy()
+        light_scalars, static, to_port(settings)).numpy()
     _check(got, want, Tech.SOLID_ANGLE)

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from _torch_shading_inputs import to_port
 from vulkan_renderer_tpu.assets.noise import NoiseType
 from vulkan_renderer_tpu.core.settings import RenderSettings
 from vulkan_renderer_tpu.render import pipeline as j_pipeline
@@ -45,7 +46,8 @@ def test_preamble_matches_reference(tmp_path):
         rotation_x=0.77 * np.pi, rotation_z=np.pi)
     w, h = 32, 24
     constants = pipeline.make_frame_constants(
-        camera, w, h, settings, np.zeros(4, np.uint32), "cpu")
+        to_port(camera), w, h, to_port(settings), np.zeros(4, np.uint32),
+        "cpu")
     jconstants = j_pipeline.make_frame_constants(
         camera, w, h, settings, np.zeros(4, np.uint32))
     dirs = pipeline.camera_rays(constants, w, h)
@@ -72,7 +74,7 @@ def test_preamble_matches_reference(tmp_path):
         jnp.asarray(prim), jnp.asarray(dirs.numpy()), jgeom,
         jnp.asarray(position))
     data, ltc, base = pipeline.pixel_preamble(
-        scene, static, settings, constants, torch.from_numpy(hit), dirs,
+        scene, static, to_port(settings), constants, torch.from_numpy(hit), dirs,
         torch.from_numpy(planes.T.copy()), torch.from_numpy(position))
 
     # The light display is exact set logic on the same float inputs.

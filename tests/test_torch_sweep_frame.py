@@ -14,6 +14,7 @@ fan decision. Arvo PSA, whose azimuth sectors flip more often
 import numpy as np
 import pytest
 
+from _torch_shading_inputs import to_jax, to_port
 from vulkan_renderer_tpu.assets.noise import NoiseType
 from vulkan_renderer_tpu.core.settings import (PolygonSamplingTechnique,
                                                RenderSettings,
@@ -54,7 +55,8 @@ def test_timing_frame_matches_reference(planes_dir, tech, layout, spp):
     assert [s.vertex_count for s in specs] == \
         [s.vertex_count for s in j_timing_lights(*layout)]
     jscene = load_scene(planes_dir + "/roughness_planes.vks",
-                        planes_dir + "/roughness_planes_textures", specs,
+                        planes_dir + "/roughness_planes_textures",
+                        to_jax(specs),
                         noise_type=NoiseType.AHMED, data_directory=planes_dir)
     count = len(specs)
     settings = RenderSettings(
@@ -67,10 +69,10 @@ def test_timing_frame_matches_reference(planes_dir, tech, layout, spp):
         jscene, JSceneStatic(light_count=count,
                              light_texturing=(0,) * count,
                              traversal="bruteforce"),
-        camera, settings, WIDTH, HEIGHT))
+        to_jax(camera), settings, WIDTH, HEIGHT))
     scene = scene_from_numpy(tree_leaves(jscene), "cpu")
     got = render_frame(scene, SceneStatic.for_scene(scene), camera,
-                       settings, WIDTH, HEIGHT).numpy()
+                       to_port(settings), WIDTH, HEIGHT).numpy()
     assert got.shape == want.shape == (HEIGHT, WIDTH, 3)
     assert np.isfinite(got).all()
     diff = np.abs(got - want)

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from _torch_shading_inputs import (agreement, jax_reference, light_specs,
-                                   noise_pairs, port_inputs, shading_inputs)
+                                   noise_pairs, port_inputs, shading_inputs,
+                                   to_port)
 from vulkan_renderer_tpu.core.settings import (PolygonSamplingTechnique,
                                                RenderSettings,
                                                SamplingStrategy)
@@ -47,8 +48,9 @@ def test_diffuse_only_plain_matches_reference(inputs, tech):
     noise = noise_pairs(settings, len(specs))
     want = jax_reference(data, ltc, hit, noise, specs, settings)
     planes, light_scalars, static = port_inputs(data, ltc, hit, noise, specs)
-    out = fused.fused_light_shading(planes, light_scalars, static, settings)
-    slots = static.light_count * fused.rays_per_light(settings)
+    out = fused.fused_light_shading(planes, light_scalars, static,
+                                    to_port(settings))
+    slots = static.light_count * fused.rays_per_light(to_port(settings))
     got = [g.numpy() for g in fused.unpack_outputs(out, slots)]
     need = 0.99 if tech in ARVO else 0.995
     for name, g, w in zip(("base", "b", "dirs", "t_max"), got, want):

@@ -1,18 +1,23 @@
-"""vulkan_renderer_tpu_torch — the PyTorch/CUDA port of vulkan_renderer_tpu.
+"""vulkan_renderer_tpu_torch — the PyTorch/CUDA port of the JAX package
+vulkan_renderer_tpu, which lives beside it.
 
-The JAX package beside it is the reference; this package computes the same
-frames with PyTorch on the host and hand-written CUDA kernels on an NVIDIA
-H100 (sm_90a). It never imports JAX. Module names follow the JAX package so
+The JAX package is the reference; this package computes the same frames
+with PyTorch on the host and hand-written CUDA kernels on an NVIDIA H100
+(sm_90a). It imports neither JAX nor any module of the JAX package (it
+keeps its own copies of the JAX-free ones it needs, and reads the JAX
+package's data files by path). Module names follow the JAX package so
 each counterpart is easy to find:
 
-  core/       device selection, precision flags, the Application frame loop
+  core/       device selection, precision flags, settings, frame timer,
+              the Application frame loop
   ops/        pure shading math on tensors (plain PyTorch)
-  assets/     .vkt codec, LTC fit tables, noise tables (numpy)
-  scene/      the device-resident Scene
-  render/     clusters, texture fetch, tracers (K1-K3), fused shading (K4)
-              and its no-shadow resolved form (K5), the frame pipeline
+  assets/     .vks/.vkt codecs, quicksaves, LTC fit tables, noise tables
+  scene/      camera, polygonal lights, the device-resident Scene
+  render/     clusters and their BVH, texture fetch, tracers (K1-K3), fused
+              shading (K4) and its no-shadow resolved form (K5), the frame
+              pipeline, screenshot writers
   kernels/    nvcc build + ctypes loading of csrc/*.cu
-  tools/      procedural scene writers (.vks/.vkt)
+  tools/      procedural scene and noise writers, the bench-frame timer
   experiments/ the experiment list, scene setups and the timing harness
 
 Every kernel wrapper takes its plain PyTorch twin for CPU tensors and

@@ -4,7 +4,8 @@ Counterpart of vulkan_renderer_tpu/assets/ltc_table.py: the same analytic
 inversion, max-magnitude normalization, negation of entry 1 and clamped
 16-bit UNORM quantization, then dequantized to float32. The fits ship with
 the JAX package as data files (vulkan_renderer_tpu/data_builtin/ltc_fits/)
-and are read from there; the corner-quad view of the TPU build is not
+and are read from there, by a path relative to this file (nothing is
+imported to find them); the corner-quad view of the TPU build is not
 carried over (a GPU gathers the four bilinear corners directly).
 """
 
@@ -14,11 +15,9 @@ import os
 
 import numpy as np
 
-import vulkan_renderer_tpu
-
 BUILTIN_LTC_DIRECTORY = os.path.join(
-    os.path.dirname(os.path.abspath(vulkan_renderer_tpu.__file__)),
-    "data_builtin", "ltc_fits")
+    os.path.dirname(os.path.abspath(__file__)), "..", "..",
+    "vulkan_renderer_tpu", "data_builtin", "ltc_fits")
 
 
 def _process_records(records: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

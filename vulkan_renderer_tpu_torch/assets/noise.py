@@ -1,8 +1,8 @@
 """Noise tables (reference: noise_table.c, noise_utility.glsl).
 
 Counterpart of vulkan_renderer_tpu/assets/noise.py. Sobol-family tables
-(the default Ahmed table among them) come from the JAX package's numpy
-generator (vulkan_renderer_tpu/tools/generate_noise.py, JAX-free) and are
+(the default Ahmed table among them) come from the port's numpy generator
+(tools/generate_noise.py, the same bytes as the JAX package's) and are
 cached as <data_directory>/noise/<type>_rgba_WxH_LL.blob; white noise is
 the reference's Wang-hash stream; the blue-noise types load their blob from
 the data directory or the JAX package's packaged data_builtin/noise, and
@@ -74,8 +74,7 @@ def load_noise_table(noise_type: str = "ahmed_2d",
     name = f"{noise_type}_rgba_{width:02d}x{height:02d}_{layers:02d}.blob"
     path = os.path.join(data_directory, "noise", name)
     if not os.path.exists(path) and noise_type in SOBOL_FAMILY:
-        from vulkan_renderer_tpu.tools.generate_noise import \
-            generate_sobol_family
+        from ..tools.generate_noise import generate_sobol_family
         path = generate_sobol_family(data_directory, noise_type, width,
                                      height, layers)
     if not os.path.exists(path):

@@ -25,19 +25,17 @@ from collections import deque
 
 import torch
 
-from vulkan_renderer_tpu.assets.quicksave import (Quicksave, load_quicksave,
-                                                  save_quicksave)
-from vulkan_renderer_tpu.core.settings import RenderSettings
-from vulkan_renderer_tpu.core.timer import FrameTimer
-from vulkan_renderer_tpu.scene.camera import FirstPersonCamera
-
 from ..assets.noise import (INITIAL_RANDOM_SEED,
                             advance_noise_random_numbers,
                             noise_table_for_settings)
+from ..assets.quicksave import Quicksave, load_quicksave, save_quicksave
 from ..render.pipeline import make_frame_constants, render_frame_constants
 from ..render.shading import SceneStatic
+from ..scene.camera import FirstPersonCamera
 from ..scene.scene import load_scene
 from .device import get_device
+from .settings import RenderSettings
+from .timer import FrameTimer
 
 
 @dataclasses.dataclass

@@ -1,28 +1,36 @@
-// K1: shadow any-hit over the cluster tables, one thread per ray.
+// K1: shadow any-hit over the cluster BVH, one thread per ray.
 //
 // Replaces the Pallas kernel
 // vulkan_renderer_tpu/render/trace_kernel.py::_anyhit_pass_one (kernel at
 // :652, pallas_call at :714), which the TPU build drives over (ray chunk,
 // cluster) work items from an XLA cull, with supercluster budgets and an
-// exactness re-trace. Here every ray walks the whole two-level hierarchy
-// itself -- superclusters of 32 -> member clusters -> 64 triangles, each
-// level behind a slab test -- and stops at its first hit, so the result is
-// exact by construction and no cull, budget or re-trace exists.
+// exactness re-trace. Here every ray walks one binary tree over the
+// clusters itself (common.cuh walk_bvh, nearer child first), then a
+// cluster's 8-triangle sub-boxes, then the triangles of each sub-box that
+// passes, and stops at its first hit, so the result is exact by
+// construction and no cull, budget or re-trace exists. Every gate is a
+// slab test against the ray's [0, t_max], so the answer -- does any
+// triangle behind the passing boxes hit? -- does not depend on the order of
+// the walk, and equals trace_anyhit_plain's, which gates on the cluster
+// boxes and sub-boxes alone (a cluster box that passes implies every
+// ancestor box passes: a parent's box contains its children's and the slab
+// arithmetic rounds monotonically).
 //
 // Hit test: the division-free Moeller-Trumbore of trace_kernel.py:676-692,
 // unchanged: no backface culling, hit iff adet > 1e-12, u, v >= 0,
 // u + v <= adet and t_min * adet <= tt <= t_max * adet. t_max < 0 marks a
 // dead ray (zero-weight shadow slot), which returns unoccluded at once.
 //
-// What bounds it on the H100: latency of dependent, divergent loads and
-// branches, not DRAM bandwidth or FLOPs. The bench city's tables (about
-// 11 MB of triangle planes plus a few hundred KB of boxes) sit in the 50 MB
-// L2 after the first rays touch them, and a triangle test is ~40 FLOPs. The
-// design keeps each thread's state in registers, reads the box tables
-// through the read-only path (__ldg via const __restrict__) and exits on the
-// first hit; the sample-major ray order makes neighbouring threads shadow
-// neighbouring pixels toward the same light, which keeps warps on the same
-// clusters. Coherent packet traversal or a BVH is later work.
+// What bounds it on the H100: the latency of dependent, divergent loads
+// and branches, not DRAM bandwidth or FLOPs. The bench city's tables (about
+// 11 MB of triangle planes, 1.8 MB of sub-boxes and a 300 KB tree) sit in
+// the 50 MB L2 after the first rays touch them, and a triangle test is
+// ~55 operations. The tree limits a ray to the boxes along its path (about
+// 2 x depth box tests per cluster it reaches), the sub-box gate skips most
+// triangles of a cluster the ray only grazes, and the first hit ends the
+// walk; the sample-major ray order makes neighbouring threads shadow
+// neighbouring pixels toward the same light, which keeps a warp on the
+// same branches of the tree.
 
 #include "common.cuh"
 
@@ -54,55 +62,60 @@ __global__ void __launch_bounds__(128)
 anyhit_kernel(const float* __restrict__ origins,
               const float* __restrict__ dirs,
               const float* __restrict__ t_max, int ray_count,
-              const float* __restrict__ sc_lo, const float* __restrict__ sc_hi,
-              int sc_count, const float* __restrict__ member_lo,
-              const float* __restrict__ member_hi,
+              const float4* __restrict__ nodes,
               const float* __restrict__ planes, int cluster_count,
-              int cluster_size, float t_min, bool* __restrict__ occluded) {
+              int cluster_size, const float* __restrict__ subboxes,
+              int subbox_count, float t_min, bool* __restrict__ occluded,
+              unsigned long long* __restrict__ test_counts) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= ray_count) return;
   const Ray ray = vrt::load_ray(origins, dirs, t_max, r);
   bool hit = false;
+  vrt::TestCounts counts;
   if (ray.t_max >= 0.0f) {
-    for (int sc = 0; sc < sc_count && !hit; ++sc) {
-      float t_near;
-      if (!vrt::slab(sc_lo + 3 * sc, sc_hi + 3 * sc, ray, ray.t_max,
-                     &t_near))
-        continue;
-      for (int m = 0; m < vrt::kScGroup && !hit; ++m) {
-        const int k = sc * vrt::kScGroup + m;
-        // Member rows past the last cluster are NaN boxes and fail here.
-        if (!vrt::slab(member_lo + 3 * k, member_hi + 3 * k, ray, ray.t_max,
-                       &t_near) ||
-            k >= cluster_count)
+    auto keep = [](float) { return true; };
+    auto visit = [&](int k) {
+      const float* row = planes + (size_t)k * 9 * cluster_size;
+      const float* boxes = subboxes + (size_t)k * 6 * subbox_count;
+      for (int g = 0; g < subbox_count; ++g) {
+        // Empty groups are NaN boxes and fail here.
+        float t_sub;
+        VR_COUNT(counts, subboxes, 1);
+        if (!vrt::slab(boxes + 6 * g, boxes + 6 * g + 3, ray, ray.t_max,
+                       &t_sub))
           continue;
-        const float* row = planes + (size_t)k * 9 * cluster_size;
-        for (int t = 0; t < cluster_size; ++t) {
+        const int t_end = min((g + 1) * vrt::kSubGroup, cluster_size);
+        for (int t = g * vrt::kSubGroup; t < t_end; ++t) {
+          VR_COUNT(counts, triangles, 1);
           if (anyhit_triangle(vrt::load_tri(row, t, cluster_size), ray,
                               t_min)) {
             hit = true;
-            break;
+            return true;
           }
         }
       }
-    }
+      return false;
+    };
+    vrt::walk_bvh(nodes, ray, cluster_count, keep, visit, counts);
   }
   occluded[r] = hit;
+  vrt::flush_counts(counts, test_counts);
 }
 
 }  // namespace
 
 extern "C" int k1_anyhit(const float* origins, const float* dirs,
                          const float* t_max, int ray_count,
-                         const float* sc_lo, const float* sc_hi, int sc_count,
-                         const float* member_lo, const float* member_hi,
-                         const float* planes, int cluster_count,
-                         int cluster_size, float t_min, bool* occluded,
+                         const float* nodes, const float* planes,
+                         int cluster_count, int cluster_size,
+                         const float* subboxes, int subbox_count, float t_min,
+                         bool* occluded, unsigned long long* test_counts,
                          cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (ray_count + threads - 1) / threads;
   anyhit_kernel<<<blocks, threads, 0, stream>>>(
-      origins, dirs, t_max, ray_count, sc_lo, sc_hi, sc_count, member_lo,
-      member_hi, planes, cluster_count, cluster_size, t_min, occluded);
+      origins, dirs, t_max, ray_count,
+      reinterpret_cast<const float4*>(nodes), planes, cluster_count,
+      cluster_size, subboxes, subbox_count, t_min, occluded, test_counts);
   return (int)cudaGetLastError();
 }

@@ -5,13 +5,18 @@
 // vulkan_renderer_tpu/render/trace_kernel.py::_closest_pass_one (kernel at
 // :976, pallas_call at :1060). The TPU build runs it over work items of an
 // XLA cull with supercluster budgets, an occlusion seed and an exactness
-// re-trace; here each ray walks superclusters of 32 -> clusters -> 8-triangle
-// sub-boxes -> triangles, in ascending cluster id, behind slab tests gated on
-// the best t so far (t_near <= best_t, as at :992), so the result is exact
-// by construction. Triangle test: the reciprocal-det Moeller-Trumbore of
-// :1013-1028 with det_ok = |det| > 1e-12 and the strict tt < best_t, so of
-// two equal hits the lower primitive id wins -- the reference's order below
-// 1,024 clusters (:232-256).
+// re-trace; here each ray walks one binary tree over the clusters
+// (common.cuh walk_bvh) nearer child first, then a cluster's 8-triangle
+// sub-boxes, then their triangles. A box is pruned when !(t_near <= best_t),
+// the best t so far (as at :992), and a sub-box when its slab test fails
+// against [0, best_t]. Triangle test: the reciprocal-det Moeller-Trumbore
+// of :1013-1028 with det_ok = |det| > 1e-12. A hit replaces the best when
+// tt < best_t, or tt == best_t with a lower primitive id, so the answer is
+// the lexicographic minimum of (t, prim) over the triangles behind the
+// boxes, whatever order the walk visits them in: the minimum that the
+// ascending-id scan with a strict < and trace_closest_plain return (the
+// reference's order below 1,024 clusters, :232-256). Pruning by best_t
+// only drops boxes that lie wholly beyond a hit already found.
 //
 // K3 replaces _attr_pass_one (kernel at :1244, pallas_call at :1298) plus
 // the XLA finalize _attrs_finalize (:1311-1381): the winning triangle's 9
@@ -20,13 +25,15 @@
 // the finalize math runs in the same thread. The stale-attribute fixup of
 // the TPU pipeline has no counterpart: K2 never re-traces.
 //
-// What bounds them on the H100: K2, like K1, is latency-bound on divergent
-// loads and branches over L2-resident tables (~11 MB of planes at the bench
-// city), with ~45 FLOPs per triangle test; rays of neighbouring pixels share
-// a warp (row-major pixel order), so warps mostly walk the same clusters.
-// K3 is a gather of 100 bytes per ray plus ~150 FLOPs, bound by the
-// scattered L2 reads of the winners' rows; its 18 output planes are written
-// plane-major so the stores coalesce.
+// What bounds them on the H100: K2, like K1, is bound by the latency of
+// dependent, divergent loads and branches over L2-resident tables (~11 MB
+// of planes and a 300 KB tree at the bench city), with ~45 FLOPs per
+// triangle test. The tree visits boxes front to back, so best_t falls
+// early and prunes everything behind the first surface; rays of
+// neighbouring pixels share a warp (row-major pixel order), so a warp
+// mostly walks the same branches. K3 is a gather of 100 bytes per ray plus
+// ~150 FLOPs, bound by the scattered L2 reads of the winners' rows; its 18
+// output planes are written plane-major so the stores coalesce.
 
 #include "common.cuh"
 
@@ -39,65 +46,60 @@ __global__ void __launch_bounds__(128)
 closest_kernel(const float* __restrict__ origins,
                const float* __restrict__ dirs,
                const float* __restrict__ t_max, int ray_count,
-               const float* __restrict__ sc_lo, const float* __restrict__ sc_hi,
-               int sc_count, const float* __restrict__ member_lo,
-               const float* __restrict__ member_hi,
+               const float4* __restrict__ nodes,
                const float* __restrict__ planes, int cluster_count,
                int cluster_size, const float* __restrict__ subboxes,
                int subbox_count, float t_min, float* __restrict__ t_out,
-               int* __restrict__ prim_out) {
+               int* __restrict__ prim_out,
+               unsigned long long* __restrict__ test_counts) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= ray_count) return;
   const Ray ray = vrt::load_ray(origins, dirs, t_max, r);
   float best_t = INFINITY;
   int best = -1;
-  for (int sc = 0; sc < sc_count; ++sc) {
-    float t_near;
-    if (!vrt::slab(sc_lo + 3 * sc, sc_hi + 3 * sc, ray, ray.t_max, &t_near) ||
-        !(t_near <= best_t))
-      continue;
-    for (int m = 0; m < vrt::kScGroup; ++m) {
-      const int k = sc * vrt::kScGroup + m;
-      // Member rows past the last cluster are NaN boxes and fail here.
-      if (!vrt::slab(member_lo + 3 * k, member_hi + 3 * k, ray, ray.t_max,
-                     &t_near) ||
-          !(t_near <= best_t) || k >= cluster_count)
+  vrt::TestCounts counts;
+  auto keep = [&](float t_near) { return t_near <= best_t; };
+  auto visit = [&](int k) {
+    const float* row = planes + (size_t)k * 9 * cluster_size;
+    const float* boxes = subboxes + (size_t)k * 6 * subbox_count;
+    for (int g = 0; g < subbox_count; ++g) {
+      // Sub-box pruned by the current best t; empty groups are NaN.
+      float t_sub;
+      VR_COUNT(counts, subboxes, 1);
+      if (!vrt::slab(boxes + 6 * g, boxes + 6 * g + 3, ray, best_t, &t_sub))
         continue;
-      const float* row = planes + (size_t)k * 9 * cluster_size;
-      const float* boxes = subboxes + (size_t)k * 6 * subbox_count;
-      for (int g = 0; g < subbox_count; ++g) {
-        // Sub-box pruned by the current best t; empty groups are NaN.
-        float t_sub;
-        if (!vrt::slab(boxes + 6 * g, boxes + 6 * g + 3, ray, best_t, &t_sub))
-          continue;
-        const int t_end = min((g + 1) * vrt::kSubGroup, cluster_size);
-        for (int t = g * vrt::kSubGroup; t < t_end; ++t) {
-          const Tri p = vrt::load_tri(row, t, cluster_size);
-          const float px = ray.dy * p.e2z - ray.dz * p.e2y;
-          const float py = ray.dz * p.e2x - ray.dx * p.e2z;
-          const float pz = ray.dx * p.e2y - ray.dy * p.e2x;
-          const float det = p.e1x * px + p.e1y * py + p.e1z * pz;
-          const bool det_ok = fabsf(det) > 1e-12f;
-          const float inv_det = 1.0f / (det_ok ? det : 1.0f);
-          const float tx = ray.ox - p.v0x, ty = ray.oy - p.v0y,
-                      tz = ray.oz - p.v0z;
-          const float u = (tx * px + ty * py + tz * pz) * inv_det;
-          const float qx = ty * p.e1z - tz * p.e1y;
-          const float qy = tz * p.e1x - tx * p.e1z;
-          const float qz = tx * p.e1y - ty * p.e1x;
-          const float v = (ray.dx * qx + ray.dy * qy + ray.dz * qz) * inv_det;
-          const float tt = (p.e2x * qx + p.e2y * qy + p.e2z * qz) * inv_det;
-          if (det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-              tt >= t_min && tt < best_t) {
-            best_t = tt;
-            best = k * cluster_size + t;
-          }
+      const int t_end = min((g + 1) * vrt::kSubGroup, cluster_size);
+      for (int t = g * vrt::kSubGroup; t < t_end; ++t) {
+        VR_COUNT(counts, triangles, 1);
+        const Tri p = vrt::load_tri(row, t, cluster_size);
+        const float px = ray.dy * p.e2z - ray.dz * p.e2y;
+        const float py = ray.dz * p.e2x - ray.dx * p.e2z;
+        const float pz = ray.dx * p.e2y - ray.dy * p.e2x;
+        const float det = p.e1x * px + p.e1y * py + p.e1z * pz;
+        const bool det_ok = fabsf(det) > 1e-12f;
+        const float inv_det = 1.0f / (det_ok ? det : 1.0f);
+        const float tx = ray.ox - p.v0x, ty = ray.oy - p.v0y,
+                    tz = ray.oz - p.v0z;
+        const float u = (tx * px + ty * py + tz * pz) * inv_det;
+        const float qx = ty * p.e1z - tz * p.e1y;
+        const float qy = tz * p.e1x - tx * p.e1z;
+        const float qz = tx * p.e1y - ty * p.e1x;
+        const float v = (ray.dx * qx + ray.dy * qy + ray.dz * qz) * inv_det;
+        const float tt = (p.e2x * qx + p.e2y * qy + p.e2z * qz) * inv_det;
+        const int prim = k * cluster_size + t;
+        if (det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+            tt >= t_min && (tt < best_t || (tt == best_t && prim < best))) {
+          best_t = tt;
+          best = prim;
         }
       }
     }
-  }
+    return false;
+  };
+  vrt::walk_bvh(nodes, ray, cluster_count, keep, visit, counts);
   t_out[r] = best_t;
   prim_out[r] = best;
+  vrt::flush_counts(counts, test_counts);
 }
 
 struct V3 {
@@ -202,18 +204,19 @@ attrs_kernel(const int* __restrict__ prim, const float* __restrict__ origins,
 
 extern "C" int k2_closest(const float* origins, const float* dirs,
                           const float* t_max, int ray_count,
-                          const float* sc_lo, const float* sc_hi,
-                          int sc_count, const float* member_lo,
-                          const float* member_hi, const float* planes,
+                          const float* nodes, const float* planes,
                           int cluster_count, int cluster_size,
                           const float* subboxes, int subbox_count, float t_min,
-                          float* t_out, int* prim_out, cudaStream_t stream) {
+                          float* t_out, int* prim_out,
+                          unsigned long long* test_counts,
+                          cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (ray_count + threads - 1) / threads;
   closest_kernel<<<blocks, threads, 0, stream>>>(
-      origins, dirs, t_max, ray_count, sc_lo, sc_hi, sc_count, member_lo,
-      member_hi, planes, cluster_count, cluster_size, subboxes, subbox_count,
-      t_min, t_out, prim_out);
+      origins, dirs, t_max, ray_count,
+      reinterpret_cast<const float4*>(nodes), planes, cluster_count,
+      cluster_size, subboxes, subbox_count, t_min, t_out, prim_out,
+      test_counts);
   return (int)cudaGetLastError();
 }
 

@@ -18,8 +18,8 @@
 
 namespace vrt {
 
-constexpr int kScGroup = 32;   // clusters per supercluster
 constexpr int kSubGroup = 8;   // triangles per sub-box
+constexpr int kStack = 32;     // BVH traversal stack (tree depth <= 31)
 
 K_INLINE float jmin(float a, float b) { return (a < b || a != a) ? a : b; }
 K_INLINE float jmax(float a, float b) { return (a > b || a != a) ? a : b; }
@@ -95,6 +95,97 @@ K_INLINE Tri load_tri(const float* __restrict__ row, int t, int c) {
   tri.e2y = row[7 * c + t];
   tri.e2z = row[8 * c + t];
   return tri;
+}
+
+// Box and triangle tests of one thread, counted only in the libraries that
+// chip_smoke.py builds with -DVR_COUNT_TESTS=1 (atomics into a small
+// buffer at the end of the thread); compiled out everywhere else.
+#ifndef VR_COUNT_TESTS
+#define VR_COUNT_TESTS 0
+#endif
+
+struct TestCounts {
+  unsigned long long boxes = 0;     // slab tests of BVH child boxes
+  unsigned long long subboxes = 0;  // slab tests of 8-triangle sub-boxes
+  unsigned long long triangles = 0;
+};
+
+#if VR_COUNT_TESTS
+#define VR_COUNT(counts, field, n) ((counts).field += (n))
+#else
+#define VR_COUNT(counts, field, n) ((void)0)
+#endif
+
+K_INLINE void flush_counts(const TestCounts& counts,
+                           unsigned long long* __restrict__ out) {
+#if VR_COUNT_TESTS
+  if (out != nullptr && counts.boxes != 0) {
+    atomicAdd(out + 0, counts.boxes);
+    atomicAdd(out + 1, counts.subboxes);
+    atomicAdd(out + 2, counts.triangles);
+  }
+#endif
+}
+
+// Depth-first walk of the cluster BVH (render/clusters.py
+// build_cluster_bvh_np): each inner node is one 64-byte record holding
+// both children's boxes and refs, read as four float4 through the
+// read-only path, so one record feeds two slab tests. Both children are
+// tested against the ray's [0, t_max]; a child that passes and that
+// keep(t_near) accepts is visited, the nearer one first (left on a tie),
+// the farther one pushed with its t_near and checked against keep() again
+// when it is popped. A leaf ref (< 0) names cluster -1 - ref:
+// visit(cluster) tests its triangles and returns true to end the walk.
+// Refs past the last cluster sit behind NaN boxes that never pass; they
+// are skipped all the same. The loop is a while-while walk (Aila and
+// Laine, HPG 2009): a thread runs inner nodes until it reaches a leaf, so
+// the threads of a warp test their clusters together instead of
+// alternating node and leaf bodies (measured against the if-if form in
+// PERF.md section 6).
+template <class Keep, class Visit>
+K_INLINE void walk_bvh(const float4* __restrict__ nodes, const Ray& ray,
+                       int cluster_count, Keep keep, Visit visit,
+                       TestCounts& counts) {
+  int stack_ref[kStack];
+  float stack_tnear[kStack];
+  int sp = 0;
+  int ref = 0;  // the root
+  for (;;) {
+    while (ref >= 0) {
+      const float4* rec = nodes + 4 * ref;
+      const float4 a = __ldg(rec), b = __ldg(rec + 1), c = __ldg(rec + 2),
+                   d = __ldg(rec + 3);
+      const float lo_l[3] = {a.x, a.y, a.z}, hi_l[3] = {a.w, b.x, b.y};
+      const float lo_r[3] = {b.z, b.w, c.x}, hi_r[3] = {c.y, c.z, c.w};
+      float t_l, t_r;
+      const bool in_l = slab(lo_l, hi_l, ray, ray.t_max, &t_l) && keep(t_l);
+      const bool in_r = slab(lo_r, hi_r, ray, ray.t_max, &t_r) && keep(t_r);
+      VR_COUNT(counts, boxes, 2);
+      const int ref_l = __float_as_int(d.x), ref_r = __float_as_int(d.y);
+      if (in_l && in_r) {
+        const bool right_first = t_r < t_l;
+        stack_ref[sp] = right_first ? ref_l : ref_r;
+        stack_tnear[sp] = right_first ? t_l : t_r;
+        ++sp;
+        ref = right_first ? ref_r : ref_l;
+      } else if (in_l || in_r) {
+        ref = in_l ? ref_l : ref_r;
+      } else {
+        do {
+          if (sp == 0) return;
+          --sp;
+          ref = stack_ref[sp];
+        } while (!keep(stack_tnear[sp]));
+      }
+    }
+    const int k = -1 - ref;
+    if (k < cluster_count && visit(k)) return;
+    do {
+      if (sp == 0) return;
+      --sp;
+      ref = stack_ref[sp];
+    } while (!keep(stack_tnear[sp]));
+  }
 }
 
 }  // namespace vrt

@@ -39,13 +39,12 @@ import subprocess
 
 import torch
 
-from vulkan_renderer_tpu.core.settings import (
-    ErrorDisplay, MisHeuristic, PolygonSamplingTechnique as Tech,
-    RenderSettings, SamplingStrategy as Strat)
-from vulkan_renderer_tpu.core.timer import WarmupProtocol
-from vulkan_renderer_tpu.render.screenshot import take_screenshot
-
+from ..core.settings import (ErrorDisplay, MisHeuristic,
+                             PolygonSamplingTechnique as Tech, RenderSettings,
+                             SamplingStrategy as Strat)
+from ..core.timer import WarmupProtocol
 from ..render.fused import check_supported
+from ..render.screenshot import take_screenshot
 from ..render.shading import SceneStatic
 
 ALL_TECHNIQUES = list(Tech)

@@ -6,7 +6,7 @@ encodes each experiment's camera and lights in a quicksave file
 Those .save files ship with the reference's data download:
 
 - if the experiment's quicksave file exists it is loaded verbatim
-  (vulkan_renderer_tpu/assets/quicksave.py reads the reference format);
+  (assets/quicksave.py reads the reference format);
 - otherwise the layout is rebuilt from the experiment's `light_layout`
   descriptor (the timing sweep's regular n-gons in the paper's central and
   decentral placements; a plausible light for the figure groups), and the
@@ -23,10 +23,9 @@ import os
 
 import numpy as np
 
-from vulkan_renderer_tpu.scene.camera import FirstPersonCamera
-from vulkan_renderer_tpu.scene.lights import PolygonalLightSpec
-
 from ..core.app import Application, ApplicationUpdates, SceneSpecification
+from ..scene.camera import FirstPersonCamera
+from ..scene.lights import PolygonalLightSpec
 from .registry import resolve_scene
 
 

@@ -1,19 +1,19 @@
-"""Cluster tables for the tracers (kernels K1-K3).
+"""Cluster tables and the cluster BVH for the tracers (kernels K1-K3).
 
-Counterpart of vulkan_renderer_tpu/render/wavefront.py::build_clusters
-plus the supercluster AABBs of render/trace_kernel.py:89-118. Triangles are
-fixed-size runs of C consecutive (Morton-ordered) triangles; every table is
-component-major so one cluster is a few contiguous rows:
+Counterpart of vulkan_renderer_tpu/render/wavefront.py::build_clusters.
+Triangles are fixed-size runs of C consecutive (Morton-ordered)
+triangles; every table is component-major so one cluster is a few
+contiguous rows:
 
 - planes (K, 9C): [v0.x v0.y v0.z e1.x .. e2.z] planes, column k*C + t;
 - attrs (K, 16C): [n0.xyz n1.xyz n2.xyz uv0.xy uv1.xy uv2.xy material];
 - aabb_lo/hi (K, 3) over the valid triangles;
 - subboxes (K, 6G): per 8-triangle group [lo.xyz hi.xyz], NaN for groups
   without a valid triangle;
-- superclusters of 32 consecutive clusters: sc_lo/sc_hi (KS, 3) and the
-  member boxes member_lo/member_hi (KS*32, 3), NaN past the last cluster.
+- bvh_nodes (M, 16): one binary tree over the cluster sequence
+  (build_cluster_bvh_np), which both CUDA tracers walk.
 
-NaN boxes fail every comparison of the slab test (render/trace_kernel.py
+NaN boxes fail every comparison of the slab test (trace_kernel.py
 ray_box_slab and csrc/common.cuh), so padding can never produce a hit;
 +/-inf "empty" boxes would not work (t_near=-inf <= t_far=+inf passes).
 The wavefront tracer of the JAX module is not ported.
@@ -26,8 +26,8 @@ import dataclasses
 import numpy as np
 import torch
 
-SC_GROUP = 32  # clusters per supercluster (trace_kernel.py _SC_GROUP)
 SUB_GROUP = 8  # triangles per sub-box
+BVH_RECORD = 16  # floats per inner node: 64 bytes (csrc/common.cuh)
 
 
 @dataclasses.dataclass
@@ -37,10 +37,7 @@ class Clusters:
     planes: torch.Tensor     # (K, 9C)
     attrs: torch.Tensor      # (K, 16C)
     subboxes: torch.Tensor   # (K, 6G)
-    sc_lo: torch.Tensor      # (KS, 3)
-    sc_hi: torch.Tensor      # (KS, 3)
-    member_lo: torch.Tensor  # (KS*32, 3), NaN rows past K
-    member_hi: torch.Tensor  # (KS*32, 3)
+    bvh_nodes: torch.Tensor  # (M, 16) inner nodes, root first
 
     @property
     def cluster_count(self) -> int:
@@ -108,31 +105,75 @@ def build_clusters_np(triangle_positions: np.ndarray,
                 subboxes=subboxes)
 
 
-def supercluster_tables_np(aabb_lo: np.ndarray, aabb_hi: np.ndarray):
-    """Cluster boxes -> (sc_lo, sc_hi (KS, 3), member_lo, member_hi
-    (KS*32, 3)); member rows past the last cluster are NaN."""
+def build_cluster_bvh_np(aabb_lo: np.ndarray,
+                         aabb_hi: np.ndarray) -> np.ndarray:
+    """Binary tree over the cluster sequence, built bottom-up by pair
+    reductions (as vulkan_renderer_tpu/render/bvh.py does over triangles):
+    the K cluster boxes, padded with NaN boxes to a power of two >= 2, are
+    the leaves; a parent's box is the NaN-aware union (np.fmin/np.fmax) of
+    its children's, so a parent with one real child gets that child's box
+    and a parent of padding alone stays NaN and is dropped.
+
+    Returns (M, 16) float32 inner-node records, root first, then level by
+    level: [left lo.xyz, left hi.xyz, right lo.xyz, right hi.xyz, left ref,
+    right ref, 0, 0], one 64-byte record feeding two slab tests. A ref is
+    stored as int32 bits: >= 0 is an inner node's row, < 0 is the leaf
+    cluster -1 - ref (padding leaves and dropped nodes point past the last
+    cluster, behind a NaN box that no ray passes). The tree is
+    ceil(log2(K)) levels deep, at most 31 for an int32 cluster id, within
+    the kernels' 32-entry stack."""
     k = aabb_lo.shape[0]
-    ks = -(-k // SC_GROUP)
-    pad = ks * SC_GROUP - k
-    nan_rows = np.full((pad, 3), np.nan, np.float32)
-    member_lo = np.concatenate([aabb_lo, nan_rows]).astype(np.float32)
-    member_hi = np.concatenate([aabb_hi, nan_rows]).astype(np.float32)
-    sc_lo = np.where(np.isnan(member_lo), np.inf, member_lo) \
-        .reshape(ks, SC_GROUP, 3).min(axis=1)
-    sc_hi = np.where(np.isnan(member_hi), -np.inf, member_hi) \
-        .reshape(ks, SC_GROUP, 3).max(axis=1)
-    return (sc_lo.astype(np.float32), sc_hi.astype(np.float32),
-            member_lo, member_hi)
+    n = 2
+    while n < k:
+        n *= 2
+    lo = np.full((n, 3), np.nan, np.float32)
+    hi = np.full((n, 3), np.nan, np.float32)
+    lo[:k] = aabb_lo
+    hi[:k] = aabb_hi
+    levels = [(lo, hi)]  # leaves first, root last
+    while lo.shape[0] > 1:
+        lo = np.fmin(lo[0::2], lo[1::2])
+        hi = np.fmax(hi[0::2], hi[1::2])
+        levels.append((lo, hi))
+    levels.reverse()  # levels[0] is the root, levels[-1] the leaves
+    # Rows of the kept inner nodes, level by level.
+    kept = [~np.isnan(lo[:, 0]) for lo, _ in levels[:-1]]
+    kept[0][:] = True
+    rows_of, first = [], 0
+    for keep in kept:
+        rows_of.append(np.where(keep, first + np.cumsum(keep) - 1, -1 - k))
+        first += int(keep.sum())
+    records = []
+    for level, keep in enumerate(kept):
+        child_lo, child_hi = levels[level + 1]
+        if level + 1 == len(kept):  # children are leaf clusters
+            child_refs = -1 - np.arange(child_lo.shape[0])
+        else:
+            child_refs = rows_of[level + 1]
+        rows = np.zeros((int(keep.sum()), BVH_RECORD), np.float32)
+        pairs_lo = child_lo.reshape(-1, 2, 3)[keep]
+        pairs_hi = child_hi.reshape(-1, 2, 3)[keep]
+        rows[:, 0:3], rows[:, 3:6] = pairs_lo[:, 0], pairs_hi[:, 0]
+        rows[:, 6:9], rows[:, 9:12] = pairs_lo[:, 1], pairs_hi[:, 1]
+        rows.view(np.int32)[:, 12:14] = child_refs.reshape(-1, 2)[keep]
+        records.append(rows)
+    return np.concatenate(records)
+
+
+def bvh_children(nodes: np.ndarray):
+    """Split (M, 16) records into (boxes (M, 2, 6) [lo.xyz hi.xyz] of the
+    left and right child, refs (M, 2) int32)."""
+    nodes = np.ascontiguousarray(nodes, np.float32)
+    return nodes[:, :12].reshape(-1, 2, 6), nodes.view(np.int32)[:, 12:14]
 
 
 def clusters_from_numpy(arrays: dict, device) -> Clusters:
     """Device Clusters from the five build_clusters tables (the port's own
-    or the JAX package's Clusters leaves as numpy)."""
+    or the JAX package's Clusters leaves as numpy), with the cluster BVH
+    built over their boxes."""
     tables = {k: np.array(arrays[k], np.float32)
               for k in ("aabb_lo", "aabb_hi", "planes", "attrs", "subboxes")}
-    sc_lo, sc_hi, member_lo, member_hi = supercluster_tables_np(
-        tables["aabb_lo"], tables["aabb_hi"])
-    tables.update(sc_lo=sc_lo, sc_hi=sc_hi, member_lo=member_lo,
-                  member_hi=member_hi)
+    tables["bvh_nodes"] = build_cluster_bvh_np(tables["aabb_lo"],
+                                               tables["aabb_hi"])
     return Clusters(**{k: torch.from_numpy(v).to(device)
                        for k, v in tables.items()})

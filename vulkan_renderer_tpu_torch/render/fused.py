@@ -30,11 +30,9 @@ import ctypes
 import numpy as np
 import torch
 
-from vulkan_renderer_tpu.core.settings import (ErrorDisplay, MisHeuristic,
-                                               PolygonSamplingTechnique,
-                                               RenderSettings,
-                                               SamplingStrategy)
-
+from ..core.settings import (ErrorDisplay, MisHeuristic,
+                             PolygonSamplingTechnique, RenderSettings,
+                             SamplingStrategy)
 from ..kernels import build
 from ..ops import soa
 from ..ops import soa_techniques as st
@@ -79,7 +77,15 @@ def check_supported(static, settings: RenderSettings) -> None:
     """Raise for what K4 and K5 do not cover: the JAX package's
     fused_supported predicate (fused.py:63-94) as errors. All 13
     techniques with DIFFUSE_ONLY, the PSA pair also with
-    DIFFUSE_SPECULAR_MIS; untextured lights, no error display."""
+    DIFFUSE_SPECULAR_MIS; untextured lights, no error display. Settings
+    of another class (the JAX package's RenderSettings) raise TypeError:
+    their enum members compare unequal to the port's, so every branch on
+    them would go the wrong way."""
+    if not isinstance(settings, RenderSettings):
+        raise TypeError(
+            f"expected the port's RenderSettings "
+            f"(vulkan_renderer_tpu_torch.core.settings), got "
+            f"{type(settings).__module__}.{type(settings).__qualname__}")
     if settings.error_display != ErrorDisplay.NONE:
         raise NotImplementedError(
             "error displays are not ported (ROADMAP Queue 1, item 11)")

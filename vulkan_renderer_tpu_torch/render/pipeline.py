@@ -28,14 +28,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from vulkan_renderer_tpu.core.settings import RenderSettings
-from vulkan_renderer_tpu.scene.camera import (
-    FirstPersonCamera, get_pixel_to_ray_direction_world_space)
-
+from ..core.settings import RenderSettings
 from ..ops.intersect import polygonal_light_ray_intersection
 from ..ops.ltc import get_ltc_coefficients
 from ..ops.noise import get_noise_image
 from ..ops.srgb import linear_to_srgb
+from ..scene.camera import (FirstPersonCamera,
+                            get_pixel_to_ray_direction_world_space)
 from .fused import (check_supported, fused_light_shading,
                     fused_light_shading_plain, fused_light_shading_resolved,
                     fused_light_shading_resolved_plain,

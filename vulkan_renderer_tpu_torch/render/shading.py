@@ -15,9 +15,7 @@ import dataclasses
 
 import torch
 
-from vulkan_renderer_tpu.core.settings import (ErrorDisplay, RenderSettings,
-                                               SamplingStrategy)
-
+from ..core.settings import ErrorDisplay, RenderSettings, SamplingStrategy
 from ..ops.math_utils import dot, normalize
 from .texture import sample_texture_grad
 from .trace_kernel import (ATTR_BITANGENT, ATTR_DUVDX, ATTR_DUVDY,

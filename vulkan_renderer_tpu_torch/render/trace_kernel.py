@@ -7,18 +7,22 @@ Replaces the Pallas kernels of vulkan_renderer_tpu/render/trace_kernel.py:
   any-hit, division-free Moeller-Trumbore (:676-692), t in
   [t_min, t_max], no backface culling, t_max < 0 marks a dead ray.
 - K2 trace_closest (csrc/closest.cu) <- _closest_pass_one (:949): primary
-  closest hit, reciprocal-det Moeller-Trumbore (:1013-1028), winner by
-  strict tt < best_t, so ties keep the lower primitive id.
+  closest hit, reciprocal-det Moeller-Trumbore (:1013-1028), the
+  lexicographic minimum of (t, primitive id), so ties keep the lower id.
 - K3 closest_attrs (csrc/closest.cu) <- _attr_pass_one (:1224) plus the
   XLA finalize _attrs_finalize (:1311): the winner's 25 scalars, then
   barycentrics, UV derivatives, normal and tangent frame.
 
-The CUDA tracers walk superclusters of 32 -> clusters -> triangles behind
-slab tests, exact by construction: the TPU build's work-item cull, budgets,
-re-trace, seeds and stale-attribute fixup have no counterpart. The plain
-versions test every triangle of every cluster that passes the same
-supercluster and cluster slab tests (brute force inside the cull), with
-the kernels' per-triangle formulas.
+The CUDA tracers walk one BVH over the clusters (render/clusters.py
+build_cluster_bvh_np), then each reached cluster's 8-triangle sub-boxes,
+then their triangles, exact by construction: the TPU build's work-item
+cull, budgets, re-trace, seeds and stale-attribute fixup have no
+counterpart. The plain versions test every triangle of every cluster box
+and sub-box that passes its slab test against [0, t_max] (brute force
+inside the cull), with the kernels' per-triangle formulas. The candidates
+are the same: a cluster box that passes implies that every box above it
+in the tree passes, since a parent's box contains its children's and the
+slab arithmetic rounds monotonically.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import ctypes
 import torch
 
 from ..kernels import build
-from .clusters import SC_GROUP, SUB_GROUP, Clusters
+from .clusters import SUB_GROUP, Clusters
 
 T_MIN = 1.0e-3
 
@@ -84,13 +88,22 @@ def ray_box_slab(lo, hi, origins, inv, t_cap):
 
 
 def cluster_candidates(clusters: Clusters, origins, inv, t_cap):
-    """(R, KS*32) mask of member clusters whose supercluster and own box
-    pass the slab test; columns past cluster_count are NaN padding."""
-    sc_mask, _ = ray_box_slab(clusters.sc_lo, clusters.sc_hi, origins, inv,
-                              t_cap)
-    member_mask, _ = ray_box_slab(clusters.member_lo, clusters.member_hi,
-                                  origins, inv, t_cap)
-    return torch.repeat_interleave(sc_mask, SC_GROUP, dim=1) & member_mask
+    """(R, K) mask of the clusters whose box passes the slab test."""
+    mask, _ = ray_box_slab(clusters.aabb_lo, clusters.aabb_hi, origins, inv,
+                           t_cap)
+    return mask
+
+
+def subbox_candidates(clusters: Clusters, k0: int, k1: int, origins, inv,
+                      t_cap):
+    """(R, k1 - k0, C) mask: the 8-triangle sub-box of each triangle of
+    clusters k0..k1-1 passes the slab test (empty groups are NaN)."""
+    g = clusters.subbox_count
+    boxes = clusters.subboxes[k0:k1].reshape(-1, 6)
+    mask, _ = ray_box_slab(boxes[:, 0:3], boxes[:, 3:6], origins, inv, t_cap)
+    group_of = torch.arange(clusters.cluster_size,
+                            device=origins.device) // SUB_GROUP
+    return mask.reshape(-1, k1 - k0, g)[:, :, group_of]
 
 
 def _triangle_planes(clusters: Clusters, k0: int, k1: int):
@@ -115,7 +128,7 @@ def _anyhit_chunk(clusters: Clusters, o, d, tm, t_min: float):
     k = clusters.cluster_count
     r = d.shape[0]
     inv = inverse_directions(d)
-    cand = cluster_candidates(clusters, o, inv, tm)[:, :k]
+    cand = cluster_candidates(clusters, o, inv, tm)
     occluded = torch.zeros(r, dtype=torch.bool, device=d.device)
     ox, oy, oz = (o[:, i, None, None] for i in range(3))
     dx, dy, dz = (d[:, i, None, None] for i in range(3))
@@ -141,8 +154,9 @@ def _anyhit_chunk(clusters: Clusters, o, d, tm, t_min: float):
         v = (dx * qx + dy * qy + dz * qz) * su
         tt = (e2x * qx + e2y * qy + e2z * qz) * su
         hit = (adet > 1e-12) & (u >= 0.0) & (v >= 0.0) & (u + v <= adet) \
-            & (tt >= t_min * adet) & (tt <= tmax * adet)
-        occluded |= (hit & live[:, :, None]).flatten(1).any(dim=1)
+            & (tt >= t_min * adet) & (tt <= tmax * adet) & live[:, :, None] \
+            & subbox_candidates(clusters, k0, k1, o, inv, tm)
+        occluded |= hit.flatten(1).any(dim=1)
     return occluded
 
 
@@ -159,15 +173,15 @@ def trace_anyhit_plain(clusters: Clusters, origins, dirs, t_max,
 
 _RAY_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_int]                                 # o, d, tmax, R
-_CLUSTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # sc
-                     ctypes.c_void_p, ctypes.c_void_p,         # member boxes
-                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # planes K C
+_CLUSTER_ARGTYPES = [ctypes.c_void_p,                          # bvh nodes
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # planes K C
+                     ctypes.c_void_p, ctypes.c_int,            # subboxes, G
+                     ctypes.c_float]                           # t_min
 _K1_ARGTYPES = _RAY_ARGTYPES + _CLUSTER_ARGTYPES + [
-    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]  # t_min, out, stream
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]  # out, counts, stream
 _K2_ARGTYPES = _RAY_ARGTYPES + _CLUSTER_ARGTYPES + [
-    ctypes.c_void_p, ctypes.c_int,                     # subboxes, G
-    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,  # t_min, t, prim
-    ctypes.c_void_p]                                   # stream
+    ctypes.c_void_p, ctypes.c_void_p,                   # t, prim
+    ctypes.c_void_p, ctypes.c_void_p]                   # counts, stream
 _K3_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int,                          # prim, o, d, R
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # planes attrs C
@@ -183,17 +197,30 @@ def _check_rays(origins, dirs, t_max):
     return r
 
 
-def _cluster_args(clusters: Clusters):
-    return [build.ptr(clusters.sc_lo), build.ptr(clusters.sc_hi),
-            clusters.sc_lo.shape[0], build.ptr(clusters.member_lo),
-            build.ptr(clusters.member_hi), build.ptr(clusters.planes),
-            clusters.cluster_count, clusters.cluster_size]
+def _cluster_args(clusters: Clusters, t_min: float):
+    return [build.ptr(clusters.bvh_nodes), build.ptr(clusters.planes),
+            clusters.cluster_count, clusters.cluster_size,
+            build.ptr(clusters.subboxes), clusters.subbox_count, t_min]
+
+
+def _counting_library(name: str, functions: dict, test_counts, dirs):
+    """The kernel library, or with test_counts (an int64 tensor of 3 on
+    the rays' device: BVH child boxes, sub-boxes, triangles) the build
+    that adds each thread's box and triangle tests into it
+    (-DVR_COUNT_TESTS=1)."""
+    if test_counts is None:
+        return build.load_library(name, functions), None
+    build.require_cuda(dirs, test_counts)
+    build.check_tensor(test_counts, "test_counts", torch.int64, (3,))
+    return (build.load_library(name, functions, {"VR_COUNT_TESTS": 1}),
+            build.ptr(test_counts))
 
 
 def trace_anyhit(clusters: Clusters, origins, dirs, t_max,
-                 t_min: float = T_MIN):
+                 t_min: float = T_MIN, test_counts=None):
     """Shadow any-hit: origins/dirs (R, 3), t_max (R,) -> occluded (R,)
-    bool. CPU tensors take trace_anyhit_plain; CUDA tensors launch K1."""
+    bool. CPU tensors take trace_anyhit_plain; CUDA tensors launch K1.
+    test_counts: see _counting_library (a measurement build)."""
     if dirs.device.type == "cpu":
         return trace_anyhit_plain(clusters, origins, dirs, t_max, t_min)
     build.require_cuda(origins, dirs, t_max, clusters.planes)
@@ -201,11 +228,13 @@ def trace_anyhit(clusters: Clusters, origins, dirs, t_max,
     occluded = torch.empty(r, dtype=torch.bool, device=dirs.device)
     if r == 0:
         return occluded
-    lib = build.load_library("anyhit", {"k1_anyhit": _K1_ARGTYPES})
+    lib, counts = _counting_library("anyhit", {"k1_anyhit": _K1_ARGTYPES},
+                                    test_counts, dirs)
     with torch.cuda.device(dirs.device):
         err = lib.k1_anyhit(build.ptr(origins), build.ptr(dirs),
-                            build.ptr(t_max), r, *_cluster_args(clusters),
-                            t_min, build.ptr(occluded),
+                            build.ptr(t_max), r,
+                            *_cluster_args(clusters, t_min),
+                            build.ptr(occluded), counts,
                             build.stream(dirs.device))
     build.check_launch(err, "k1_anyhit")
     trace_anyhit.launches += 1
@@ -223,22 +252,18 @@ trace_anyhit.launches = 0
 def _closest_chunk(clusters: Clusters, o, d, tm, t_min: float):
     k = clusters.cluster_count
     c = clusters.cluster_size
-    g = clusters.subbox_count
     r = d.shape[0]
     inv = inverse_directions(d)
-    cand = cluster_candidates(clusters, o, inv, tm)[:, :k]
+    cand = cluster_candidates(clusters, o, inv, tm)
     best_t = torch.full((r,), float("inf"), device=d.device)
     best = torch.full((r,), -1, dtype=torch.int64, device=d.device)
     ox, oy, oz = (o[:, i, None, None] for i in range(3))
     dx, dy, dz = (d[:, i, None, None] for i in range(3))
-    group_of = torch.arange(c, device=d.device) // SUB_GROUP
     for k0, k1 in _cluster_steps(k, r, c, d.device):
         live = cand[:, k0:k1]
         if not bool(live.any()):
             continue
-        boxes = clusters.subboxes[k0:k1].reshape(-1, 6)
-        sub_mask, _ = ray_box_slab(boxes[:, 0:3], boxes[:, 3:6], o, inv, tm)
-        sub_mask = sub_mask.reshape(r, k1 - k0, g)[:, :, group_of]
+        sub_mask = subbox_candidates(clusters, k0, k1, o, inv, tm)
         v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
             p[None] for p in _triangle_planes(clusters, k0, k1))
         # Reciprocal-det Moeller-Trumbore (trace_kernel.py:1013-1028).
@@ -282,10 +307,11 @@ def trace_closest_plain(clusters: Clusters, origins, dirs, t_max,
 
 
 def trace_closest(clusters: Clusters, origins, dirs, t_max,
-                  t_min: float = T_MIN):
+                  t_min: float = T_MIN, test_counts=None):
     """Closest hit: origins/dirs (R, 3), t_max (R,) -> (prim (R,) int32
     with -1 on a miss, t (R,) with inf on a miss). CPU tensors take
-    trace_closest_plain; CUDA tensors launch K2."""
+    trace_closest_plain; CUDA tensors launch K2. test_counts: see
+    _counting_library (a measurement build)."""
     if dirs.device.type == "cpu":
         return trace_closest_plain(clusters, origins, dirs, t_max, t_min)
     build.require_cuda(origins, dirs, t_max, clusters.planes)
@@ -294,14 +320,15 @@ def trace_closest(clusters: Clusters, origins, dirs, t_max,
     t = torch.empty(r, dtype=torch.float32, device=dirs.device)
     if r == 0:
         return prim, t
-    lib = build.load_library("closest", {"k2_closest": _K2_ARGTYPES,
-                                         "k3_attrs": _K3_ARGTYPES})
+    lib, counts = _counting_library(
+        "closest", {"k2_closest": _K2_ARGTYPES, "k3_attrs": _K3_ARGTYPES},
+        test_counts, dirs)
     with torch.cuda.device(dirs.device):
         err = lib.k2_closest(build.ptr(origins), build.ptr(dirs),
-                             build.ptr(t_max), r, *_cluster_args(clusters),
-                             build.ptr(clusters.subboxes),
-                             clusters.subbox_count, t_min, build.ptr(t),
-                             build.ptr(prim), build.stream(dirs.device))
+                             build.ptr(t_max), r,
+                             *_cluster_args(clusters, t_min), build.ptr(t),
+                             build.ptr(prim), counts,
+                             build.stream(dirs.device))
     build.check_launch(err, "k2_closest")
     trace_closest.launches += 1
     return prim, t

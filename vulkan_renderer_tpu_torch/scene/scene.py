@@ -17,13 +17,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from vulkan_renderer_tpu.assets.vks import SceneMesh, load_vks
-from vulkan_renderer_tpu.scene.lights import (PolygonalLightSpec,
-                                              update_polygonal_light)
-
 from ..assets import vkt
 from ..assets.ltc_table import default_ltc_table
 from ..assets.noise import NoiseTable, noise_table_for_settings
+from ..assets.vks import SceneMesh, load_vks
 from ..core.device import get_device
 from ..ops.ltc import LtcTable
 from ..ops.math_utils import (decode_normal_octahedral_32bit_np,
@@ -32,10 +29,11 @@ from ..render.clusters import Clusters, build_clusters_np, \
     clusters_from_numpy
 from ..render.texture import TextureAtlas, atlas_from_numpy, \
     build_texture_atlas_np
+from .lights import PolygonalLightSpec, update_polygonal_light
 
 MATERIAL_TEXTURE_SUFFIXES = ("BaseColor", "Specular", "Normal")
 
-# PolygonalLight fields the frame reads (vulkan_renderer_tpu/scene/lights.py).
+# PolygonalLight fields the frame reads (scene/lights.py).
 LIGHT_FIELDS = ("plane", "vertices_world_space", "vertex_count",
                 "surface_radiance", "rotation", "translation", "scaling_x",
                 "scaling_y", "area", "fan_areas", "texturing_technique")

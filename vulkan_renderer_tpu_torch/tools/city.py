@@ -11,8 +11,7 @@ import os
 
 import numpy as np
 
-from vulkan_renderer_tpu.assets.vks import save_vks
-
+from ..assets.vks import save_vks
 from .export_scene import (build_scene_mesh, checkerboard_texture,
                            write_material_textures)
 

@@ -15,9 +15,8 @@ import os
 
 import numpy as np
 
-from vulkan_renderer_tpu.assets.vks import SceneMesh, save_vks
-
 from ..assets import vkt
+from ..assets.vks import SceneMesh, save_vks
 from ..ops.math_utils import (encode_normal_octahedral_32bit_np,
                               encode_position_64bit_np)
 
