@@ -12,30 +12,32 @@ It
    13 techniques at the timing sweep's vertex counts), and prints each
    build's time and register report;
 3. writes the procedural bench city (300 buildings, detail 10) into data/
-   with the port's own writer and loads it onto the card;
+   with the port's own writer and loads it onto the card, as
+   vulkan_renderer_tpu_torch/tools/bench_frame.py defines the bench frame;
 4. holds every kernel against its plain PyTorch version on the card at
    the bench frame's shapes: K2 on all 518,400 primary rays (primitive
    and t equal exactly, ties included), K1 on 131,072 live shadow rays
    (0 mismatches); then counts the BVH tracers' box and triangle tests
    per ray with their counting builds (-DVR_COUNT_TESTS=1) over the whole
-   bench frame, beside the upper bound of the old flat supercluster scan
-   taken from the plain version's candidate masks;
+   bench frame;
 5. renders a 128x64 frame through the kernels and through the plain
    versions and compares the images;
 6. renders the bench frame (960x540, 1 spp, four quad street lights, PSA
    with DIFFUSE_SPECULAR_MIS and clamped-optimal MIS, shadows on) with
    every kernel launch counter reset just before and read just after,
-   checks the image, and times it (warm-up, then the median of 7 frames)
-   along with each kernel and its plain version; then, with shadows off
-   (the default settings, which take K5 under DIFFUSE_SPECULAR_MIS),
-   holds K5 against its plain version bit for bit on 4,096 of the bench
-   frame's pixels for PSA and PSA-biased with each of the 5 heuristics;
+   checks the image, and times it (bench_frame.frame_ms: the median of 15
+   frames after 3 warm-up) along with each kernel and its plain version;
+   then, with shadows off (the default settings, which take K5 under
+   DIFFUSE_SPECULAR_MIS), holds K5 against its plain version bit for bit
+   on 4,096 of the bench frame's pixels for PSA and PSA-biased with each
+   of the 5 heuristics;
 7. for every technique, captures K5's inputs from the harness's own
    timing-sweep frames at 1920x1080 (the 128-light x 1-spp central
    quadrilaterals, experiment 102 + t, and the 1-light x 128-spp decentral
    pentagon, experiment 193 + t) and holds K5 and K4 under DIFFUSE_ONLY
    against their plain versions on 4,096 evenly spaced pixels, and K4's
-   slots resolved with visibility 1 against K5;
+   slots resolved with visibility 1 against K5; and K2 against its plain
+   version on every primary ray of each cell's first frame (exact);
 8. runs those 26 timing-sweep experiments through the port's harness
    (3 warm-up and 7 measured frames each; the harness's defaults of
    110/100 stay for real sweeps) with every launch counter reset before
@@ -44,8 +46,10 @@ It
 
 The line before the last is a JSON object listing the kernels, each with
 its launches on the main path, time, plain version's time and bound
-(bytes over 3.35 TB/s or operations over 67 TFLOP/s, whichever is
-larger); the last line is {"ok": true, "device": {...}}. Any failed
+(bytes over 3.35 TB/s or float32 operations over 33.5 T/s, whichever is
+larger; for the tracers the operations are the least any binary tree
+over the clusters needs, and the counted tests of this design are a
+separate field); the last line is {"ok": true, "device": {...}}. Any failed
 check, missing GPU or missing package exits non-zero without that line.
 Neither JAX nor any module of the JAX package (vulkan_renderer_tpu) is
 imported; the script uses only the PyTorch port.
@@ -54,23 +58,21 @@ imported; the script uses only the PyTorch port.
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-WIDTH, HEIGHT = 960, 540
 SMALL_WIDTH, SMALL_HEIGHT = 128, 64
 SHADOW_SUBSET = 131072
-PRIMARY_COUNT_SUBSET = 65536  # primary rays for the old scan's counts
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
-FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# H100 SXM float32 outside the tensor cores: 67 TFLOP/s counts a fused
+# multiply-add as two operations, so 33.5 T instructions per second. The
+# kernels are built with --fmad=false: each operation below is one.
+FP32_OPS_PER_S = 33.5e12
 # Float32 operations per test, counted from csrc/common.cuh slab (per axis
 # 2 sub, 2 mul, min, max; 4 min/max to combine; 4 comparisons) and the two
 # Moeller-Trumbore bodies (crosses, dots, sign or reciprocal, 6-7 tests).
 SLAB_OPS, ANYHIT_TRI_OPS, CLOSEST_TRI_OPS = 26, 55, 57
-SC_GROUP = 32  # clusters per supercluster of the old flat scan
-TIMED_FRAMES = 7
 SWEEP_SUBSET = 4096
 SWEEP_WIDTH, SWEEP_HEIGHT = 1920, 1080
 SWEEP_CELLS = (("central_4_128", 102), ("decentral_5_1x128spp", 193))
@@ -88,20 +90,6 @@ def check(ok, message):
 
 def log(message):
     print(message, flush=True)
-
-
-def cuda_ms(torch, fn, reps):
-    """Device time per call over `reps` calls after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def cuda_once(torch, fn):
@@ -132,42 +120,29 @@ def bound_ms(bytes_moved, operations):
                                                            "operations")
 
 
-def old_scan_counts(torch, tk, clusters, origins, dirs, t_max, closest):
-    """Box and triangle tests per ray of the flat two-level scan that the
-    BVH replaced (147 supercluster boxes in id order, the 32 member boxes
-    of each that passes, then 64 triangles per cluster, or for K2 its 8
-    sub-boxes and 8 triangles per sub-box that passes), from the plain
-    version's candidate masks: an upper bound, without early exit or
-    pruning by the best t. Returns (boxes, subboxes, triangles) per ray."""
-    k = clusters.cluster_count
-    ks = -(-k // SC_GROUP)
-    pad = torch.full((ks * SC_GROUP - k, 3), float("nan"),
-                     device=dirs.device)
+def tracer_floor_ops(rays, cluster_count, tri_ops):
+    """The float32 operations a tracer needs at the least for `rays` live
+    rays, whatever tree it walks: one root-to-leaf path of a binary tree
+    over the clusters (ceil(log2 K) inner nodes, two child boxes each),
+    one sub-box and one triangle test per ray."""
+    depth = (cluster_count - 1).bit_length()
+    return rays * ((2 * depth + 1) * SLAB_OPS + tri_ops)
 
-    def reduce(boxes, fn, fill):
-        boxes = torch.cat([boxes, pad]).reshape(ks, SC_GROUP, 3)
-        return fn(torch.where(torch.isnan(boxes), fill, boxes), dim=1)
 
-    sc_lo = reduce(clusters.aabb_lo, torch.amin, float("inf"))
-    sc_hi = reduce(clusters.aabb_hi, torch.amax, float("-inf"))
-    totals = [0, 0, 0]
-    for i in range(0, dirs.shape[0], 4096):
-        o, d, tm = (a[i:i + 4096] for a in (origins, dirs, t_max))
-        inv = tk.inverse_directions(d)
-        sc_mask, _ = tk.ray_box_slab(sc_lo, sc_hi, o, inv, tm)
-        member = tk.cluster_candidates(clusters, o, inv, tm)
-        member &= torch.repeat_interleave(sc_mask, SC_GROUP, dim=1)[:, :k]
-        totals[0] += ks * d.shape[0] + SC_GROUP * int(sc_mask.sum())
-        if closest:
-            totals[1] += clusters.subbox_count * int(member.sum())
-            for k0 in range(0, k, 256):
-                sub = tk.subbox_candidates(clusters, k0, min(k, k0 + 256),
-                                           o, inv, tm)
-                totals[2] += int((sub & member[:, k0:k0 + 256, None])
-                                 .sum())
-        else:
-            totals[2] += clusters.cluster_size * int(member.sum())
-    return [t / dirs.shape[0] for t in totals]
+def compare_closest(torch, tk, args):
+    """K2 against its plain version on the same rays: (plain ms, rays,
+    hits kernel/plain, primitive mismatches, t bit mismatches, max |dt|
+    where both hit)."""
+    prim_k, t_k = tk.trace_closest(*args)
+    plain_ms, (prim_p, t_p) = cuda_once(
+        torch, lambda: tk.trace_closest_plain(*args))
+    both = (prim_k >= 0) & (prim_p >= 0)
+    t_err = (t_k - t_p).abs()[both]
+    return (plain_ms, args[2].shape[0],
+            f"{int((prim_k >= 0).sum())}/{int((prim_p >= 0).sum())}",
+            int((prim_k != prim_p).sum()),
+            int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum()),
+            float(t_err.max()) if t_err.numel() else 0.0)
 
 
 def subset_indices(torch, count, available, device):
@@ -205,22 +180,13 @@ def run():
     from vulkan_renderer_tpu_torch.render.fused import (
         MisHeuristic, PolygonSamplingTechnique, RenderSettings,
         SamplingStrategy)
-    from vulkan_renderer_tpu_torch.render.pipeline import FirstPersonCamera
     from vulkan_renderer_tpu_torch.render.shading import SceneStatic
-    from vulkan_renderer_tpu_torch.scene.scene import (PolygonalLightSpec,
-                                                       load_scene)
+    from vulkan_renderer_tpu_torch.tools import bench_frame as bench
     from vulkan_renderer_tpu_torch.tools import kernel_check
-    from vulkan_renderer_tpu_torch.tools.city import write_city_scene
 
-    def kernel_defines(s, static):
-        return {**fused.kernel_defines(s),
-                "VR_NV_MASK": fused.vertex_count_mask(static)}
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    kernel_defines = bench.kernel_defines
+    WIDTH, HEIGHT = bench.WIDTH, bench.HEIGHT
+    card = bench.card_name()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
@@ -228,20 +194,14 @@ def run():
     device = get_device("cuda")
     check_no_reference_modules()
 
-    settings = RenderSettings(
-        sampling_strategy=SamplingStrategy.DIFFUSE_SPECULAR_MIS,
-        polygon_sampling_technique=(
-            PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE),
-        sample_count=1, trace_shadow_rays=True)
+    settings = bench.settings()
 
     # --- 2. kernel builds ------------------------------------------------
-    bench_static = SceneStatic(light_count=4, light_texturing=(0,) * 4,
-                               light_vertex_counts=(4,) * 4)
+    bench_static = bench.light_layout()
     # The tracers also in their counting builds (box and triangle tests).
-    jobs = [("anyhit", {}), ("closest", {}),
-            ("anyhit", {"VR_COUNT_TESTS": 1}),
-            ("closest", {"VR_COUNT_TESTS": 1}),
-            ("fused_shading", kernel_defines(settings, bench_static))]
+    jobs = bench.kernel_jobs(settings) + [
+        ("anyhit", {"VR_COUNT_TESTS": 1}),
+        ("closest", {"VR_COUNT_TESTS": 1})]
     for tech in PolygonSamplingTechnique:
         tech_settings = RenderSettings(
             sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
@@ -271,21 +231,9 @@ def run():
 
     # --- 3. the bench city ---------------------------------------------------
     data_dir = os.path.join(ROOT, "data")
-    stem = "city_300x10"
     start = time.perf_counter()
-    vks = os.path.join(data_dir, f"{stem}.vks")
-    if not os.path.exists(vks):
-        vks = write_city_scene(data_dir, stem, n_buildings=300, detail=10)
-    specs = [PolygonalLightSpec(
-        translation=np.array([-30.0 + 20.0 * i, 0.0, 8.0], np.float32),
-        rotation_angles=np.array([np.pi, 0.0, 0.0], np.float32),
-        scaling_x=1.5, scaling_y=1.5,
-        radiant_flux=np.array([400.0, 380.0, 340.0], np.float32))
-        for i in range(4)]
-    scene = load_scene(vks, os.path.join(data_dir, f"{stem}_textures"),
-                       specs, device, data_directory=data_dir)
+    scene, static = bench.load_city(data_dir, device)
     torch.cuda.synchronize()
-    static = SceneStatic.for_scene(scene)
     extent = (scene.clusters.aabb_hi - scene.clusters.aabb_lo).median(
         dim=0).values
     log(f"scene: {scene.triangle_positions.shape[0]} triangles, "
@@ -295,28 +243,12 @@ def run():
         f"{scene.clusters.bvh_nodes.shape[0]} BVH nodes "
         f"({scene.clusters.bvh_nodes.numel() * 4} bytes), built in "
         f"{time.perf_counter() - start:.2f} s")
-    camera = FirstPersonCamera(
-        position_world_space=np.array([0.0, 0.0, 2.0], np.float32),
-        rotation_x=0.55 * np.pi, rotation_z=0.5 * np.pi)
-    noise_numbers = (np.arange(4) * 0x123456).astype(np.uint32)
-    constants = pipeline.make_frame_constants(camera, WIDTH, HEIGHT,
-                                              settings, noise_numbers, device)
+    camera = bench.camera()
+    noise_numbers = bench.noise_numbers()
 
     # Capture every kernel's inputs at the bench shapes (not the counted run).
-    captured = {}
-
-    def recorder(name, fn):
-        def call(*args):
-            captured[name] = args
-            return fn(*args)
-        return call
-
-    recording = pipeline.FrameKernels(*(
-        recorder(f.name, getattr(pipeline.KERNELS, f.name))
-        for f in dataclasses.fields(pipeline.FrameKernels)))
     with torch.no_grad():
-        pipeline.render_frame_constants(scene, static, settings, constants,
-                                        WIDTH, HEIGHT, recording)
+        captured = bench.capture_inputs(scene, static, settings)
     torch.cuda.synchronize()
 
     results = {}
@@ -325,24 +257,14 @@ def run():
     # K2 on every primary ray of the bench frame. Tolerance: exact. The
     # kernel walks the BVH in another order than the plain version scans,
     # and both return the lexicographic minimum of (t, primitive id).
-    clusters, origins, dirs, t_max = captured["trace_closest"]
-    prim_k, t_k = tk.trace_closest(clusters, origins, dirs, t_max)
-    plain2_ms, (prim_p, t_p) = cuda_once(
-        torch, lambda: tk.trace_closest_plain(clusters, origins, dirs,
-                                              t_max))
-    hit_k, hit_p = prim_k >= 0, prim_p >= 0
-    both = hit_k & hit_p
-    prim_wrong = int((prim_k != prim_p).sum())
-    t_wrong = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum())
-    t_err = (t_k - t_p).abs()[both]
-    k2_err = float(t_err.max()) if t_err.numel() else 0.0
-    log(f"K2 closest vs plain (all {dirs.shape[0]} primary rays): hits "
-        f"{int(hit_k.sum())}/{int(hit_p.sum())}, primitive mismatches "
-        f"{prim_wrong}, t bit mismatches {t_wrong} (tolerance 0, ties "
-        f"included), max |dt| {k2_err:.3g}")
+    plain2_ms, rays, hits, prim_wrong, t_wrong, k2_err = compare_closest(
+        torch, tk, captured["trace_closest"])
+    log(f"K2 closest vs plain (all {rays} primary rays): hits {hits}, "
+        f"primitive mismatches {prim_wrong}, t bit mismatches {t_wrong} "
+        f"(tolerance 0, ties included), max |dt| {k2_err:.3g}")
     check(prim_wrong == 0 and t_wrong == 0,
           "K2 disagrees with its plain version")
-    results["K2"] = dict(max_abs_err=k2_err, compared=dirs.shape[0])
+    results["K2"] = dict(max_abs_err=k2_err, compared=rays)
 
     clusters, prim, a_orig, a_dirs, dcam = captured["closest_attrs"]
     attrs_k = tk.closest_attrs(clusters, prim, a_orig, a_dirs, dcam)
@@ -395,30 +317,19 @@ def run():
                          compared=sidx.numel())
 
     # --- 4b. box and triangle tests per ray ----------------------------------
+    # Rays are live where t_max >= 0 (the kernels return the others at once).
     test_counts = {}
-    for name, args, rays in (
-            ("K2", captured["trace_closest"], dirs.shape[0]),
-            ("K1", captured["trace_anyhit"], live.numel())):
+    for name, fn in (("K2", tk.trace_closest), ("K1", tk.trace_anyhit)):
+        args = captured["trace_closest" if name == "K2" else "trace_anyhit"]
+        rays = int((args[3] >= 0.0).sum())
         counts = torch.zeros(3, dtype=torch.int64, device=device)
-        fn = tk.trace_closest if name == "K2" else tk.trace_anyhit
         fn(*args, test_counts=counts)
         boxes, subboxes, tris = (int(c) for c in counts.tolist())
         test_counts[name] = dict(boxes=boxes, subboxes=subboxes,
                                  triangles=tris, rays=rays)
-        log(f"{name} BVH tests per {'live ' if name == 'K1' else ''}ray "
-            f"({rays} rays): child boxes {boxes / rays:.2f}, sub-boxes "
-            f"{subboxes / rays:.2f}, triangles {tris / rays:.2f}")
-    pidx = subset_indices(torch, PRIMARY_COUNT_SUBSET, dirs.shape[0],
-                          device)
-    sub_primary = [a[pidx].contiguous() for a in (origins, dirs, t_max)]
-    for name, args, closest in (("K2", sub_primary, True),
-                                ("K1", ssub, False)):
-        boxes, subboxes, tris = old_scan_counts(torch, tk, clusters, *args,
-                                                closest)
-        log(f"{name} old flat scan, upper bound without early exit or "
-            f"best-t pruning ({args[1].shape[0]} rays of the plain "
-            f"checks): boxes {boxes:.2f}, sub-boxes {subboxes:.2f}, "
-            f"triangles {tris:.2f} per ray")
+        log(f"{name} BVH tests per live ray ({rays} rays): child boxes "
+            f"{boxes / rays:.2f}, sub-boxes {subboxes / rays:.2f}, "
+            f"triangles {tris / rays:.2f}")
 
     # --- 5. small frame: kernels vs plain versions ---------------------------
     with torch.no_grad():
@@ -448,8 +359,8 @@ def run():
                 "K5": fused.fused_light_shading_resolved}
     for fn in counters.values():
         fn.launches = 0
-    image = pipeline.render_frame(scene, static, camera, settings, WIDTH,
-                                  HEIGHT, noise_numbers)
+    with torch.no_grad():
+        image = bench.render(scene, static, settings)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     log(f"bench frame launches: {launches}")
@@ -469,39 +380,35 @@ def run():
     log(f"bench frame {WIDTH}x{HEIGHT}: finite, no sentinels, mean rgb "
         f"{mean_rgb}")
 
-    frame_ms = []
     with torch.no_grad():
-        for _ in range(TIMED_FRAMES):
-            start = time.perf_counter()
-            pipeline.render_frame(scene, static, camera, settings, WIDTH,
-                                  HEIGHT, noise_numbers)
-            torch.cuda.synchronize()
-            frame_ms.append((time.perf_counter() - start) * 1000.0)
+        frame_ms = bench.frame_ms(torch, scene, static, settings)
     frame_median = float(np.median(frame_ms))
-    log(f"bench frame ms ({TIMED_FRAMES} frames after warm-up, host clock "
-        f"with synchronize): median {frame_median:.3f}, all "
-        f"{[round(t, 3) for t in frame_ms]} [{card}]")
+    log(f"bench frame ms ({bench.FRAMES} frames after {bench.WARMUP} "
+        f"warm-up, host clock with synchronize): median {frame_median:.3f}, "
+        f"all {[round(t, 3) for t in frame_ms]} [{card}]")
 
     # --- per-kernel times at the bench shapes --------------------------------
     c_args = captured["trace_closest"]
     a_args = captured["closest_attrs"]
     f_args = captured["fused_shading"]
     s_args = captured["trace_anyhit"]
+    kernel_ms = bench.kernel_ms(torch, captured)
     timings = {
-        "K2": (cuda_ms(torch, lambda: tk.trace_closest(*c_args), 5),
-               plain2_ms, None, f"{c_args[2].shape[0]} rays",
-               f"{c_args[2].shape[0]} rays"),
-        "K3": (cuda_ms(torch, lambda: tk.closest_attrs(*a_args), 10),
-               cuda_ms(torch, lambda: tk.closest_attrs_plain(*a_args), 3),
+        "K2": (kernel_ms["K2"], plain2_ms, None,
+               f"{c_args[2].shape[0]} rays", f"{c_args[2].shape[0]} rays"),
+        "K3": (kernel_ms["K3"],
+               bench.cuda_ms(torch, lambda: tk.closest_attrs_plain(*a_args),
+                             3),
                None, f"{a_args[3].shape[0]} rays", None),
-        "K4": (cuda_ms(torch, lambda: fused.fused_light_shading(*f_args), 5),
-               cuda_ms(torch,
-                       lambda: fused.fused_light_shading_plain(*f_args), 1),
+        "K4": (kernel_ms["K4"],
+               bench.cuda_ms(
+                   torch, lambda: fused.fused_light_shading_plain(*f_args),
+                   1),
                None, f"{f_args[0].shape[1]} pixels x "
                f"{static.light_count} lights", None),
-        "K1": (cuda_ms(torch, lambda: tk.trace_anyhit(*s_args), 3),
-               plain1_ms,
-               cuda_ms(torch, lambda: tk.trace_anyhit(clusters, *ssub), 5),
+        "K1": (kernel_ms["K1"], plain1_ms,
+               bench.cuda_ms(torch, lambda: tk.trace_anyhit(clusters, *ssub),
+                             5),
                f"{s_args[2].shape[0]} rays ({live.numel()} live)",
                f"{ssub[1].shape[0]} live rays"),
     }
@@ -575,11 +482,29 @@ def run():
                 k5_args["args"] = args
                 return fused.fused_light_shading_resolved(*args)
 
+            def record_k2(*args):
+                k5_args["closest"] = args
+                return tk.trace_closest(*args)
+
             with torch.no_grad():
                 pipeline.render_frame_constants(
                     app.scene, app.static, app.settings, sweep_constants,
                     exp.width, exp.height, dataclasses.replace(
-                        pipeline.KERNELS, fused_resolved=record_k5))
+                        pipeline.KERNELS, fused_resolved=record_k5,
+                        trace_closest=record_k2))
+            if t == 0:
+                # K2 on every primary ray of the cell's frame: exact, ties
+                # included, as on the bench frame.
+                _, rays, hits, p_bad, t_bad, dt = compare_closest(
+                    torch, tk, k5_args["closest"])
+                log(f"{cell} K2 closest vs plain (all {rays} primary rays, "
+                    f"{app.scene.clusters.cluster_count} clusters): hits "
+                    f"{hits}, primitive mismatches {p_bad}, t bit mismatches "
+                    f"{t_bad} (tolerance 0), max |dt| {dt:.3g}")
+                check(p_bad == 0 and t_bad == 0,
+                      f"K2 disagrees with its plain version ({cell})")
+                results["K2"]["max_abs_err"] = max(
+                    results["K2"]["max_abs_err"], dt)
             planes, noise, ls, st, s = k5_args["args"]
             idx = subset_indices(torch, SWEEP_SUBSET, planes.shape[1], device)
             sub_planes = planes[:, idx].contiguous()
@@ -599,9 +524,10 @@ def run():
             r4 = kernel_check.compare(got4, want4)
             r45 = kernel_check.compare(kernel_check.k4_resolved(got4, st, s).T,
                                        got5.T)
-            ms5 = cuda_ms(torch, lambda: fused.fused_light_shading_resolved(
-                planes, noise, ls, st, s), 2)
-            ms4 = cuda_ms(torch, lambda: fused.fused_light_shading(
+            ms5 = bench.cuda_ms(
+                torch, lambda: fused.fused_light_shading_resolved(
+                    planes, noise, ls, st, s), 2)
+            ms4 = bench.cuda_ms(torch, lambda: fused.fused_light_shading(
                 planes4, ls, st, s), 3)
             # Tolerance: bit for bit where the plain version shares the
             # kernel's formula; the Arvo techniques select azimuth sectors
@@ -732,20 +658,24 @@ def run():
         [r["k5_max_abs_err"] for r in technique_rows]
         + [r["max_abs_err"] for r in mis_rows]))
     # Bounds from this run's inputs: each input byte read once, each
-    # output byte written once; the tracers' operations from their counted
-    # box and triangle tests. K3-K5 count bytes only (their operations are
-    # not counted here): a lower bound.
+    # output byte written once; the tracers' operations are the least any
+    # tree needs for their live rays (tracer_floor_ops), and what this
+    # design's counted box and triangle tests take goes beside them as
+    # design_ops_ms. K3-K5 count bytes only (their operations are not
+    # counted here): a lower bound.
     tables = 4 * (clusters.planes.numel() + clusters.subboxes.numel()
                   + clusters.bvh_nodes.numel())
-    bounds = {}
+    bounds, design_ops_ms = {}, {}
     for name, args, out_bytes, tri_ops in (
             ("K1", s_args, 1, ANYHIT_TRI_OPS),
             ("K2", c_args, 8, CLOSEST_TRI_OPS)):
         c = test_counts[name]
         bounds[name] = bound_ms(
             args[2].shape[0] * (28 + out_bytes) + tables,
-            (c["boxes"] + c["subboxes"]) * SLAB_OPS
-            + c["triangles"] * tri_ops)
+            tracer_floor_ops(c["rays"], clusters.cluster_count, tri_ops))
+        design_ops_ms[name] = ((c["boxes"] + c["subboxes"]) * SLAB_OPS
+                               + c["triangles"] * tri_ops) \
+            / FP32_OPS_PER_S * 1e3
     a_prim = a_args[1]
     bounds["K3"] = bound_ms(a_prim.numel() * (28 + 18 * 4)
                             + int((a_prim >= 0).sum()) * 25 * 4, 0)
@@ -765,7 +695,8 @@ def run():
                  "bound_by": bounds[name][1], "library_ms": None,
                  "shape": shape}
         if name in test_counts:
-            entry["tests"] = test_counts[name]
+            entry.update(tests=test_counts[name],
+                         design_ops_ms=round(design_ops_ms[name], 5))
         if plain_shape and ms_sub is not None:
             entry.update(plain_shape=plain_shape,
                          ms_at_plain_shape=round(ms_sub, 4))

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Time the bench frame and its kernels on one GPU, for the port found
-under --root (default: the checkout this file is in), so that two trees
-can be compared in one run on one card:
+"""The bench frame: its one definition, and a timer for it on one GPU.
+
+The bench frame is 960x540 at 1 spp on the procedural city (300
+buildings, detail 10), lit by four quad street lights, with PSA +
+DIFFUSE_SPECULAR_MIS, clamped-optimal MIS and shadows on. `chip_smoke.py`
+builds its main-path run from the functions below.
+
+Run as a script, it times the port found under --root (default: the
+checkout this file is in), so that two trees can be compared in one run
+on one card:
 
     python3 vulkan_renderer_tpu_torch/tools/bench_frame.py \
-        [--root DIR] [--data DIR] [--frames N] [--label NAME]
+        [--root DIR] [--data DIR]
 
 It builds the bench frame's kernel libraries (K1-K4), writes or reuses
-the bench city (300 buildings, detail 10) under --data, renders the bench
-frame (960x540, 1 spp, PSA + DIFFUSE_SPECULAR_MIS with clamped-optimal
-MIS, four quad street lights, shadows on) and prints one JSON line: the
+the bench city under --data, and prints one JSON line: the root, the
 card (nvidia-smi name and power limit), the median and all ms/frame of
---frames frames after three warm-up frames (host clock around each frame
+FRAMES frames after WARMUP warm-up frames (host clock around each frame
 and a synchronize), and each kernel's ms at the frame's shapes (CUDA
 events, warm L2). It uses only the entry points that every tree of the
 port has had since the bench frame was first ported, and imports no JAX.
@@ -25,8 +30,13 @@ import subprocess
 import sys
 import time
 
+WIDTH, HEIGHT = 960, 540
+CITY = "city_300x10"
+WARMUP, FRAMES = 3, 15
+
 
 def cuda_ms(torch, fn, reps):
+    """Device time per call over `reps` calls after one warm-up call."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -39,93 +49,127 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def main(argv=None) -> int:
-    here = os.path.dirname(os.path.abspath(__file__))
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--root", default=os.path.dirname(os.path.dirname(
-        here)), help="checkout whose vulkan_renderer_tpu_torch is timed")
-    parser.add_argument("--data", default=None,
-                        help="directory of the bench city (default: "
-                        "ROOT/data)")
-    parser.add_argument("--frames", type=int, default=15)
-    parser.add_argument("--label", default="")
-    args = parser.parse_args(argv)
-    import numpy as np
-    import torch
-    if not torch.cuda.is_available():
-        print("bench_frame: needs a CUDA GPU", file=sys.stderr)
-        return 1
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
-    from vulkan_renderer_tpu_torch.kernels import build
-    from vulkan_renderer_tpu_torch.render import fused, pipeline
-    from vulkan_renderer_tpu_torch.render.shading import SceneStatic
-    from vulkan_renderer_tpu_torch.scene import scene as scene_module
-    from vulkan_renderer_tpu_torch.tools.city import write_city_scene
-
-    card = subprocess.run(
+def card_name():
+    """nvidia-smi's name and power limit of the first card."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    width, height = 960, 540
-    settings = fused.RenderSettings(
+
+
+def settings():
+    from vulkan_renderer_tpu_torch.render import fused
+    return fused.RenderSettings(
         sampling_strategy=fused.SamplingStrategy.DIFFUSE_SPECULAR_MIS,
         polygon_sampling_technique=(
             fused.PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE),
         sample_count=1, trace_shadow_rays=True)
-    static = SceneStatic(light_count=4, light_texturing=(0,) * 4,
-                         light_vertex_counts=(4,) * 4)
-    wall = build.build_many([
-        ("anyhit", {}), ("closest", {}),
-        ("fused_shading", {**fused.kernel_defines(settings),
-                           "VR_NV_MASK": fused.vertex_count_mask(static)})])
-    data_dir = os.path.abspath(args.data or os.path.join(root, "data"))
-    vks = os.path.join(data_dir, "city_300x10.vks")
+
+
+def light_layout():
+    """The SceneStatic of the four quad lights, known before the scene
+    loads, so that the kernels can build meanwhile."""
+    from vulkan_renderer_tpu_torch.render.shading import SceneStatic
+    return SceneStatic(light_count=4, light_texturing=(0,) * 4,
+                       light_vertex_counts=(4,) * 4)
+
+
+def kernel_defines(s, static):
+    from vulkan_renderer_tpu_torch.render import fused
+    return {**fused.kernel_defines(s),
+            "VR_NV_MASK": fused.vertex_count_mask(static)}
+
+
+def kernel_jobs(s):
+    """build.build_many jobs of the kernels the bench frame launches."""
+    return [("anyhit", {}), ("closest", {}),
+            ("fused_shading", kernel_defines(s, light_layout()))]
+
+
+def load_city(data_dir, device):
+    """Write (once) and load the bench city with its four lights: (scene,
+    its SceneStatic)."""
+    import numpy as np
+
+    from vulkan_renderer_tpu_torch.render.shading import SceneStatic
+    from vulkan_renderer_tpu_torch.scene import scene as scene_module
+    from vulkan_renderer_tpu_torch.tools.city import write_city_scene
+    vks = os.path.join(data_dir, f"{CITY}.vks")
     if not os.path.exists(vks):
-        vks = write_city_scene(data_dir, "city_300x10", n_buildings=300,
-                               detail=10)
+        vks = write_city_scene(data_dir, CITY, n_buildings=300, detail=10)
     specs = [scene_module.PolygonalLightSpec(
         translation=np.array([-30.0 + 20.0 * i, 0.0, 8.0], np.float32),
         rotation_angles=np.array([np.pi, 0.0, 0.0], np.float32),
         scaling_x=1.5, scaling_y=1.5,
         radiant_flux=np.array([400.0, 380.0, 340.0], np.float32))
         for i in range(4)]
-    device = torch.device("cuda")
     scene = scene_module.load_scene(
-        vks, os.path.join(data_dir, "city_300x10_textures"), specs, device,
+        vks, os.path.join(data_dir, f"{CITY}_textures"), specs, device,
         data_directory=data_dir)
-    camera = pipeline.FirstPersonCamera(
+    return scene, SceneStatic.for_scene(scene)
+
+
+def camera():
+    import numpy as np
+
+    from vulkan_renderer_tpu_torch.render.pipeline import FirstPersonCamera
+    return FirstPersonCamera(
         position_world_space=np.array([0.0, 0.0, 2.0], np.float32),
         rotation_x=0.55 * np.pi, rotation_z=0.5 * np.pi)
-    noise_numbers = (np.arange(4) * 0x123456).astype(np.uint32)
-    static = SceneStatic.for_scene(scene)
 
+
+def noise_numbers():
+    import numpy as np
+    return (np.arange(4) * 0x123456).astype(np.uint32)
+
+
+def render(scene, static, s, kernels=None):
+    """One bench frame (H, W, 3) through `kernels` (default: the port's
+    kernels)."""
+    from vulkan_renderer_tpu_torch.render import pipeline
+    return pipeline.render_frame(
+        scene, static, camera(), s, WIDTH, HEIGHT, noise_numbers(),
+        pipeline.KERNELS if kernels is None else kernels)
+
+
+def capture_inputs(scene, static, s):
+    """Render one frame and return each kernel's arguments, keyed by the
+    pipeline.FrameKernels field that took them."""
+    from vulkan_renderer_tpu_torch.render import pipeline
     captured = {}
 
     def recorder(name, fn):
-        def call(*a):
-            captured[name] = a
-            return fn(*a)
+        def call(*args):
+            captured[name] = args
+            return fn(*args)
         return call
 
-    kernels = pipeline.FrameKernels(*(
+    render(scene, static, s, pipeline.FrameKernels(*(
         recorder(f.name, getattr(pipeline.KERNELS, f.name))
-        for f in dataclasses.fields(pipeline.FrameKernels)))
-    pipeline.render_frame(scene, static, camera, settings, width, height,
-                          noise_numbers, kernels)
-    for _ in range(3):
-        pipeline.render_frame(scene, static, camera, settings, width, height,
-                              noise_numbers)
+        for f in dataclasses.fields(pipeline.FrameKernels))))
+    return captured
+
+
+def frame_ms(torch, scene, static, s):
+    """ms of FRAMES frames after WARMUP warm-up frames: host clock around
+    each frame and a synchronize."""
+    for _ in range(WARMUP):
+        render(scene, static, s)
     torch.cuda.synchronize()
-    frame_ms = []
-    for _ in range(args.frames):
+    times = []
+    for _ in range(FRAMES):
         start = time.perf_counter()
-        pipeline.render_frame(scene, static, camera, settings, width, height,
-                              noise_numbers)
+        render(scene, static, s)
         torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - start) * 1e3)
+        times.append((time.perf_counter() - start) * 1e3)
+    return times
+
+
+def kernel_ms(torch, captured):
+    """K1-K4 ms at the frame's shapes (CUDA events, warm L2)."""
+    from vulkan_renderer_tpu_torch.render import pipeline
     k = pipeline.KERNELS
-    kernel_ms = {
+    return {
         "K1": cuda_ms(torch, lambda: k.trace_anyhit(
             *captured["trace_anyhit"]), 5),
         "K2": cuda_ms(torch, lambda: k.trace_closest(
@@ -135,12 +179,39 @@ def main(argv=None) -> int:
         "K4": cuda_ms(torch, lambda: k.fused_shading(
             *captured["fused_shading"]), 5),
     }
+
+
+def main(argv=None) -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        here)), help="checkout whose vulkan_renderer_tpu_torch is timed")
+    parser.add_argument("--data", default=None,
+                        help="directory of the bench city (default: "
+                        "ROOT/data)")
+    args = parser.parse_args(argv)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("bench_frame: needs a CUDA GPU", file=sys.stderr)
+        return 1
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    from vulkan_renderer_tpu_torch.kernels import build
+
+    card = card_name()
+    s = settings()
+    wall = build.build_many(kernel_jobs(s))
+    data_dir = os.path.abspath(args.data or os.path.join(root, "data"))
+    scene, static = load_city(data_dir, torch.device("cuda"))
+    captured = capture_inputs(scene, static, s)
+    times = frame_ms(torch, scene, static, s)
     print(json.dumps({
-        "label": args.label, "root": root, "card": card,
-        "build_wall_s": round(wall, 2),
-        "frame_ms_median": round(float(np.median(frame_ms)), 4),
-        "frame_ms": [round(t, 4) for t in frame_ms],
-        "kernel_ms": {n: round(v, 4) for n, v in kernel_ms.items()}}),
+        "root": root, "card": card, "build_wall_s": round(wall, 2),
+        "frame_ms_median": round(float(np.median(times)), 4),
+        "frame_ms": [round(t, 4) for t in times],
+        "kernel_ms": {n: round(v, 4)
+                      for n, v in kernel_ms(torch, captured).items()}}),
         flush=True)
     return 0
 
