@@ -1,7 +1,9 @@
 """Shared inputs of the port's parity tests: seeded shading data, LTC
-coefficients from the packaged fits, hit mask, noise and light records,
-made with numpy and handed to both packages, and a comparison of the JAX
-package's plain-XLA shading with the port's plain versions.
+coefficients from the packaged fits, hit mask, a noise table and light
+records, made with numpy and handed to both packages (the JAX package gets
+the noise as get_noise_image of the table, the port the table itself as a
+FrameNoise), and a comparison of the JAX package's plain-XLA shading with
+the port's plain versions.
 
 The two packages have their own RenderSettings, PolygonalLightSpec and
 FirstPersonCamera classes (the port imports nothing of the JAX package).
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from vulkan_renderer_tpu.core import settings as j_settings
+from vulkan_renderer_tpu.ops.noise import get_noise_image as j_noise_image
 from vulkan_renderer_tpu.ops.brdf import ShadingData as JShadingData
 from vulkan_renderer_tpu.ops.ltc import (LtcTable as JLtcTable,
                                          get_ltc_coefficients,
@@ -34,13 +37,18 @@ from vulkan_renderer_tpu.scene.lights import (PolygonalLightSpec,
 from vulkan_renderer_tpu_torch.assets.ltc_table import default_ltc_table
 from vulkan_renderer_tpu_torch.core import settings as t_settings
 from vulkan_renderer_tpu_torch.ops.ltc import LtcCoefficients
+from vulkan_renderer_tpu_torch.ops.noise import frame_noise
 from vulkan_renderer_tpu_torch.render import fused
 from vulkan_renderer_tpu_torch.render.shading import SceneStatic, ShadingData
 from vulkan_renderer_tpu_torch.scene import camera as t_camera
 from vulkan_renderer_tpu_torch.scene import lights as t_lights
 from vulkan_renderer_tpu_torch.scene.scene import lights_from_specs
 
+# The pixels are a FRAME_WIDTH x (PIXELS / FRAME_WIDTH) frame for the noise;
+# the width is no multiple of the noise table's 16-texel side, so the
+# table wraps inside a row.
 PIXELS = 160
+FRAME_WIDTH = 20
 
 _JAX_MODULES = (j_settings, j_lights, j_camera)
 _PORT_MODULES = (t_settings, t_lights, t_camera)
@@ -128,10 +136,22 @@ def shading_inputs(seed=11, p=PIXELS):
     return data, ltc, hit
 
 
-def noise_pairs(settings, light_count, seed=5, p=PIXELS):
+def noise_inputs(settings, light_count, seed=5, p=PIXELS,
+                 width=FRAME_WIDTH):
+    """A seeded (layers 8, 32 x 16 texels) noise table read by a width x
+    (p / width) frame: (the JAX package's (p, pairs, 2) noise from its
+    get_noise_image, the port's FrameNoise of the same table)."""
     rng = np.random.default_rng(seed)
-    return rng.uniform(0, 1, (p, pairs_per_light(settings) * light_count,
-                              2)).astype(np.float32)
+    table = rng.integers(0, 65536, size=(8, 32, 16, 4)).astype(np.uint16)
+    randoms = rng.integers(0, 2**32, size=4, dtype=np.uint64) \
+        .astype(np.uint32)
+    pairs = pairs_per_light(settings) * light_count
+    height = p // width
+    want = np.asarray(j_noise_image(jnp.asarray(table), width, height, pairs,
+                                    np.uint32(7), jnp.asarray(randoms)))
+    noise = frame_noise(torch.from_numpy(table.astype(np.int32)), width,
+                        height, pairs, 7, randoms)
+    return want, noise
 
 
 def jax_reference(data, ltc, hit, noise, specs, settings):
@@ -150,8 +170,8 @@ def jax_reference(data, ltc, hit, noise, specs, settings):
     return [np.asarray(o) for o in out]
 
 
-def port_inputs(data, ltc, hit, noise, specs):
-    """(planes with noise, light records, static) for the port."""
+def port_inputs(data, ltc, hit, specs):
+    """(planes, light records, static) for the port."""
     static = SceneStatic(light_count=len(specs),
                          light_texturing=(0,) * len(specs),
                          light_vertex_counts=tuple(s.vertex_count
@@ -159,8 +179,7 @@ def port_inputs(data, ltc, hit, noise, specs):
     planes = fused.pack_planes(
         ShadingData(**{k: torch.from_numpy(v) for k, v in data.items()}),
         LtcCoefficients(**{k: torch.from_numpy(v) for k, v in ltc.items()}),
-        torch.from_numpy(hit),
-        torch.from_numpy(noise.reshape(noise.shape[0], -1).T))
+        torch.from_numpy(hit))
     light_scalars = fused.pack_light_scalars(
         lights_from_specs(to_port(specs), "cpu"), len(specs))
     return planes, light_scalars, static

@@ -1,8 +1,9 @@
 """Parity of the port's fused-shading module (render/fused.py, kernel K4)
 with the JAX package: the plain version against
 render/fused.py::fused_light_shading_xla on the same shading data, LTC
-coefficients, noise and light records, for PSA and PSA-biased with
-DIFFUSE_SPECULAR_MIS under all five MIS heuristics."""
+coefficients, noise table and light records (the JAX package reads the
+table as get_noise_image, the port as K4's FrameNoise), for PSA and
+PSA-biased with DIFFUSE_SPECULAR_MIS under all five MIS heuristics."""
 
 import dataclasses
 import functools
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_shading_inputs import to_port
+from _torch_shading_inputs import noise_inputs, to_port
 from vulkan_renderer_tpu.core.settings import (MisHeuristic,
                                                PolygonSamplingTechnique,
                                                RenderSettings,
@@ -54,8 +55,8 @@ STATIC = SceneStatic(light_count=2, light_texturing=(0, 0),
 
 @pytest.fixture(scope="module")
 def inputs():
-    """Seeded shading data, LTC coefficients from the packaged fits, hit
-    mask and noise, as numpy, shared by both packages."""
+    """Seeded shading data, LTC coefficients from the packaged fits and hit
+    mask, as numpy, shared by both packages."""
     rng = np.random.default_rng(11)
     p = 256
     position = rng.normal(size=(p, 3)).astype(np.float32)
@@ -82,8 +83,7 @@ def inputs():
     ltc = {f: np.array(getattr(ltc, f)) for f in ltc._fields
            if f != "quad"}
     hit = rng.uniform(0, 1, p) > 0.1
-    noise = rng.uniform(0, 1, (p, 2 * 2 * 2, 2)).astype(np.float32)
-    return data, ltc, hit, noise
+    return data, ltc, hit
 
 
 def _settings(heuristic, biased):
@@ -113,15 +113,16 @@ def test_fused_plain_matches_reference(inputs, heuristic, biased):
     ulp, which can move a sample across a sector boundary. So >= 99.5% of
     the output values agree within 1e-4 of their plane's scale (+1e-3
     relative), and the rest are sector flips of single slots."""
-    data, ltc, hit, noise = inputs
+    data, ltc, hit = inputs
     settings = _settings(heuristic, biased)
+    jax_noise, noise = noise_inputs(settings, 2, seed=12, p=256, width=8)
     jstatic = JSceneStatic(light_count=2, light_texturing=(0, 0),
                            light_vertex_counts=(4, 5))
     lights = stack_lights([update_polygonal_light(s) for s in SPECS])
     want = j_fused.fused_light_shading_xla(
         JShadingData(**{k: jnp.asarray(v) for k, v in data.items()}),
         type("Ltc", (), {k: jnp.asarray(v) for k, v in ltc.items()}),
-        jnp.asarray(hit), jnp.asarray(noise),
+        jnp.asarray(hit), jnp.asarray(jax_noise),
         j_fused._pack_light_scalars(lights, 2),
         jnp.float32(settings.mis_visibility_estimate), jstatic, settings)
     want = [np.asarray(w) for w in want]
@@ -129,10 +130,9 @@ def test_fused_plain_matches_reference(inputs, heuristic, biased):
     planes = fused.pack_planes(
         ShadingData(**{k: torch.from_numpy(v) for k, v in data.items()}),
         LtcCoefficients(**{k: torch.from_numpy(v) for k, v in ltc.items()}),
-        torch.from_numpy(hit),
-        torch.from_numpy(noise.reshape(noise.shape[0], -1).T))
+        torch.from_numpy(hit))
     out = fused.fused_light_shading(
-        planes, fused.pack_light_scalars(
+        planes, noise, fused.pack_light_scalars(
             lights_from_specs(to_port(SPECS), "cpu"), 2),
         STATIC, to_port(settings))
     got = [g.numpy() for g in fused.unpack_outputs(out, 8)]

@@ -103,17 +103,15 @@ def test_fused_kernel_matches_plain(city, heuristic):
                               sample_count=2, trace_shadow_rays=True)
     captured = {}
 
-    def record(planes, light_scalars, static, s):
-        captured["args"] = (planes, light_scalars, static, s)
-        return fused.fused_light_shading_plain(planes, light_scalars, static,
-                                               s)
+    def record(*args):
+        captured["args"] = args
+        return fused.fused_light_shading_plain(*args)
 
     kernels = dataclasses.replace(pipeline.KERNELS, fused_shading=record)
     pipeline.render_frame(scene, SceneStatic.for_scene(scene), camera,
                           settings, 64, 32, kernels=kernels)
-    planes, light_scalars, static, s = captured["args"]
-    got = fused.fused_light_shading(planes, light_scalars, static, s)
-    want = fused.fused_light_shading_plain(planes, light_scalars, static, s)
+    got = fused.fused_light_shading(*captured["args"])
+    want = fused.fused_light_shading_plain(*captured["args"])
     fin = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), fin)
     scale = torch.where(fin, want.abs(), 0.0).amax(dim=1, keepdim=True)
@@ -186,20 +184,17 @@ def test_diffuse_only_kernels_match_plain(planes_scene, tech):
         sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
         polygon_sampling_technique=tech, sample_count=2,
         trace_shadow_rays=False)
-    planes, noise, light_scalars, static, s = _capture_resolved(
-        scene, camera, settings)
+    args = _capture_resolved(scene, camera, settings)
+    static, s = args[3], args[4]
     limit = 5e-3 if tech in (Tech.SOLID_ANGLE_ARVO,
                              Tech.PROJECTED_SOLID_ANGLE_ARVO) else 0.0
-    got5 = fused.fused_light_shading_resolved(planes, noise, light_scalars,
-                                              static, s)
-    want5 = fused.fused_light_shading_resolved_plain(planes, noise,
-                                                     light_scalars, static, s)
+    got5 = fused.fused_light_shading_resolved(*args)
+    want5 = fused.fused_light_shading_resolved_plain(*args)
     r5 = kernel_check.compare(got5.T, want5.T)
     assert 1.0 - r5["exact"] <= limit and r5["nonfinite_mismatch"] == 0, r5
-    planes4 = torch.cat([planes, noise.reshape(-1, planes.shape[1])])
-    got4 = fused.fused_light_shading(planes4, light_scalars, static, s)
-    want4 = fused.fused_light_shading_plain(planes4, light_scalars, static,
-                                            s)
+    # K4 takes K5's arguments (the same planes and noise).
+    got4 = fused.fused_light_shading(*args)
+    want4 = fused.fused_light_shading_plain(*args)
     r4 = kernel_check.compare(got4, want4)
     assert 1.0 - r4["exact"] <= limit and r4["nonfinite_mismatch"] == 0, r4
     r45 = kernel_check.compare(kernel_check.k4_resolved(got4, static, s).T,

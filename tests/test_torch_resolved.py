@@ -2,8 +2,9 @@
 fused_light_shading_resolved_plain, the plain version of kernel K5) with
 the JAX package: base + sum over ray slots of b from the plain-XLA
 fused_light_shading_xla, which is the equality tests/test_fused.py
-establishes for the JAX K5. Mixed vertex counts exercise the per-group
-launches.
+establishes for the JAX K5. Both read one seeded noise table: the JAX
+package as get_noise_image, the port as the FrameNoise that K5 reads.
+Mixed vertex counts exercise the per-group launches.
 
 Tolerance: K5 sums the same per-slot terms in another order (per light
 base + (b_0 + b_1 + ...), lights grouped by vertex count) than the JAX
@@ -20,7 +21,7 @@ import numpy as np
 import pytest
 
 from _torch_shading_inputs import (agreement, jax_reference, light_specs,
-                                   noise_pairs, port_inputs, shading_inputs,
+                                   noise_inputs, port_inputs, shading_inputs,
                                    to_port)
 from vulkan_renderer_tpu.core.settings import (MisHeuristic,
                                                PolygonSamplingTechnique,
@@ -45,17 +46,12 @@ def inputs():
 
 def _resolved(inputs, specs, settings):
     data, ltc, hit = inputs
-    noise = noise_pairs(settings, len(specs), seed=9)
-    base, b, _, _ = jax_reference(data, ltc, hit, noise, specs, settings)
+    jax_noise, noise = noise_inputs(settings, len(specs), seed=10)
+    base, b, _, _ = jax_reference(data, ltc, hit, jax_noise, specs, settings)
     want = base + b.sum(axis=1)
-    planes, light_scalars, static = port_inputs(data, ltc, hit, noise, specs)
-    ppl = fused.rays_per_light(to_port(settings))
-    n_base = len(fused.BASE_PLANES)
-    # K5's light-major noise is K4's noise planes viewed by light.
-    noise_lm = planes[n_base:].view(static.light_count, 2 * ppl, -1)
-    got = fused.fused_light_shading_resolved(
-        planes[:n_base].contiguous(), noise_lm, light_scalars, static,
-        to_port(settings))
+    planes, light_scalars, static = port_inputs(data, ltc, hit, specs)
+    got = fused.fused_light_shading_resolved(planes, noise, light_scalars,
+                                             static, to_port(settings))
     return got.numpy(), want
 
 
@@ -110,20 +106,18 @@ def test_resolved_matches_jax_pallas_interpret(inputs):
     settings = RenderSettings(sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
                               polygon_sampling_technique=Tech.SOLID_ANGLE,
                               sample_count=2, trace_shadow_rays=False)
-    noise = noise_pairs(settings, len(specs), seed=4, p=32)
+    jax_noise, noise = noise_inputs(settings, len(specs), seed=4, p=32,
+                                    width=8)
     jstatic = JSceneStatic(light_count=2, light_texturing=(0, 0),
                            light_vertex_counts=(4, 3))
     lights = stack_lights([update_polygonal_light(s) for s in specs])
     want = np.asarray(j_fused.fused_light_shading_resolved(
         JShadingData(**{k: jnp.asarray(v) for k, v in data.items()}),
         JLtc(**{k: jnp.asarray(v) for k, v in ltc.items()}),
-        jnp.asarray(hit), jnp.asarray(noise),
+        jnp.asarray(hit), jnp.asarray(jax_noise),
         j_fused._pack_light_scalars(lights, 2), jnp.float32(0.5), jstatic,
         settings, interpret=True, tile_rows=1))
-    planes, light_scalars, static = port_inputs(data, ltc, hit, noise, specs)
-    n_base = len(fused.BASE_PLANES)
+    planes, light_scalars, static = port_inputs(data, ltc, hit, specs)
     got = fused.fused_light_shading_resolved(
-        planes[:n_base].contiguous(),
-        planes[n_base:].view(2, 4, -1),
-        light_scalars, static, to_port(settings)).numpy()
+        planes, noise, light_scalars, static, to_port(settings)).numpy()
     _check(got, want, Tech.SOLID_ANGLE)

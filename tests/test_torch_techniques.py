@@ -1,7 +1,9 @@
 """Parity of the port's DIFFUSE_ONLY shading (render/fused.py plain version
 of K4, ops/soa_techniques.py, ops/soa_arvo_psa.py) with the JAX package's
 plain-XLA fused_light_shading_xla, for all 13 sampling techniques, on the
-same seeded shading data, LTC coefficients, noise and light records.
+same seeded shading data, LTC coefficients, noise table and light records
+(the JAX package reads the table as get_noise_image, the port as K4's
+FrameNoise).
 
 Tolerance: the two run the same float32 operations in the same order, but
 XLA may fuse multiply-adds and its rsqrt/cos/sin/exp differ from torch's by
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from _torch_shading_inputs import (agreement, jax_reference, light_specs,
-                                   noise_pairs, port_inputs, shading_inputs,
+                                   noise_inputs, port_inputs, shading_inputs,
                                    to_port)
 from vulkan_renderer_tpu.core.settings import (PolygonSamplingTechnique,
                                                RenderSettings,
@@ -45,10 +47,10 @@ def test_diffuse_only_plain_matches_reference(inputs, tech):
     settings = RenderSettings(sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
                               polygon_sampling_technique=tech,
                               sample_count=2)
-    noise = noise_pairs(settings, len(specs))
-    want = jax_reference(data, ltc, hit, noise, specs, settings)
-    planes, light_scalars, static = port_inputs(data, ltc, hit, noise, specs)
-    out = fused.fused_light_shading(planes, light_scalars, static,
+    jax_noise, noise = noise_inputs(settings, len(specs))
+    want = jax_reference(data, ltc, hit, jax_noise, specs, settings)
+    planes, light_scalars, static = port_inputs(data, ltc, hit, specs)
+    out = fused.fused_light_shading(planes, noise, light_scalars, static,
                                     to_port(settings))
     slots = static.light_count * fused.rays_per_light(to_port(settings))
     got = [g.numpy() for g in fused.unpack_outputs(out, slots)]

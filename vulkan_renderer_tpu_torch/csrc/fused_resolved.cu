@@ -18,44 +18,54 @@
 // and slot sums go in the order of fused_light_shading_resolved_plain:
 // per light base + (0 + b_0 + b_1 + ...), lights added in group order.
 //
-// Inputs: the 62 base planes (62, P) without noise; the noise light-major
-// (L, 2 ppl, P), so a warp's reads of one pair plane are coalesced; the
-// (L, 58) light records. Technique, strategy and heuristic are
-// compile-time defines shared with K4 (techniques.cuh).
+// Inputs: the 62 base planes (62, P); the noise table with the frame's
+// per-fetch offsets and layers (techniques.cuh Noise; no noise image);
+// the (L, 58) light records. Column p of the planes is frame pixel
+// pixels[p] (all pixels in row-major order when pixels is null), at
+// x = pixel % frame_width, y = pixel / frame_width. Technique, strategy and
+// heuristic are compile-time defines shared with K4 (techniques.cuh).
 //
 // What bounds it on the H100: arithmetic and registers, as for K4 (see
-// fused_shading.cu); the only memory traffic per pixel-light is its
-// 2 ppl noise floats.
+// fused_shading.cu); the only memory traffic per pixel-light is one
+// 8-byte table read per noise pair.
 
 #include "techniques.cuh"
+
+#ifndef VR_THREADS
+#define VR_THREADS 128
+#endif
 
 namespace {
 
 using namespace shade;
 
 template <int NV>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(VR_THREADS)
 fused_resolved_kernel(const float* __restrict__ planes, int pixel_count,
-                      const float* __restrict__ noise,
-                      const float* __restrict__ lights,
+                      Noise noise, const int* __restrict__ pixels,
+                      int frame_width, const float* __restrict__ lights,
                       const int* __restrict__ light_ids, int group_size,
                       int sample_count, bool first_group, float vis,
-                      float* __restrict__ out) {
+                      float* __restrict__ out,
+                      unsigned long long* __restrict__ op_counts) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= pixel_count) return;
+  vrt::begin_op_count();
   const size_t P = (size_t)pixel_count;
   const Pixel px = load_pixel(planes, P, p);
+  const int pixel = pixels != nullptr ? pixels[p] : p;
+  noise.x = pixel % frame_width;
+  noise.y = pixel / frame_width;
   const int ppl = rays_per_light(sample_count);
 
-  float group[3] = {0.0f, 0.0f, 0.0f};
+  f32 group[3] = {0.0f, 0.0f, 0.0f};
   for (int li = 0; li < group_size; ++li) {
     const int light = light_ids[li];
     const float* ls = lights + (size_t)light * kLightScalars;
-    const float* nz = noise + (size_t)light * 2 * ppl * P + p;
-    float lbase[3];
-    float bsum[3] = {0.0f, 0.0f, 0.0f};
-    shade_light<NV>(px, ls, nz, P, sample_count, vis, lbase,
-                    [&](int, const float* b, V3, float) {
+    f32 lbase[3];
+    f32 bsum[3] = {0.0f, 0.0f, 0.0f};
+    shade_light<NV>(px, ls, noise, light * ppl, sample_count, vis, lbase,
+                    [&](int, const f32* b, V3, f32) {
                       bsum[0] = bsum[0] + b[0];
                       bsum[1] = bsum[1] + b[1];
                       bsum[2] = bsum[2] + b[2];
@@ -66,22 +76,23 @@ fused_resolved_kernel(const float* __restrict__ planes, int pixel_count,
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float* o = out + (size_t)c * P + p;
-    *o = first_group ? group[c] : *o + group[c];
+    *o = raw(first_group ? group[c] : *o + group[c]);
   }
+  vrt::flush_op_count(op_counts);
 }
 
 // Launches the NV instantiation if VR_NV_MASK compiles it in.
 template <int NV>
-int launch(const float* planes, int pixel_count, const float* noise,
-           const float* lights, const int* light_ids, int group_size,
-           int sample_count, int first_group, float vis, float* out,
-           cudaStream_t stream) {
+int launch(const float* planes, int pixel_count, Noise noise,
+           const int* pixels, int frame_width, const float* lights,
+           const int* light_ids, int group_size, int sample_count,
+           int first_group, float vis, float* out,
+           unsigned long long* op_counts, cudaStream_t stream) {
   if constexpr (((VR_NV_MASK >> NV) & 1) != 0) {
-    const int threads = 128;
-    const int blocks = (pixel_count + threads - 1) / threads;
-    fused_resolved_kernel<NV><<<blocks, threads, 0, stream>>>(
-        planes, pixel_count, noise, lights, light_ids, group_size,
-        sample_count, first_group != 0, vis, out);
+    const int blocks = (pixel_count + VR_THREADS - 1) / VR_THREADS;
+    fused_resolved_kernel<NV><<<blocks, VR_THREADS, 0, stream>>>(
+        planes, pixel_count, noise, pixels, frame_width, lights, light_ids,
+        group_size, sample_count, first_group != 0, vis, out, op_counts);
     return (int)cudaGetLastError();
   } else {
     return (int)cudaErrorInvalidValue;
@@ -90,19 +101,20 @@ int launch(const float* planes, int pixel_count, const float* noise,
 
 }  // namespace
 
-extern "C" int k5_fused_resolved(const float* planes, int pixel_count,
-                                 const float* noise, const float* lights,
-                                 const int* light_ids, int group_size,
-                                 int vertex_count, int sample_count,
-                                 int first_group, float vis, float* out,
-                                 cudaStream_t stream) {
+extern "C" int k5_fused_resolved(
+    const float* planes, int pixel_count, const int* table, int table_height,
+    int table_width, const int* fetches, const int* pixels, int frame_width,
+    const float* lights, const int* light_ids, int group_size,
+    int vertex_count, int sample_count, int first_group, float vis,
+    float* out, unsigned long long* op_counts, cudaStream_t stream) {
+  const Noise noise = {table, fetches, table_height, table_width, 0, 0};
   switch (vertex_count) {
-    case 3: return launch<3>(planes, pixel_count, noise, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 4: return launch<4>(planes, pixel_count, noise, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 5: return launch<5>(planes, pixel_count, noise, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 6: return launch<6>(planes, pixel_count, noise, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 7: return launch<7>(planes, pixel_count, noise, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 8: return launch<8>(planes, pixel_count, noise, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
+    case 3: return launch<3>(planes, pixel_count, noise, pixels, frame_width, lights, light_ids, group_size, sample_count, first_group, vis, out, op_counts, stream);
+    case 4: return launch<4>(planes, pixel_count, noise, pixels, frame_width, lights, light_ids, group_size, sample_count, first_group, vis, out, op_counts, stream);
+    case 5: return launch<5>(planes, pixel_count, noise, pixels, frame_width, lights, light_ids, group_size, sample_count, first_group, vis, out, op_counts, stream);
+    case 6: return launch<6>(planes, pixel_count, noise, pixels, frame_width, lights, light_ids, group_size, sample_count, first_group, vis, out, op_counts, stream);
+    case 7: return launch<7>(planes, pixel_count, noise, pixels, frame_width, lights, light_ids, group_size, sample_count, first_group, vis, out, op_counts, stream);
+    case 8: return launch<8>(planes, pixel_count, noise, pixels, frame_width, lights, light_ids, group_size, sample_count, first_group, vis, out, op_counts, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -19,11 +19,14 @@
 // time: unrolling them blew up Mosaic's compile time on the TPU
 // (fused.py:741-745) and would blow up register allocation here.
 //
-// Layout: input planes (NIN, P) = the 62 base planes then the noise pairs
-// (light-major: light i's pair q at 62 + 2 (i ppl + q)); output (3 + 7 S, P):
-// base RGB, then per ray slot b RGB, direction xyz, t_max. Plane-major, so
-// a warp's loads and stores of one plane coalesce. Lights are (L, 58)
-// records (fused.py:49-60) read uniformly by all threads.
+// Layout: input planes (62, P), the base planes of render/fused.py
+// BASE_PLANES. The noise is read from the table (techniques.cuh Noise;
+// light i's pair q is the frame's pair i ppl + q) at the frame pixel of
+// each column: pixels[p], or p when pixels is null, at x = pixel %
+// frame_width, y = pixel / frame_width. Output (3 + 7 S, P): base RGB, then
+// per ray slot b RGB, direction xyz, t_max. Plane-major, so a warp's loads
+// and stores of one plane coalesce. Lights are (L, 58) records
+// (fused.py:49-60) read uniformly by all threads.
 //
 // What bounds it on the H100: arithmetic and registers. Each pixel-light
 // pair costs thousands of FP32 operations (clip, prepare with a sort,
@@ -35,39 +38,48 @@
 
 #include "techniques.cuh"
 
+#ifndef VR_THREADS
+#define VR_THREADS 128
+#endif
+
 namespace {
 
 using namespace shade;
 
 template <int NV>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(VR_THREADS)
 fused_shading_kernel(const float* __restrict__ planes, int pixel_count,
-                     const float* __restrict__ lights,
+                     Noise noise, const int* __restrict__ pixels,
+                     int frame_width, const float* __restrict__ lights,
                      const int* __restrict__ light_ids, int group_size,
                      int sample_count, bool first_group, float vis,
-                     float* __restrict__ out) {
+                     float* __restrict__ out,
+                     unsigned long long* __restrict__ op_counts) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= pixel_count) return;
+  vrt::begin_op_count();
   const size_t P = (size_t)pixel_count;
   const Pixel px = load_pixel(planes, P, p);
+  const int pixel = pixels != nullptr ? pixels[p] : p;
+  noise.x = pixel % frame_width;
+  noise.y = pixel / frame_width;
   const int ppl = rays_per_light(sample_count);
 
-  float base[3] = {0.0f, 0.0f, 0.0f};
+  f32 base[3] = {0.0f, 0.0f, 0.0f};
   for (int li = 0; li < group_size; ++li) {
     const int light = light_ids[li];
     const float* ls = lights + (size_t)light * kLightScalars;
-    const float* nz = planes + (size_t)(kBasePlanes + 2 * light * ppl) * P + p;
-    float lbase[3];
-    shade_light<NV>(px, ls, nz, P, sample_count, vis, lbase,
-                    [&](int q, const float* b, V3 d, float t_max) {
+    f32 lbase[3];
+    shade_light<NV>(px, ls, noise, light * ppl, sample_count, vis, lbase,
+                    [&](int q, const f32* b, V3 d, f32 t_max) {
                       float* o = out + (size_t)(3 + 7 * (light * ppl + q)) * P + p;
-                      o[0] = b[0];
-                      o[P] = b[1];
-                      o[2 * P] = b[2];
-                      o[3 * P] = d.x;
-                      o[4 * P] = d.y;
-                      o[5 * P] = d.z;
-                      o[6 * P] = t_max;
+                      o[0] = raw(b[0]);
+                      o[P] = raw(b[1]);
+                      o[2 * P] = raw(b[2]);
+                      o[3 * P] = raw(d.x);
+                      o[4 * P] = raw(d.y);
+                      o[5 * P] = raw(d.z);
+                      o[6 * P] = raw(t_max);
                     });
 #pragma unroll
     for (int c = 0; c < 3; ++c) base[c] = base[c] + lbase[c];
@@ -75,21 +87,23 @@ fused_shading_kernel(const float* __restrict__ planes, int pixel_count,
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float* o = out + (size_t)c * P + p;
-    *o = first_group ? base[c] : *o + base[c];
+    *o = raw(first_group ? base[c] : *o + base[c]);
   }
+  vrt::flush_op_count(op_counts);
 }
 
 // Launches the NV instantiation if VR_NV_MASK compiles it in.
 template <int NV>
-int launch(const float* planes, int pixel_count, const float* lights,
+int launch(const float* planes, int pixel_count, Noise noise,
+           const int* pixels, int frame_width, const float* lights,
            const int* light_ids, int group_size, int sample_count,
-           int first_group, float vis, float* out, cudaStream_t stream) {
+           int first_group, float vis, float* out,
+           unsigned long long* op_counts, cudaStream_t stream) {
   if constexpr (((VR_NV_MASK >> NV) & 1) != 0) {
-    const int threads = 128;
-    const int blocks = (pixel_count + threads - 1) / threads;
-    fused_shading_kernel<NV><<<blocks, threads, 0, stream>>>(
-        planes, pixel_count, lights, light_ids, group_size, sample_count,
-        first_group != 0, vis, out);
+    const int blocks = (pixel_count + VR_THREADS - 1) / VR_THREADS;
+    fused_shading_kernel<NV><<<blocks, VR_THREADS, 0, stream>>>(
+        planes, pixel_count, noise, pixels, frame_width, lights, light_ids,
+        group_size, sample_count, first_group != 0, vis, out, op_counts);
     return (int)cudaGetLastError();
   } else {
     return (int)cudaErrorInvalidValue;
@@ -98,18 +112,20 @@ int launch(const float* planes, int pixel_count, const float* lights,
 
 }  // namespace
 
-extern "C" int k4_fused_shading(const float* planes, int pixel_count,
-                                const float* lights, const int* light_ids,
-                                int group_size, int vertex_count,
-                                int sample_count, int first_group, float vis,
-                                float* out, cudaStream_t stream) {
+extern "C" int k4_fused_shading(
+    const float* planes, int pixel_count, const int* table, int table_height,
+    int table_width, const int* fetches, const int* pixels, int frame_width,
+    const float* lights, const int* light_ids, int group_size,
+    int vertex_count, int sample_count, int first_group, float vis,
+    float* out, unsigned long long* op_counts, cudaStream_t stream) {
+  const Noise noise = {table, fetches, table_height, table_width, 0, 0};
   switch (vertex_count) {
-    case 3: return launch<3>(planes, pixel_count, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 4: return launch<4>(planes, pixel_count, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 5: return launch<5>(planes, pixel_count, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 6: return launch<6>(planes, pixel_count, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 7: return launch<7>(planes, pixel_count, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
-    case 8: return launch<8>(planes, pixel_count, lights, light_ids, group_size, sample_count, first_group, vis, out, stream);
+    case 3: return launch<3>(planes, pixel_count, noise, pixels, frame_width, lights, light_ids, group_size, sample_count, first_group, vis, out, op_counts, stream);
+    case 4: return launch<4>(planes, pixel_count, noise, pixels, frame_width, lights, light_ids, group_size, sample_count, first_group, vis, out, op_counts, stream);
+    case 5: return launch<5>(planes, pixel_count, noise, pixels, frame_width, lights, light_ids, group_size, sample_count, first_group, vis, out, op_counts, stream);
+    case 6: return launch<6>(planes, pixel_count, noise, pixels, frame_width, lights, light_ids, group_size, sample_count, first_group, vis, out, op_counts, stream);
+    case 7: return launch<7>(planes, pixel_count, noise, pixels, frame_width, lights, light_ids, group_size, sample_count, first_group, vis, out, op_counts, stream);
+    case 8: return launch<8>(planes, pixel_count, noise, pixels, frame_width, lights, light_ids, group_size, sample_count, first_group, vis, out, op_counts, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -23,6 +23,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "count_ops.cuh"
 
 #ifndef VR_TECHNIQUE
 #error "VR_TECHNIQUE must be defined (render/fused.py TECHNIQUE_IDS)"
@@ -35,6 +36,9 @@
 #endif
 
 namespace shade {
+
+using vrt::f32;
+using vrt::raw;
 
 enum : int {
   kBaseline = 0,
@@ -83,41 +87,41 @@ constexpr int kLsFan = 46;
 constexpr int kBasePlanes = 62;
 
 struct V2 {
-  float x, y;
+  f32 x, y;
 };
 struct V3 {
-  float x, y, z;
+  f32 x, y, z;
 };
 
-K_INLINE bool signbit_f(float x) { return (__float_as_uint(x) >> 31) != 0; }
-K_INLINE float dot3(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+K_INLINE bool signbit_f(f32 x) { return (__float_as_uint(raw(x)) >> 31) != 0; }
+K_INLINE f32 dot3(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
 K_INLINE V3 sub3(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-K_INLINE V3 scale3(float s, V3 a) { return {s * a.x, s * a.y, s * a.z}; }
+K_INLINE V3 scale3(f32 s, V3 a) { return {s * a.x, s * a.y, s * a.z}; }
 K_INLINE V3 add3(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
 K_INLINE V3 normalize3(V3 a) { return scale3(rsqrtf(dot3(a, a)), a); }
 K_INLINE V3 select3(bool c, V3 a, V3 b) { return c ? a : b; }
 // mix_fma(x, y, a) = a * y + (x - a * x), ops/soa.py mix_fma.
-K_INLINE float mix_fma(float x, float y, float a) { return a * y + (x - a * x); }
+K_INLINE f32 mix_fma(f32 x, f32 y, f32 a) { return a * y + (x - a * x); }
 // A Python scalar c divided by a tensor x: PyTorch computes
 // x.reciprocal() * c.
-K_INLINE float rdiv(float c, float x) { return (1.0f / x) * c; }
-K_INLINE float clip01(float x) { return vrt::jclip(x, 0.0f, 1.0f); }
+K_INLINE f32 rdiv(f32 c, f32 x) { return (1.0f / x) * c; }
+K_INLINE f32 clip01(f32 x) { return vrt::jclip(x, 0.0f, 1.0f); }
 
 // --- error-free products (ops/math_utils.py two_product / kahan) -----------
 
-K_INLINE void two_product(float a, float b, float& p, float& e) {
+K_INLINE void two_product(f32 a, f32 b, f32& p, f32& e) {
   p = a * b;
-  float a_hi = a * 4097.0f;
+  f32 a_hi = a * 4097.0f;
   a_hi = a_hi - (a_hi - a);
-  const float a_lo = a - a_hi;
-  float b_hi = b * 4097.0f;
+  const f32 a_lo = a - a_hi;
+  f32 b_hi = b * 4097.0f;
   b_hi = b_hi - (b_hi - b);
-  const float b_lo = b - b_hi;
+  const f32 b_lo = b - b_hi;
   e = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo;
 }
 
-K_INLINE float kahan(float a, float b, float c, float d) {
-  float p1, e1, p2, e2;
+K_INLINE f32 kahan(f32 a, f32 b, f32 c, f32 d) {
+  f32 p1, e1, p2, e2;
   two_product(a, b, p1, e1);
   two_product(c, d, p2, e2);
   return (p1 - p2) + (e1 - e2);
@@ -135,27 +139,27 @@ K_INLINE V3 cross3_fast(V3 a, V3 b) {
 
 // --- atan family (ops/math_utils.py, ops/soa.py) ---------------------------
 
-K_INLINE float atan_f32(float x) {
-  const float ax = fabsf(x);
+K_INLINE f32 atan_f32(f32 x) {
+  const f32 ax = fabsf(x);
   const bool big = ax > (float)2.414213562373095;
   const bool mid = (ax > (float)0.4142135623730950) && !big;
-  const float safe_ax = ax > 0.0f ? ax : 1.0f;
-  const float r = big ? -1.0f / (big ? safe_ax : 1.0f)
+  const f32 safe_ax = ax > 0.0f ? ax : 1.0f;
+  const f32 r = big ? -1.0f / (big ? safe_ax : 1.0f)
                       : (mid ? (ax - 1.0f) / (ax + 1.0f) : ax);
-  const float offset = big ? kHalfPi : (mid ? kQuarterPi : 0.0f);
-  const float z = r * r;
-  float p = z * (float)8.05374449538e-2 - (float)1.38776856032e-1;
+  const f32 offset = big ? kHalfPi : (mid ? kQuarterPi : 0.0f);
+  const f32 z = r * r;
+  f32 p = z * (float)8.05374449538e-2 - (float)1.38776856032e-1;
   p = z * p + (float)1.99777106478e-1;
   p = z * p - (float)3.33329491539e-1;
-  const float y = offset + (z * p * r + r);
+  const f32 y = offset + (z * p * r + r);
   return x < 0.0f ? -y : y;
 }
 
-K_INLINE float fast_positive_atan(float y) {
-  const float ay = fabsf(y);
-  float rx = ay > 1.0f ? 1.0f / ay : ay;
-  float ry = rx * rx;
-  float rz = ry * (float)0.02083509974181652 + (float)(-0.08513300120830536);
+K_INLINE f32 fast_positive_atan(f32 y) {
+  const f32 ay = fabsf(y);
+  f32 rx = ay > 1.0f ? 1.0f / ay : ay;
+  f32 ry = rx * rx;
+  f32 rz = ry * (float)0.02083509974181652 + (float)(-0.08513300120830536);
   rz = ry * rz + (float)0.18014100193977356;
   rz = ry * rz + (float)(-0.3302994966506958);
   ry = ry * rz + (float)0.9998660087585449;
@@ -165,29 +169,29 @@ K_INLINE float fast_positive_atan(float y) {
   return y < 0.0f ? kPi - rx : rx;
 }
 
-K_INLINE float positive_atan_unbiased(float t) {
+K_INLINE f32 positive_atan_unbiased(f32 t) {
   return atan_f32(t) + (t < 0.0f ? kPi : 0.0f);
 }
 
 // The PSA samplers' atan: the polynomial one for PSA-biased.
-K_INLINE float positive_atan(float t) {
+K_INLINE f32 positive_atan(f32 t) {
   if (kBiased) return fast_positive_atan(t);
   return positive_atan_unbiased(t);
 }
 
-K_INLINE float atan2_soa(float y, float x) {
-  const float base = atan_f32(y / (x != 0.0f ? x : 1.0f));
+K_INLINE f32 atan2_soa(f32 y, f32 x) {
+  const f32 base = atan_f32(y / (x != 0.0f ? x : 1.0f));
   const bool neg_y = (y < 0.0f) || (signbit_f(y) && y == 0.0f);
-  const float shifted = base + (neg_y ? -kPi : kPi);
-  const float res = x > 0.0f ? base : shifted;
-  const float on_axis =
+  const f32 shifted = base + (neg_y ? -kPi : kPi);
+  const f32 res = x > 0.0f ? base : shifted;
+  const f32 on_axis =
       y == 0.0f ? (x >= 0.0f ? 0.0f : (neg_y ? -kPi : kPi))
                 : (y > 0.0f ? kHalfPi : -kHalfPi);
   return x == 0.0f ? (y == 0.0f ? 0.0f : on_axis)
                    : (y == 0.0f ? on_axis : res);
 }
 
-K_INLINE float acos_soa(float x) {
+K_INLINE f32 acos_soa(f32 x) {
   return atan2_soa(sqrtf(vrt::jmax(1.0f - x * x, 0.0f)), x);
 }
 
@@ -195,9 +199,9 @@ K_INLINE float acos_soa(float x) {
 
 struct Pixel {
   V3 position, normal, outgoing, albedo, fresnel_0;
-  float lambert_out, roughness, ltc_albedo, ltc_det;
+  f32 lambert_out, roughness, ltc_albedo, ltc_det;
   bool hit;
-  float w2s[12], w2c[12], s2c[9], c2s[9];
+  f32 w2s[12], w2c[12], s2c[9], c2s[9];
 };
 
 // The 62 base planes of pixel p (render/fused.py BASE_PLANES).
@@ -225,6 +229,34 @@ K_INLINE Pixel load_pixel(const float* __restrict__ planes, size_t P, int p) {
   return px;
 }
 
+// --- the noise, read from the table (ops/noise.py) ---------------------------
+//
+// Pair j of the pixel at (x, y) is channels 2 (j & 1) and 2 (j & 1) + 1 of
+// fetch j >> 1: table[layer, (y + off_y) & (H - 1), (x + off_x) & (W - 1),
+// c] / 65535 with (off_x, off_y, layer) = fetches[j >> 1], the offsets
+// reduced modulo the table's sides on the host (ops/noise.py
+// FrameNoise). Planes 2 j and 2 j + 1 of get_noise_image hold the same
+// values; no noise image is stored.
+constexpr float kNoiseScale = (float)(1.0 / 65535.0);
+
+struct Noise {
+  const int* __restrict__ table;    // (layers, H, W, 4) UNORM16 values
+  const int* __restrict__ fetches;  // (F, 3): off_x, off_y, layer
+  int height, width;                // the table's sides, powers of two
+  int x, y;                         // the pixel in the frame
+  K_INLINE void pair(int j, f32& r0, f32& r1) const {
+    const int* f = fetches + 3 * (j >> 1);
+    const int off_x = __ldg(f), off_y = __ldg(f + 1), layer = __ldg(f + 2);
+    const size_t texel =
+        ((size_t)layer * height + ((y + off_y) & (height - 1))) * width +
+        ((x + off_x) & (width - 1));
+    const int2 v =
+        __ldg(reinterpret_cast<const int2*>(table + 4 * texel) + (j & 1));
+    r0 = f32((float)v.x) * kNoiseScale;
+    r1 = f32((float)v.y) * kNoiseScale;
+  }
+};
+
 K_INLINE V3 light_vert(const float* ls, int k) {
   return {ls[3 * k], ls[3 * k + 1], ls[3 * k + 2]};
 }
@@ -235,12 +267,12 @@ K_INLINE V3 light_rot_col(const float* ls, int k) {
 
 // Rows of a 3x4 world->space matrix applied to a point, and the transposed
 // rotation applied to a direction (render/fused.py _affine, _rot_t_apply).
-K_INLINE V3 affine(const float (&w)[12], V3 v) {
+K_INLINE V3 affine(const f32 (&w)[12], V3 v) {
   return {(w[0] * v.x + w[1] * v.y + w[2] * v.z) + w[3],
           (w[4] * v.x + w[5] * v.y + w[6] * v.z) + w[7],
           (w[8] * v.x + w[9] * v.y + w[10] * v.z) + w[11]};
 }
-K_INLINE V3 rot_t_apply(const float (&w)[12], V3 d) {
+K_INLINE V3 rot_t_apply(const f32 (&w)[12], V3 d) {
   return {d.x * w[0] + d.y * w[4] + d.z * w[8],
           d.x * w[1] + d.y * w[5] + d.z * w[9],
           d.x * w[2] + d.y * w[6] + d.z * w[10]};
@@ -249,11 +281,11 @@ K_INLINE V3 rot_t_apply(const float (&w)[12], V3 d) {
 // The winding flip of the PSA samplers: row 1 of the matrix negated when
 // the shading point is behind the light plane (glsl:444-452).
 K_INLINE void flipped_rows(const Pixel& px, const float* ls,
-                           const float (&w)[12], float (&out)[12]) {
-  const float side = (px.position.x * ls[kLsPlane] +
+                           const f32 (&w)[12], f32 (&out)[12]) {
+  const f32 side = (px.position.x * ls[kLsPlane] +
                       px.position.y * ls[kLsPlane + 1] +
                       px.position.z * ls[kLsPlane + 2]) + ls[kLsPlane + 3];
-  const float flip = side < 0.0f ? -1.0f : 1.0f;
+  const f32 flip = side < 0.0f ? -1.0f : 1.0f;
 #pragma unroll
   for (int k = 0; k < 12; ++k) out[k] = (k >= 4 && k < 8) ? flip * w[k] : w[k];
 }
@@ -271,7 +303,7 @@ K_INLINE int clip(const V3 (&v)[N], V3 (&out)[N + 1]) {
     const V3 v0 = v[k], v1 = v[(k + 1) % N];
     const bool crosses = above[k] != above[(k + 1) % N];
     emit[k] = crosses;
-    const float t = v0.z / (crosses ? v0.z - v1.z : 1.0f);
+    const f32 t = v0.z / (crosses ? v0.z - v1.z : 1.0f);
     isect[k] = {t * v1.x + (v0.x - t * v0.x), t * v1.y + (v0.y - t * v0.y),
                 0.0f};
   }
@@ -308,10 +340,10 @@ K_INLINE int clip(const V3 (&v)[N], V3 (&out)[N + 1]) {
 // First sector whose cumulative value exceeds target, else the last valid
 // one (ops/soa.py _select_sector_soa); -1 when no lane is selected.
 template <int M>
-K_INLINE int select_sector(const float (&sector_psa)[M], float target,
-                           int num_sectors, float& remaining) {
-  float running = 0.0f;
-  float prev[M];
+K_INLINE int select_sector(const f32 (&sector_psa)[M], f32 target,
+                           int num_sectors, f32& remaining) {
+  f32 running = 0.0f;
+  f32 prev[M];
   bool sel[M];
   bool any_before = false;
 #pragma unroll
@@ -336,37 +368,37 @@ K_INLINE int select_sector(const float (&sector_psa)[M], float target,
 
 // --- BRDF and the radiance of one sample direction ---------------------------
 
-K_INLINE float schlick(float f0, float f90, float c) {
-  const float flipped = 1.0f - c;
-  const float fsq = flipped * flipped;
+K_INLINE f32 schlick(f32 f0, f32 f90, f32 c) {
+  const f32 flipped = 1.0f - c;
+  const f32 fsq = flipped * flipped;
   return f0 + (f90 - f0) * (fsq * flipped * fsq);
 }
 
 K_INLINE V3 evaluate_brdf(const Pixel& px, V3 incoming) {
   const V3 h = {incoming.x + px.outgoing.x, incoming.y + px.outgoing.y,
                 incoming.z + px.outgoing.z};
-  const float rl = rsqrtf(dot3(h, h));
+  const f32 rl = rsqrtf(dot3(h, h));
   const V3 half = {rl * h.x, rl * h.y, rl * h.z};
-  const float lambert_in = dot3(px.normal, incoming);
-  const float out_dot_half = dot3(px.outgoing, half);
-  const float rough = px.roughness;
+  const f32 lambert_in = dot3(px.normal, incoming);
+  const f32 out_dot_half = dot3(px.outgoing, half);
+  const f32 rough = px.roughness;
 
-  const float f90 = out_dot_half * out_dot_half * (2.0f * rough) + 0.5f;
-  const float ff = schlick(1.0f, f90, px.lambert_out) *
+  const f32 f90 = out_dot_half * out_dot_half * (2.0f * rough) + 0.5f;
+  const f32 ff = schlick(1.0f, f90, px.lambert_out) *
                    schlick(1.0f, f90, lambert_in);
   V3 brdf = {0.0f + ff * px.albedo.x, 0.0f + ff * px.albedo.y,
              0.0f + ff * px.albedo.z};
 
-  const float ndh = dot3(px.normal, half);
-  const float r_sq = rough * rough;
-  float ggx = (ndh * r_sq - ndh) * ndh + 1.0f;
+  const f32 ndh = dot3(px.normal, half);
+  const f32 r_sq = rough * rough;
+  f32 ggx = (ndh * r_sq - ndh) * ndh + 1.0f;
   ggx = r_sq / (ggx * ggx);
-  const float lo = px.lambert_out;
-  const float masking = lambert_in * sqrtf((-lo * r_sq + lo) * lo + r_sq);
-  const float shadowing =
+  const f32 lo = px.lambert_out;
+  const f32 masking = lambert_in * sqrtf((-lo * r_sq + lo) * lo + r_sq);
+  const f32 shadowing =
       lo * sqrtf((-lambert_in * r_sq + lambert_in) * lambert_in + r_sq);
-  const float gs = ggx * (0.5f / (masking + shadowing));
-  const float codh = vrt::jclip(out_dot_half, 0.0f, 1.0f);
+  const f32 gs = ggx * (0.5f / (masking + shadowing));
+  const f32 codh = vrt::jclip(out_dot_half, 0.0f, 1.0f);
   brdf.x = brdf.x + gs * schlick(px.fresnel_0.x, 1.0f, codh);
   brdf.y = brdf.y + gs * schlick(px.fresnel_0.y, 1.0f, codh);
   brdf.z = brdf.z + gs * schlick(px.fresnel_0.z, 1.0f, codh);
@@ -376,21 +408,21 @@ K_INLINE V3 evaluate_brdf(const Pixel& px, V3 incoming) {
 // radiance x BRDF assuming visibility, the geometric lambert gate and the
 // shadow ray's t_max (render/fused.py _rad_brdf).
 struct Radiance {
-  float value[3];
-  float lambert;
-  float t_max;
+  f32 value[3];
+  f32 lambert;
+  f32 t_max;
 };
 
 K_INLINE Radiance rad_brdf(const Pixel& px, const float* ls, V3 d) {
   Radiance r;
-  const float pl0 = ls[kLsPlane], pl1 = ls[kLsPlane + 1],
+  const f32 pl0 = ls[kLsPlane], pl1 = ls[kLsPlane + 1],
               pl2 = ls[kLsPlane + 2], pl3 = ls[kLsPlane + 3];
   r.lambert = dot3(px.normal, d);
   const bool geo = r.lambert > 0.0f;
-  const float denom = d.x * pl0 + d.y * pl1 + d.z * pl2;
-  const float dist = (px.position.x * pl0 + px.position.y * pl1 +
+  const f32 denom = d.x * pl0 + d.y * pl1 + d.z * pl2;
+  const f32 dist = (px.position.x * pl0 + px.position.y * pl1 +
                       px.position.z * pl2) + pl3;
-  const float t_max = -dist / (denom != 0.0f ? denom : 1.0f);
+  const f32 t_max = -dist / (denom != 0.0f ? denom : 1.0f);
   const V3 brdf = evaluate_brdf(px, d);
   r.value[0] = geo ? ls[kLsRadiance] * brdf.x : 0.0f;
   r.value[1] = geo ? ls[kLsRadiance + 1] * brdf.y : 0.0f;
@@ -401,36 +433,36 @@ K_INLINE Radiance rad_brdf(const Pixel& px, const float* ls, V3 d) {
 
 // --- LTC density and MIS (ops/soa.py) ---------------------------------------
 
-K_INLINE float ltc_density(const float (&s2c)[9], float det, V3 d,
-                           float rcp_psa) {
-  const float dx = s2c[0] * d.x + s2c[1] * d.y + s2c[2] * d.z;
-  const float dy = s2c[3] * d.x + s2c[4] * d.y + s2c[5] * d.z;
-  const float dz = s2c[6] * d.x + s2c[7] * d.y + s2c[8] * d.z;
-  const float len_sq = dx * dx + dy * dy + dz * dz;
-  const float density = vrt::jmax(dz, 0.0f) * det / (len_sq * len_sq);
+K_INLINE f32 ltc_density(const f32 (&s2c)[9], f32 det, V3 d,
+                           f32 rcp_psa) {
+  const f32 dx = s2c[0] * d.x + s2c[1] * d.y + s2c[2] * d.z;
+  const f32 dy = s2c[3] * d.x + s2c[4] * d.y + s2c[5] * d.z;
+  const f32 dz = s2c[6] * d.x + s2c[7] * d.y + s2c[8] * d.z;
+  const f32 len_sq = dx * dx + dy * dy + dz * dz;
+  const f32 density = vrt::jmax(dz, 0.0f) * det / (len_sq * len_sq);
   return density * rcp_psa;
 }
 
 // One channel of mis_estimate_soa for the compile-time heuristic.
-K_INLINE float mis_estimate(float integrand, float sampled_weight,
-                            float sampled_density, float other_weight,
-                            float other_density, float vis) {
+K_INLINE f32 mis_estimate(f32 integrand, f32 sampled_weight,
+                            f32 sampled_density, f32 other_weight,
+                            f32 other_density, f32 vis) {
   if (kHeuristic == 0) {  // balance
     return (1.0f / (sampled_density + other_density)) * integrand;
   } else if (kHeuristic == 1) {  // power
-    const float wod =
+    const f32 wod =
         sampled_density / (sampled_density * sampled_density +
                            other_density * other_density);
     return wod * integrand;
   }
-  const float wsum =
+  const f32 wsum =
       sampled_density * sampled_weight + other_density * other_weight;
   if (kHeuristic == 2) {  // weighted
     return sampled_weight * integrand / wsum;
   }
-  const float balance = 1.0f / (sampled_density + other_density);
+  const f32 balance = 1.0f / (sampled_density + other_density);
   if (kHeuristic == 3) {  // optimal_clamped
-    float mixed = -vis * balance + balance;
+    f32 mixed = -vis * balance + balance;
     mixed = vis * (sampled_weight / wsum) + mixed;
     return mixed * integrand;
   }
@@ -443,53 +475,53 @@ K_INLINE float mis_estimate(float integrand, float sampled_weight,
 K_INLINE V2 ellipse_from_edge(V3 v0, V3 v1) {
   const V3 n = cross3(v0, v1);
   const bool nz_ok = n.z != 0.0f;
-  float scaling = 1.0f / (nz_ok ? n.z : 1.0f);
+  f32 scaling = 1.0f / (nz_ok ? n.z : 1.0f);
   scaling = signbit_f(n.x) ? -scaling : scaling;
   return {nz_ok ? n.x * scaling : INFINITY, n.y * scaling};
 }
 
 K_INLINE V2 ellipse_transform(V2 e, V2 p) {
-  const float d = e.x * p.x + e.y * p.y;
+  const f32 d = e.x * p.x + e.y * p.y;
   return {d * e.x + p.x, d * e.y + p.y};
 }
 
-K_INLINE float ellipse_det(V2 e) { return e.x * e.x + e.y * e.y + 1.0f; }
+K_INLINE f32 ellipse_det(V2 e) { return e.x * e.x + e.y * e.y + 1.0f; }
 
-K_INLINE float ellipse_dir_factor_rsq(V2 e, V2 d) {
-  const float ed = e.x * d.x + e.y * d.y;
+K_INLINE f32 ellipse_dir_factor_rsq(V2 e, V2 d) {
+  const f32 ed = e.x * d.x + e.y * d.y;
   return ed * ed + d.x * d.x + d.y * d.y;
 }
 
-K_INLINE float ellipse_normalized_dir_factor(V2 e, V2 d) {
-  const float ed = e.x * d.x + e.y * d.y;
+K_INLINE f32 ellipse_normalized_dir_factor(V2 e, V2 d) {
+  const f32 ed = e.x * d.x + e.y * d.y;
   return rsqrtf(ed * ed + 1.0f);
 }
 
-K_INLINE float area_between_from_tangents(float inner_rsd, float inner_tan,
-                                          float outer_rsd, float outer_tan) {
-  const float inner_area = inner_rsd * positive_atan(inner_tan);
-  const float result = outer_rsd * positive_atan(outer_tan) - inner_area;
+K_INLINE f32 area_between_from_tangents(f32 inner_rsd, f32 inner_tan,
+                                          f32 outer_rsd, f32 outer_tan) {
+  const f32 inner_area = inner_rsd * positive_atan(inner_tan);
+  const f32 result = outer_rsd * positive_atan(outer_tan) - inner_area;
   return result > 0.0f ? 0.5f * result : 0.0f;
 }
 
-K_INLINE float area_between_ellipses_in_sector(V2 inner_e, float inner_rsd,
-                                               V2 outer_e, float outer_rsd,
+K_INLINE f32 area_between_ellipses_in_sector(V2 inner_e, f32 inner_rsd,
+                                               V2 outer_e, f32 outer_rsd,
                                                V2 d0, V2 d1) {
-  const float det_dirs = vrt::jmax(d1.x * (-d0.y) + d1.y * d0.x, 0.0f);
+  const f32 det_dirs = vrt::jmax(d1.x * (-d0.y) + d1.y * d0.x, 0.0f);
   const V2 it = ellipse_transform(inner_e, d1);
   const V2 ot = ellipse_transform(outer_e, d1);
-  const float inner_dot = inner_rsd * (d0.x * it.x + d0.y * it.y);
-  const float outer_dot = outer_rsd * (d0.x * ot.x + d0.y * ot.y);
+  const f32 inner_dot = inner_rsd * (d0.x * it.x + d0.y * it.y);
+  const f32 outer_dot = outer_rsd * (d0.x * ot.x + d0.y * ot.y);
   return area_between_from_tangents(inner_rsd, det_dirs / inner_dot,
                                     outer_rsd, det_dirs / outer_dot);
 }
 
-K_INLINE float ellipse_area_in_sector(V2 e, V2 d0, V2 d1) {
-  const float rsd = rsqrtf(ellipse_det(e));
-  const float det_dirs = vrt::jmax(d1.x * (-d0.y) + d1.y * d0.x, 0.0f);
+K_INLINE f32 ellipse_area_in_sector(V2 e, V2 d0, V2 d1) {
+  const f32 rsd = rsqrtf(ellipse_det(e));
+  const f32 det_dirs = vrt::jmax(d1.x * (-d0.y) + d1.y * d0.x, 0.0f);
   const V2 et = ellipse_transform(e, d1);
-  const float e_dot = rsd * (d0.x * et.x + d0.y * et.y);
-  const float area = 0.5f * rsd * positive_atan(det_dirs / e_dot);
+  const f32 e_dot = rsd * (d0.x * et.x + d0.y * et.y);
+  const f32 area = 0.5f * rsd * positive_atan(det_dirs / e_dot);
   return rsd > 0.0f ? area : 0.0f;
 }
 
@@ -501,8 +533,8 @@ struct PsaPoly {
   V2 ellipses[M];
   V2 sector_inner[M];
   V2 sector_outer[M];
-  float sector_psa[M];
-  float psa;
+  f32 sector_psa[M];
+  f32 psa;
   int count;
   bool central;
 };
@@ -545,12 +577,12 @@ K_INLINE void prepare_psa(const V3 (&v)[M], int count_in, PsaPoly<M>& poly) {
   poly.count = count;
 
   if (central) {
-    float psa = 0.0f;
+    f32 psa = 0.0f;
 #pragma unroll
     for (int k = 0; k < M; ++k) {
       const V2 vk = {v[k].x, v[k].y};
       const V2 vn = {v[(k + 1) % M].x, v[(k + 1) % M].y};
-      const float s =
+      const f32 s =
           (count > k) ? ellipse_area_in_sector(ellipses[k], vk, vn) : 0.0f;
       poly.sector_psa[k] = s;
       psa = k == 0 ? s : psa + s;
@@ -560,13 +592,13 @@ K_INLINE void prepare_psa(const V3 (&v)[M], int count_in, PsaPoly<M>& poly) {
     poly.psa = psa;
   } else {
     // CCW sort by a tie-preserving pseudo-angle, then the sector walk.
-    float keys[M];
+    f32 keys[M];
 #pragma unroll
     for (int k = 0; k < M; ++k) {
-      const float cr = kahan(v[0].x, v[k].y, v[0].y, v[k].x);
-      const float dt = v[0].x * v[k].x + v[0].y * v[k].y;
-      const float p = dt / (fabsf(dt) + fabsf(cr) + 1e-37f);
-      const float key = cr >= 0.0f ? 1.0f - p : p - 1.0f;
+      const f32 cr = kahan(v[0].x, v[k].y, v[0].y, v[k].x);
+      const f32 dt = v[0].x * v[k].x + v[0].y * v[k].y;
+      const f32 p = dt / (fabsf(dt) + fabsf(cr) + 1e-37f);
+      const f32 key = cr >= 0.0f ? 1.0f - p : p - 1.0f;
       keys[k] = (count > k) ? key : 4.0f;
     }
     int rank[M];
@@ -609,10 +641,10 @@ K_INLINE void prepare_psa(const V3 (&v)[M], int count_in, PsaPoly<M>& poly) {
     }
     poly.sector_inner[M - 1] = poly.sector_inner[M - 2];
     poly.sector_outer[M - 1] = poly.sector_outer[M - 2];
-    float psa = 0.0f;
+    f32 psa = 0.0f;
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      float s = 0.0f;
+      f32 s = 0.0f;
       if (i < M - 1 && count - 1 > i) {
         s = area_between_ellipses_in_sector(
             poly.sector_inner[i], rsqrtf(ellipse_det(poly.sector_inner[i])),
@@ -628,35 +660,35 @@ K_INLINE void prepare_psa(const V3 (&v)[M], int count_in, PsaPoly<M>& poly) {
 
 // --- PSA sampling (ops/soa.py sample_psa_soa) -------------------------------
 
-K_INLINE V2 solve_homogeneous_quadratic(float q00, float q01, float q10,
-                                        float q11) {
-  const float coeff_xy = 0.5f * (q01 + q10);
-  const float sqrt_disc =
+K_INLINE V2 solve_homogeneous_quadratic(f32 q00, f32 q01, f32 q10,
+                                        f32 q11) {
+  const f32 coeff_xy = 0.5f * (q01 + q10);
+  const f32 sqrt_disc =
       sqrtf(vrt::jmax(coeff_xy * coeff_xy - q00 * q11, 0.0f));
-  const float scaled_root = fabsf(coeff_xy) + sqrt_disc;
+  const f32 scaled_root = fabsf(coeff_xy) + sqrt_disc;
   const bool pos = coeff_xy >= 0.0f;
   return {pos ? scaled_root : q11, pos ? -q00 : scaled_root};
 }
 
-K_INLINE V2 sample_sector_between_ellipses(float r0, float r1,
-                                           float target_area, V2 inner_e,
+K_INLINE V2 sample_sector_between_ellipses(f32 r0, f32 r1,
+                                           f32 target_area, V2 inner_e,
                                            V2 outer_e, V2 dir_0, V2 dir_1) {
-  float rl = rsqrtf(dir_0.x * dir_0.x + dir_0.y * dir_0.y);
+  f32 rl = rsqrtf(dir_0.x * dir_0.x + dir_0.y * dir_0.y);
   const V2 q0 = {dir_0.x * rl, dir_0.y * rl};
   rl = rsqrtf(dir_1.x * dir_1.x + dir_1.y * dir_1.y);
   V2 q2 = {dir_1.x * rl, dir_1.y * rl};
   const V2 q1 = {q0.x + q2.x, q0.y + q2.y};
 
-  const float nf00 = ellipse_normalized_dir_factor(inner_e, q0);
-  const float nf01 = rsqrtf(ellipse_dir_factor_rsq(inner_e, q1));
-  float nf02 = ellipse_normalized_dir_factor(inner_e, q2);
-  const float nf10 = ellipse_normalized_dir_factor(outer_e, q0);
-  const float nf11 = rsqrtf(ellipse_dir_factor_rsq(outer_e, q1));
-  float nf12 = ellipse_normalized_dir_factor(outer_e, q2);
-  const float area0 = nf10 * nf11 - nf00 * nf01;
-  const float area1 = nf11 * nf12 - nf01 * nf02;
+  const f32 nf00 = ellipse_normalized_dir_factor(inner_e, q0);
+  const f32 nf01 = rsqrtf(ellipse_dir_factor_rsq(inner_e, q1));
+  f32 nf02 = ellipse_normalized_dir_factor(inner_e, q2);
+  const f32 nf10 = ellipse_normalized_dir_factor(outer_e, q0);
+  const f32 nf11 = rsqrtf(ellipse_dir_factor_rsq(outer_e, q1));
+  f32 nf12 = ellipse_normalized_dir_factor(outer_e, q2);
+  const f32 area0 = nf10 * nf11 - nf00 * nf01;
+  const f32 area1 = nf11 * nf12 - nf01 * nf02;
 
-  float target_quad_area = mix_fma(-area0, area1, r0);
+  f32 target_quad_area = mix_fma(-area0, area1, r0);
   const bool first_half = target_quad_area <= 0.0f;
   if (first_half) {
     q2 = q0;
@@ -670,15 +702,15 @@ K_INLINE V2 sample_sector_between_ellipses(float r0, float r1,
       inner_e, {q1.x * nf01 + q2.x * nf02, q1.y * nf01 + q2.y * nf02});
   const V2 quad_normal_outer = ellipse_transform(
       outer_e, {q1.x * nf11 + q2.x * nf12, q1.y * nf11 + q2.y * nf12});
-  const float quad_offset_inner =
+  const f32 quad_offset_inner =
       (quad_normal_inner.x * q1.x + quad_normal_inner.y * q1.y) * nf01;
-  const float quad_offset_outer =
+  const f32 quad_offset_outer =
       (quad_normal_outer.x * q1.x + quad_normal_outer.y * q1.y) * nf11;
 
   const V2 r90q2 = {-q2.y, q2.x};
-  const float sa = quad_offset_outer * nf12;
+  const f32 sa = quad_offset_outer * nf12;
   const V2 a = {sa * r90q2.x, sa * r90q2.y};
-  const float sb = quad_offset_inner * nf02;
+  const f32 sb = quad_offset_inner * nf02;
   const V2 b = {sb * r90q2.x + target_quad_area * quad_normal_inner.x,
                 sb * r90q2.y + target_quad_area * quad_normal_inner.y};
   // outer2(a, b) = (a.x b.x, a.y b.x, a.x b.y, a.y b.y)
@@ -690,20 +722,20 @@ K_INLINE V2 sample_sector_between_ellipses(float r0, float r1,
 
   if (!kBiased) {
     const bool stable = fabsf(r0 - 0.5f) <= 0.5f - 1.0e-5f;
-    const float inner_rsd = rsqrtf(ellipse_det(inner_e));
-    const float outer_rsd = rsqrtf(ellipse_det(outer_e));
+    const f32 inner_rsd = rsqrtf(ellipse_det(inner_e));
+    const f32 outer_rsd = rsqrtf(ellipse_det(outer_e));
     const V2 r90q0 = {-q0.y, q0.x};
 #pragma unroll
     for (int it = 0; it < 2; ++it) {
-      float scaling = 1.0f / (fabsf(current.x) + fabsf(current.y));
+      f32 scaling = 1.0f / (fabsf(current.x) + fabsf(current.y));
       scaling = (current.x * q1.x + current.y * q1.y >= 0.0f) ? scaling
                                                              : -scaling;
       const V2 new_dir = {scaling * current.x, scaling * current.y};
       const V2 inner_dir = ellipse_transform(inner_e, new_dir);
       const V2 outer_dir = ellipse_transform(outer_e, new_dir);
-      const float det_dirs =
+      const f32 det_dirs =
           vrt::jmax(new_dir.x * r90q0.x + new_dir.y * r90q0.y, 0.0f);
-      const float error =
+      const f32 error =
           target_area -
           area_between_from_tangents(
               inner_rsd,
@@ -712,7 +744,7 @@ K_INLINE V2 sample_sector_between_ellipses(float r0, float r1,
               det_dirs / (outer_rsd * (q0.x * outer_dir.x + q0.y * outer_dir.y)));
       const V2 ad = {inner_dir.x - outer_dir.x, inner_dir.y - outer_dir.y};
       const V2 rn = {-new_dir.y, new_dir.x};
-      const float e2 = 2.0f * error;
+      const f32 e2 = 2.0f * error;
       const V2 bd = {e2 * inner_dir.x, e2 * inner_dir.y};
       const V2 stepped = solve_homogeneous_quadratic(
           ad.x * rn.x - bd.x * outer_dir.x, ad.y * rn.x - bd.y * outer_dir.x,
@@ -722,18 +754,18 @@ K_INLINE V2 sample_sector_between_ellipses(float r0, float r1,
   }
   if (!((current.x * q1.x + current.y * q1.y) >= 0.0f))
     current = {-current.x, -current.y};
-  const float inner_factor = 1.0f / ellipse_dir_factor_rsq(inner_e, current);
-  const float outer_factor = 1.0f / ellipse_dir_factor_rsq(outer_e, current);
-  const float radius = sqrtf(mix_fma(inner_factor, outer_factor, r1));
+  const f32 inner_factor = 1.0f / ellipse_dir_factor_rsq(inner_e, current);
+  const f32 outer_factor = 1.0f / ellipse_dir_factor_rsq(outer_e, current);
+  const f32 radius = sqrtf(mix_fma(inner_factor, outer_factor, r1));
   return {radius * current.x, radius * current.y};
 }
 
 template <int M>
-K_INLINE V3 sample_psa(const PsaPoly<M>& poly, float r0, float r1) {
-  const float target = r0 * poly.psa;
+K_INLINE V3 sample_psa(const PsaPoly<M>& poly, f32 r0, f32 r1) {
+  const f32 target = r0 * poly.psa;
   V2 dir;
   if (poly.central) {
-    float rem;
+    f32 rem;
     const int s = select_sector<M>(poly.sector_psa, target, poly.count, rem);
     V2 outer = {0.0f, 0.0f}, dir0 = {0.0f, 0.0f};
 #pragma unroll
@@ -742,22 +774,22 @@ K_INLINE V3 sample_psa(const PsaPoly<M>& poly, float r0, float r1) {
         outer = poly.ellipses[k];
         dir0 = poly.vertices[k];
       }
-    const float sqrt_det = sqrtf(ellipse_det(outer));
-    const float angle = 2.0f * rem * sqrt_det;
+    const f32 sqrt_det = sqrtf(ellipse_det(outer));
+    const f32 angle = 2.0f * rem * sqrt_det;
     const V2 t0 = ellipse_transform(outer, dir0);
     const V2 r90 = {-t0.y, t0.x};
-    const float ca = cosf(angle) * sqrt_det;
-    const float sa = sinf(angle);
+    const f32 ca = cosf(angle) * sqrt_det;
+    const f32 sa = sinf(angle);
     dir = {ca * dir0.x + sa * r90.x, ca * dir0.y + sa * r90.y};
-    const float scale = sqrtf(r1 / ellipse_dir_factor_rsq(outer, dir));
+    const f32 scale = sqrtf(r1 / ellipse_dir_factor_rsq(outer, dir));
     dir = {scale * dir.x, scale * dir.y};
   } else {
-    float rem;
+    f32 rem;
     const int s =
         select_sector<M>(poly.sector_psa, target, poly.count - 1, rem);
     V2 inner = {0.0f, 0.0f}, outer = {0.0f, 0.0f}, dir0 = {0.0f, 0.0f},
        dir1 = {0.0f, 0.0f};
-    float sector = 0.0f;
+    f32 sector = 0.0f;
 #pragma unroll
     for (int k = 0; k < M; ++k)
       if (s == k) {
@@ -767,7 +799,7 @@ K_INLINE V3 sample_psa(const PsaPoly<M>& poly, float r0, float r1) {
         dir1 = poly.vertices[(k + 1) % M];
         sector = poly.sector_psa[k];
       }
-    const float rr0 = rem / (sector > 0.0f ? sector : 1.0f);
+    const f32 rr0 = rem / (sector > 0.0f ? sector : 1.0f);
     dir = sample_sector_between_ellipses(rr0, r1, rem, inner, outer, dir0,
                                          dir1);
   }
@@ -786,10 +818,10 @@ K_INLINE V3 sample_psa(const PsaPoly<M>& poly, float r0, float r1) {
 template <int M>
 struct SaFan {
   V3 dirs[M];
-  float prm[3][M - 2];
-  float fan[M - 2];
+  f32 prm[3][M - 2];
+  f32 fan[M - 2];
   int count;
-  float solid_angle;
+  f32 solid_angle;
 };
 
 template <int M>
@@ -798,28 +830,28 @@ K_INLINE void prepare_sa(const V3 (&dirs)[M], int count, SaFan<M>& f) {
 #pragma unroll
   for (int k = 0; k < M; ++k) f.dirs[k] = dirs[k];
   const V3 d0 = dirs[0];
-  const float hh_sign = d0.x > 0.0f ? -1.0f : 1.0f;
-  const float rcp = 1.0f / (fabsf(d0.x) + 1.0f);
-  const float hy = d0.y * rcp;
-  const float hz = d0.z * rcp;
-  float cum = 0.0f;
+  const f32 hh_sign = d0.x > 0.0f ? -1.0f : 1.0f;
+  const f32 rcp = 1.0f / (fabsf(d0.x) + 1.0f);
+  const f32 hy = d0.y * rcp;
+  const f32 hz = d0.z * rcp;
+  f32 cum = 0.0f;
 #pragma unroll
   for (int i = 0; i < M - 2; ++i) {
     const V3 v0 = dirs[i + 1], v2 = dirs[i + 2];
-    const float dot01 = dot3(v0, d0);
-    const float dot02 = dot3(v0, v2);
-    const float dot12 = dot3(d0, v2);
-    const float dh0 = -hh_sign * v0.x + dot01;
-    const float dh2 = -hh_sign * v2.x + dot12;
-    const float col00 = -dh0 * hy + v0.y;
-    const float col01 = -dh0 * hz + v0.z;
-    const float col10 = -dh2 * hy + v2.y;
-    const float col11 = -dh2 * hz + v2.z;
-    const float simplex = fabsf(col00 * col11 - col01 * col10);
-    const float d02p12 = dot02 + dot12;
-    const float opd01 = 1.0f + dot01;
-    const float tangent = simplex / (opd01 + d02p12);
-    float sa_i = 2.0f * positive_atan_unbiased(tangent);
+    const f32 dot01 = dot3(v0, d0);
+    const f32 dot02 = dot3(v0, v2);
+    const f32 dot12 = dot3(d0, v2);
+    const f32 dh0 = -hh_sign * v0.x + dot01;
+    const f32 dh2 = -hh_sign * v2.x + dot12;
+    const f32 col00 = -dh0 * hy + v0.y;
+    const f32 col01 = -dh0 * hz + v0.z;
+    const f32 col10 = -dh2 * hy + v2.y;
+    const f32 col11 = -dh2 * hz + v2.z;
+    const f32 simplex = fabsf(col00 * col11 - col01 * col10);
+    const f32 d02p12 = dot02 + dot12;
+    const f32 opd01 = 1.0f + dot01;
+    const f32 tangent = simplex / (opd01 + d02p12);
+    f32 sa_i = 2.0f * positive_atan_unbiased(tangent);
     sa_i = (i + 2 < f.count) ? sa_i : 0.0f;
     cum = i == 0 ? sa_i : cum + sa_i;
     f.fan[i] = cum;
@@ -836,18 +868,18 @@ K_INLINE void prepare_sa_arvo(const V3 (&dirs)[M], int count, SaFan<M>& f) {
 #pragma unroll
   for (int k = 0; k < M; ++k) f.dirs[k] = dirs[k];
   const V3 v0 = dirs[0];
-  float cum = 0.0f;
+  f32 cum = 0.0f;
 #pragma unroll
   for (int i = 0; i < M - 2; ++i) {
     const V3 v1 = dirs[i + 1], v2 = dirs[i + 2];
     const V3 en0 = normalize3(cross3(sub3(v1, v0), v0));
     const V3 en1 = normalize3(cross3(sub3(v2, v1), v1));
-    const float cos_op = -dot3(en0, en1);
-    const float sin_op = sqrtf(vrt::jmax(-cos_op * cos_op + 1.0f, 0.0f));
-    const float simplex = dot3(v0, cross3(v1, v2));
-    const float tangent = fabsf(simplex) / (((1.0f + dot3(v0, v1)) +
+    const f32 cos_op = -dot3(en0, en1);
+    const f32 sin_op = sqrtf(vrt::jmax(-cos_op * cos_op + 1.0f, 0.0f));
+    const f32 simplex = dot3(v0, cross3(v1, v2));
+    const f32 tangent = fabsf(simplex) / (((1.0f + dot3(v0, v1)) +
                                              dot3(v0, v2)) + dot3(v1, v2));
-    float sa_i = 2.0f * positive_atan_unbiased(tangent);
+    f32 sa_i = 2.0f * positive_atan_unbiased(tangent);
     sa_i = (i + 2 < f.count) ? sa_i : 0.0f;
     cum = i == 0 ? sa_i : cum + sa_i;
     f.fan[i] = cum;
@@ -861,8 +893,8 @@ K_INLINE void prepare_sa_arvo(const V3 (&dirs)[M], int count, SaFan<M>& f) {
 // First fan triangle whose cumulative angle reaches target, else the last
 // active one (ops/soa_techniques.py _select_fan).
 template <int M>
-K_INLINE void select_fan(const SaFan<M>& f, float target, float (&sel)[3],
-                         float& sel_prev, V3& sel_v0, V3& sel_v2) {
+K_INLINE void select_fan(const SaFan<M>& f, f32 target, f32 (&sel)[3],
+                         f32& sel_prev, V3& sel_v0, V3& sel_v2) {
   constexpr int nt = M - 2;
 #pragma unroll
   for (int c = 0; c < 3; ++c) sel[c] = f.prm[c][nt - 1];
@@ -879,8 +911,8 @@ K_INLINE void select_fan(const SaFan<M>& f, float target, float (&sel)[3],
       sel_v2 = f.dirs[i + 2];
     }
   }
-  float last[3] = {f.prm[0][0], f.prm[1][0], f.prm[2][0]};
-  float last_prev = 0.0f;
+  f32 last[3] = {f.prm[0][0], f.prm[1][0], f.prm[2][0]};
+  f32 last_prev = 0.0f;
   V3 last_v0 = f.dirs[1], last_v2 = f.dirs[2];
 #pragma unroll
   for (int i = 1; i < nt; ++i) {
@@ -907,26 +939,26 @@ K_INLINE void select_fan(const SaFan<M>& f, float target, float (&sel)[3],
 
 // polygon_sampling.glsl:194-224 (ops/soa_techniques.py sample_sa_soa).
 template <int M>
-K_INLINE V3 sample_sa(const SaFan<M>& f, float r0, float r1) {
-  const float target = f.solid_angle * r0;
-  float prm[3], prev;
+K_INLINE V3 sample_sa(const SaFan<M>& f, f32 r0, f32 r1) {
+  const f32 target = f.solid_angle * r0;
+  f32 prm[3], prev;
   V3 v0, v2;
   select_fan<M>(f, target, prm, prev, v0, v2);
   const V3 v1 = f.dirs[0];
-  const float sub = target - prev;
-  const float cos_h = cosf(0.5f * sub);
-  const float sin_h = sinf(0.5f * sub);
-  const float s0 = prm[0] * cos_h - prm[1] * sin_h;
-  const float s2 = prm[2] * sin_h;
+  const f32 sub = target - prev;
+  const f32 cos_h = cosf(0.5f * sub);
+  const f32 sin_h = sinf(0.5f * sub);
+  const f32 s0 = prm[0] * cos_h - prm[1] * sin_h;
+  const f32 s2 = prm[2] * sin_h;
   const V3 offset = add3(scale3(s0, v0), scale3(s2, v2));
-  const float off_sq = dot3(offset, offset);
-  const float scale =
+  const f32 off_sq = dot3(offset, offset);
+  const f32 scale =
       2.0f * dot3(v0, offset) / (off_sq != 0.0f ? off_sq : 1.0f);
   const V3 new_v2 = sub3(scale3(scale, offset), v0);
-  const float s2d = dot3(v1, new_v2);
-  const float s = mix_fma(1.0f, s2d, r1);
-  const float denom = -s2d * s2d + 1.0f;
-  float t_normed = sqrtf(vrt::jmax(-s * s + 1.0f, 0.0f) /
+  const f32 s2d = dot3(v1, new_v2);
+  const f32 s = mix_fma(1.0f, s2d, r1);
+  const f32 denom = -s2d * s2d + 1.0f;
+  f32 t_normed = sqrtf(vrt::jmax(-s * s + 1.0f, 0.0f) /
                          (denom > 0.0f ? denom : 1.0f));
   t_normed = denom > 0.0f ? t_normed : r1;
   return add3(scale3(-t_normed * s2d + s, v1), scale3(t_normed, new_v2));
@@ -934,27 +966,27 @@ K_INLINE V3 sample_sa(const SaFan<M>& f, float r0, float r1) {
 
 // polygon_sampling_related_work.glsl:262-293 (sample_sa_arvo_soa).
 template <int M>
-K_INLINE V3 sample_sa_arvo(const SaFan<M>& f, float r0, float r1) {
-  const float target = f.solid_angle * r0;
-  float prm[3], sel_prev;
+K_INLINE V3 sample_sa_arvo(const SaFan<M>& f, f32 r0, f32 r1) {
+  const f32 target = f.solid_angle * r0;
+  f32 prm[3], sel_prev;
   V3 tv0, tv2;
   select_fan<M>(f, target, prm, sel_prev, tv0, tv2);
-  const float cos_op = prm[0], sin_op = prm[1];
+  const f32 cos_op = prm[0], sin_op = prm[1];
   const V3 tv1 = f.dirs[0];
-  const float sub = target - sel_prev;
-  const float ssa_cos = cosf(sub);
-  const float ssa_sin = sinf(sub);
-  const float p = ssa_sin * cos_op - ssa_cos * sin_op;
-  const float q = ssa_sin * sin_op + ssa_cos * cos_op;
-  const float u = q - cos_op;
-  const float v = p + sin_op * dot3(tv0, tv1);
-  const float s_div = (v * p + u * q) * sin_op;
-  const float s = ((v * q - u * p) * cos_op - v) /
+  const f32 sub = target - sel_prev;
+  const f32 ssa_cos = cosf(sub);
+  const f32 ssa_sin = sinf(sub);
+  const f32 p = ssa_sin * cos_op - ssa_cos * sin_op;
+  const f32 q = ssa_sin * sin_op + ssa_cos * cos_op;
+  const f32 u = q - cos_op;
+  const f32 v = p + sin_op * dot3(tv0, tv1);
+  const f32 s_div = (v * p + u * q) * sin_op;
+  const f32 s = ((v * q - u * p) * cos_op - v) /
                   (s_div != 0.0f ? s_div : 1.0f);
   const V3 edge20 = normalize3(sub3(tv2, scale3(dot3(tv0, tv2), tv0)));
   const V3 vertex2 =
       add3(scale3(s, tv0), scale3(sqrtf(clip01(-s * s + 1.0f)), edge20));
-  const float z = 1.0f - r1 * (1.0f - dot3(vertex2, tv1));
+  const f32 z = 1.0f - r1 * (1.0f - dot3(vertex2, tv1));
   const V3 edge21 =
       normalize3(sub3(vertex2, scale3(dot3(tv1, vertex2), tv1)));
   return add3(scale3(z, tv1), scale3(sqrtf(clip01(-z * z + 1.0f)), edge21));
@@ -964,7 +996,7 @@ K_INLINE V3 sample_sa_arvo(const SaFan<M>& f, float r0, float r1) {
 
 struct Urena {
   V3 x_axis, y_axis, z_axis;
-  float z0, z0sq, x0, y0, y0sq, x1, y1, y1sq, b0, b1, b0sq, k, solid_angle;
+  f32 z0, z0sq, x0, y0, y0sq, x1, y1, y1sq, b0, b1, b0sq, k, solid_angle;
 };
 
 K_INLINE void prepare_urena(const float* ls, V3 o, Urena& q) {
@@ -973,28 +1005,28 @@ K_INLINE void prepare_urena(const float* ls, V3 o, Urena& q) {
   const V3 ax = light_rot_col(ls, 0), ay = light_rot_col(ls, 1),
            az = light_rot_col(ls, 2);
   const V3 d = sub3(s, o);
-  const float z0_raw = dot3(d, az);
+  const f32 z0_raw = dot3(d, az);
   const bool neg = z0_raw > 0.0f;
   q.z_axis = {neg ? -az.x + 0.0f : az.x + 0.0f,
               neg ? -az.y + 0.0f : az.y + 0.0f,
               neg ? -az.z + 0.0f : az.z + 0.0f};
   q.x_axis = ax;
   q.y_axis = ay;
-  const float z0 = -fabsf(z0_raw);
-  const float x0 = dot3(d, ax);
-  const float y0 = dot3(d, ay);
-  const float x1 = x0 + ls[kLsScaling];
-  const float y1 = y0 + ls[kLsScaling + 1];
+  const f32 z0 = -fabsf(z0_raw);
+  const f32 x0 = dot3(d, ax);
+  const f32 y0 = dot3(d, ay);
+  const f32 x1 = x0 + ls[kLsScaling];
+  const f32 y1 = y0 + ls[kLsScaling + 1];
   const V3 v00 = {x0, y0, z0}, v01 = {x0, y1, z0}, v10 = {x1, y0, z0},
            v11 = {x1, y1, z0};
   const V3 n0 = normalize3(cross3(v00, v10));
   const V3 n1 = normalize3(cross3(v10, v11));
   const V3 n2 = normalize3(cross3(v11, v01));
   const V3 n3 = normalize3(cross3(v01, v00));
-  const float g0 = acos_soa(vrt::jclip(-dot3(n0, n1), -1.0f, 1.0f));
-  const float g1 = acos_soa(vrt::jclip(-dot3(n1, n2), -1.0f, 1.0f));
-  const float g2 = acos_soa(vrt::jclip(-dot3(n2, n3), -1.0f, 1.0f));
-  const float g3 = acos_soa(vrt::jclip(-dot3(n3, n0), -1.0f, 1.0f));
+  const f32 g0 = acos_soa(vrt::jclip(-dot3(n0, n1), -1.0f, 1.0f));
+  const f32 g1 = acos_soa(vrt::jclip(-dot3(n1, n2), -1.0f, 1.0f));
+  const f32 g2 = acos_soa(vrt::jclip(-dot3(n2, n3), -1.0f, 1.0f));
+  const f32 g3 = acos_soa(vrt::jclip(-dot3(n3, n0), -1.0f, 1.0f));
   q.z0 = z0;
   q.z0sq = z0 * z0;
   q.x0 = x0;
@@ -1010,21 +1042,21 @@ K_INLINE void prepare_urena(const float* ls, V3 o, Urena& q) {
   q.solid_angle = g0 + g1 - q.k;
 }
 
-K_INLINE V3 sample_urena(const Urena& q, float u, float v) {
-  const float au = u * q.solid_angle + q.k;
-  const float sin_au = sinf(au);
-  const float fu = (cosf(au) * q.b0 - q.b1) / (sin_au != 0.0f ? sin_au : 1.0f);
-  float cu = 1.0f / sqrtf(fu * fu + q.b0sq);
+K_INLINE V3 sample_urena(const Urena& q, f32 u, f32 v) {
+  const f32 au = u * q.solid_angle + q.k;
+  const f32 sin_au = sinf(au);
+  const f32 fu = (cosf(au) * q.b0 - q.b1) / (sin_au != 0.0f ? sin_au : 1.0f);
+  f32 cu = 1.0f / sqrtf(fu * fu + q.b0sq);
   cu = fu > 0.0f ? cu : -cu;
   cu = vrt::jclip(cu, -1.0f, 1.0f);
-  float xu = -(cu * q.z0) / sqrtf(vrt::jmax(1.0f - cu * cu, 1e-20f));
+  f32 xu = -(cu * q.z0) / sqrtf(vrt::jmax(1.0f - cu * cu, 1e-20f));
   xu = vrt::jmin(vrt::jmax(xu, q.x0), q.x1);
-  const float d = sqrtf(xu * xu + q.z0sq);
-  const float h0 = q.y0 / sqrtf(d * d + q.y0sq);
-  const float h1 = q.y1 / sqrtf(d * d + q.y1sq);
-  const float hv = h0 + v * (h1 - h0);
-  const float mhv2_1 = -hv * hv + 1.0f;
-  const float yv = mhv2_1 >= 0.0f
+  const f32 d = sqrtf(xu * xu + q.z0sq);
+  const f32 h0 = q.y0 / sqrtf(d * d + q.y0sq);
+  const f32 h1 = q.y1 / sqrtf(d * d + q.y1sq);
+  const f32 hv = h0 + v * (h1 - h0);
+  const f32 mhv2_1 = -hv * hv + 1.0f;
+  const f32 yv = mhv2_1 >= 0.0f
                        ? (hv * d) / sqrtf(vrt::jmax(mhv2_1, 1e-20f))
                        : q.y1;
   const V3 out = {
@@ -1037,13 +1069,13 @@ K_INLINE V3 sample_urena(const Urena& q, float u, float v) {
 // --- Turk uniform area sampling (sample_area_turk_soa) -----------------------
 
 template <int NV>
-K_INLINE V3 sample_area_turk(const float* ls, float r0, float r1) {
+K_INLINE V3 sample_area_turk(const float* ls, f32 r0, f32 r1) {
   constexpr int nt = NV - 2;
   auto tri = [&](int i) { return ls[kLsFan + 2 * i]; };
   auto cum = [&](int i) { return ls[kLsFan + 2 * i + 1]; };
-  const float target = cum(nt - 1) * r0;
-  float sel_prev = nt >= 2 ? cum(nt >= 2 ? nt - 2 : 0) : 0.0f;
-  float sel_area = tri(nt - 1);
+  const f32 target = cum(nt - 1) * r0;
+  f32 sel_prev = nt >= 2 ? cum(nt >= 2 ? nt - 2 : 0) : 0.0f;
+  f32 sel_area = tri(nt - 1);
   V3 sel_v0 = light_vert(ls, nt), sel_v2 = light_vert(ls, nt + 1);
 #pragma unroll
   for (int i = nt - 2; i >= 0; --i) {
@@ -1054,12 +1086,12 @@ K_INLINE V3 sample_area_turk(const float* ls, float r0, float r1) {
       sel_v2 = light_vert(ls, i + 2);
     }
   }
-  const float sub = target - sel_prev;
-  const float r0t = sub / (sel_area != 0.0f ? sel_area : 1.0f);
-  const float sqrt_r0 = sqrtf(vrt::jmax(r0t, 0.0f));
-  const float b0 = 1.0f - sqrt_r0;
-  const float b1 = sqrt_r0 * r1;
-  const float b2 = -sqrt_r0 * r1 + sqrt_r0;
+  const f32 sub = target - sel_prev;
+  const f32 r0t = sub / (sel_area != 0.0f ? sel_area : 1.0f);
+  const f32 sqrt_r0 = sqrtf(vrt::jmax(r0t, 0.0f));
+  const f32 b0 = 1.0f - sqrt_r0;
+  const f32 b1 = sqrt_r0 * r1;
+  const f32 b2 = -sqrt_r0 * r1 + sqrt_r0;
   const V3 v1 = light_vert(ls, 0);
   return {b0 * sel_v0.x + b1 * v1.x + b2 * sel_v2.x,
           b0 * sel_v0.y + b1 * v1.y + b2 * sel_v2.y,
@@ -1078,30 +1110,30 @@ K_INLINE V3 last_active_dir(const V3 (&dirs)[M], int count) {
   return v;
 }
 
-K_INLINE float linear_warp(float r, float density_0, float density_1) {
-  const float lerped_sq =
+K_INLINE f32 linear_warp(f32 r, f32 density_0, f32 density_1) {
+  const f32 lerped_sq =
       mix_fma(density_0 * density_0, density_1 * density_1, r);
-  const float divisor = density_0 + sqrtf(vrt::jmax(lerped_sq, 0.0f));
+  const f32 divisor = density_0 + sqrtf(vrt::jmax(lerped_sq, 0.0f));
   return r * (density_0 + density_1) / (divisor != 0.0f ? divisor : 1.0f);
 }
 
 template <int M>
 struct HartBilinear {
   SaFan<M> poly;
-  float density_0, density_1a, density_1b;
+  f32 density_0, density_1a, density_1b;
 };
 
 template <int M>
 K_INLINE void prepare_hart_bilinear(const V3 (&dirs)[M], int count,
                                     HartBilinear<M>& w) {
   prepare_sa<M>(dirs, count, w.poly);
-  const float d0 = vrt::jmax(dirs[0].z, 0.0f);
-  const float d1a = vrt::jmax(dirs[1].z, 0.0f);
-  const float d1b = vrt::jmax(last_active_dir<M>(dirs, count).z, 0.0f);
-  const float dsum = 2.0f * d0 + d1a + d1b;
-  const float sa = w.poly.solid_angle;
-  const float norm = rdiv(4.0f, sa * dsum);
-  const float inv_sa = 1.0f / sa;
+  const f32 d0 = vrt::jmax(dirs[0].z, 0.0f);
+  const f32 d1a = vrt::jmax(dirs[1].z, 0.0f);
+  const f32 d1b = vrt::jmax(last_active_dir<M>(dirs, count).z, 0.0f);
+  const f32 dsum = 2.0f * d0 + d1a + d1b;
+  const f32 sa = w.poly.solid_angle;
+  const f32 norm = rdiv(4.0f, sa * dsum);
+  const f32 inv_sa = 1.0f / sa;
   const bool degen = dsum <= 0.0f;
   w.density_0 = degen ? inv_sa : d0 * norm;
   w.density_1a = degen ? inv_sa : d1a * norm;
@@ -1109,48 +1141,48 @@ K_INLINE void prepare_hart_bilinear(const V3 (&dirs)[M], int count,
 }
 
 template <int M>
-K_INLINE V3 sample_hart_bilinear(const HartBilinear<M>& w, float r0, float r1,
-                                 float& density) {
-  const float r1w =
+K_INLINE V3 sample_hart_bilinear(const HartBilinear<M>& w, f32 r0, f32 r1,
+                                 f32& density) {
+  const f32 r1w =
       linear_warp(r1, 2.0f * w.density_0, w.density_1a + w.density_1b);
-  const float d0 = mix_fma(w.density_0, w.density_1a, r1w);
-  const float d1 = mix_fma(w.density_0, w.density_1b, r1w);
-  const float r0w = linear_warp(r0, d0, d1);
+  const f32 d0 = mix_fma(w.density_0, w.density_1a, r1w);
+  const f32 d1 = mix_fma(w.density_0, w.density_1b, r1w);
+  const f32 r0w = linear_warp(r0, d0, d1);
   density = mix_fma(d0, d1, r0w);
   return sample_sa<M>(w.poly, r0w, r1w);
 }
 
 // Blinn's cubic solver (solve_cubic_soa); returns whether three roots are
 // real.
-K_INLINE bool solve_cubic(float c0, float c1, float c2, float c3, float& r0,
-                          float& r1, float& r2) {
-  const float n0 = c0 / c3;
-  const float n1 = c1 / (3.0f * c3);
-  const float n2 = c2 / (3.0f * c3);
-  const float delta0 = -n2 * n2 + n1;
-  const float delta1 = -n1 * n2 + n0;
-  const float delta2 = n2 * n0 - n1 * n1;
-  const float disc = 4.0f * delta0 * delta2 - delta1 * delta1;
-  const float sqrt_abs = sqrtf(fabsf(disc));
-  const float dep0 = -2.0f * n2 * delta0 + delta1;
-  const float dep1 = delta0;
-  const float theta = atan2_soa(sqrt_abs, -dep0) * kThird;
-  const float cr_cos = cosf(theta);
-  const float cr_sin = sinf(theta);
-  const float sqrt_075 = (float)0.8660254037844386;
-  const float scale = 2.0f * sqrtf(vrt::jmax(-dep1, 0.0f));
-  const float t0 = cr_cos * scale - n2;
-  const float t1 = (-sqrt_075 * cr_sin - 0.5f * cr_cos) * scale - n2;
-  const float t2 = (sqrt_075 * cr_sin - 0.5f * cr_cos) * scale - n2;
-  const float signed_sqrt = dep0 < 0.0f ? sqrt_abs : -sqrt_abs;
-  const float quad_root = 0.5f * (signed_sqrt - dep0);
-  const float abs_qr = fabsf(quad_root);
-  const float cube0_mag = expf(logf(abs_qr > 0.0f ? abs_qr : 1.0f) * kThird);
-  const float cube0 =
+K_INLINE bool solve_cubic(f32 c0, f32 c1, f32 c2, f32 c3, f32& r0,
+                          f32& r1, f32& r2) {
+  const f32 n0 = c0 / c3;
+  const f32 n1 = c1 / (3.0f * c3);
+  const f32 n2 = c2 / (3.0f * c3);
+  const f32 delta0 = -n2 * n2 + n1;
+  const f32 delta1 = -n1 * n2 + n0;
+  const f32 delta2 = n2 * n0 - n1 * n1;
+  const f32 disc = 4.0f * delta0 * delta2 - delta1 * delta1;
+  const f32 sqrt_abs = sqrtf(fabsf(disc));
+  const f32 dep0 = -2.0f * n2 * delta0 + delta1;
+  const f32 dep1 = delta0;
+  const f32 theta = atan2_soa(sqrt_abs, -dep0) * kThird;
+  const f32 cr_cos = cosf(theta);
+  const f32 cr_sin = sinf(theta);
+  const f32 sqrt_075 = (float)0.8660254037844386;
+  const f32 scale = 2.0f * sqrtf(vrt::jmax(-dep1, 0.0f));
+  const f32 t0 = cr_cos * scale - n2;
+  const f32 t1 = (-sqrt_075 * cr_sin - 0.5f * cr_cos) * scale - n2;
+  const f32 t2 = (sqrt_075 * cr_sin - 0.5f * cr_cos) * scale - n2;
+  const f32 signed_sqrt = dep0 < 0.0f ? sqrt_abs : -sqrt_abs;
+  const f32 quad_root = 0.5f * (signed_sqrt - dep0);
+  const f32 abs_qr = fabsf(quad_root);
+  const f32 cube0_mag = expf(logf(abs_qr > 0.0f ? abs_qr : 1.0f) * kThird);
+  const f32 cube0 =
       abs_qr > 0.0f ? (quad_root < 0.0f ? -cube0_mag : cube0_mag) : 0.0f;
-  float cube1 = -dep1 / (cube0 != 0.0f ? cube0 : 1.0f);
+  f32 cube1 = -dep1 / (cube0 != 0.0f ? cube0 : 1.0f);
   cube1 = cube0 != 0.0f ? cube1 : 0.0f;
-  const float root1 = cube0 + cube1 - n2;
+  const f32 root1 = cube0 + cube1 - n2;
   const bool three = disc >= 0.0f;
   r0 = three ? t0 : root1;
   r1 = three ? t1 : root1;
@@ -1158,32 +1190,32 @@ K_INLINE bool solve_cubic(float c0, float c1, float c2, float c3, float& r0,
   return three;
 }
 
-K_INLINE float quadratic_warp(float r, float d0, float d1, float d2) {
-  const float q0 = d0;
-  const float q1 = 2.0f * (d1 - d0);
-  const float q2 = d0 - 2.0f * d1 + d2;
-  const float c1 = q0;
-  const float c2 = 0.5f * q1;
-  const float c3 = kThird * q2;
-  const float scaled = r * (c1 + c2 + c3);
-  float r0, r1, r2;
+K_INLINE f32 quadratic_warp(f32 r, f32 d0, f32 d1, f32 d2) {
+  const f32 q0 = d0;
+  const f32 q1 = 2.0f * (d1 - d0);
+  const f32 q2 = d0 - 2.0f * d1 + d2;
+  const f32 c1 = q0;
+  const f32 c2 = 0.5f * q1;
+  const f32 c3 = kThird * q2;
+  const f32 scaled = r * (c1 + c2 + c3);
+  f32 r0, r1, r2;
   const bool three = solve_cubic(-scaled, c1, c2, c3, r0, r1, r2);
-  float out = r0;
+  f32 out = r0;
   out = (three && r1 >= 0.0f && r1 <= 1.0f) ? r1 : out;
   out = (three && r2 >= 0.0f && r2 <= 1.0f) ? r2 : out;
   return out;
 }
 
-K_INLINE float quadratic_bezier(float b0, float b1, float b2, float x) {
+K_INLINE f32 quadratic_bezier(f32 b0, f32 b1, f32 b2, f32 x) {
   return mix_fma(mix_fma(b0, b1, x), mix_fma(b1, b2, x), x);
 }
 
 template <int M>
 struct HartBiquadratic {
   SaFan<M> poly;
-  float density_0;
-  float density_1[3];
-  float density_2[3];
+  f32 density_0;
+  f32 density_1[3];
+  f32 density_2[3];
 };
 
 template <int M>
@@ -1192,30 +1224,30 @@ K_INLINE void prepare_hart_biquadratic(const V3 (&dirs)[M], int count,
   prepare_sa<M>(dirs, count, w.poly);
   const V3 v0 = dirs[0];
   const V3 last = last_active_dir<M>(dirs, count);
-  const float d0 = vrt::jmax(v0.z, 0.0f);
-  const float d2_0 = vrt::jmax(dirs[1].z, 0.0f);
-  const float d2_2 = vrt::jmax(last.z, 0.0f);
+  const f32 d0 = vrt::jmax(v0.z, 0.0f);
+  const f32 d2_0 = vrt::jmax(dirs[1].z, 0.0f);
+  const f32 d2_2 = vrt::jmax(last.z, 0.0f);
   const V3 sample_2_1 = sample_sa<M>(w.poly, 0.5f, 1.0f);
-  const float d2_1 = vrt::jmax(sample_2_1.z, 0.0f);
+  const f32 d2_1 = vrt::jmax(sample_2_1.z, 0.0f);
   // Middle row: the tail of SA sampling at r1 = 0.5 toward the three far
   // directions (column 0 warps toward vertex 0 itself, glsl:430-443).
   const V3 fars[3] = {v0, sample_2_1, last};
-  float d1[3];
+  f32 d1[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const V3 far = fars[i];
-    const float s2 = dot3(v0, far);
-    const float s = 0.5f * s2 + 0.5f;
-    const float t = sqrtf(vrt::jmax(-s * s + 1.0f, 0.0f));
-    const float t_axis_z = -s2 * v0.z + far.z;
-    const float norm_t =
+    const f32 s2 = dot3(v0, far);
+    const f32 s = 0.5f * s2 + 0.5f;
+    const f32 t = sqrtf(vrt::jmax(-s * s + 1.0f, 0.0f));
+    const f32 t_axis_z = -s2 * v0.z + far.z;
+    const f32 norm_t =
         1.0f / sqrtf(vrt::jmax(2.0f * (-s2 * s2 + 1.0f), 1e-20f));
     d1[i] = vrt::jmax(s * v0.z + t * norm_t * t_axis_z, 0.0f);
   }
-  const float dsum = 3.0f * d0 + d1[0] + d1[1] + d1[2] + d2_0 + d2_1 + d2_2;
-  const float sa = w.poly.solid_angle;
-  const float norm = rdiv(9.0f, sa * dsum);
-  const float inv_sa = 1.0f / sa;
+  const f32 dsum = 3.0f * d0 + d1[0] + d1[1] + d1[2] + d2_0 + d2_1 + d2_2;
+  const f32 sa = w.poly.solid_angle;
+  const f32 norm = rdiv(9.0f, sa * dsum);
+  const f32 inv_sa = 1.0f / sa;
   const bool degen = dsum <= 0.0f;
   w.density_0 = degen ? inv_sa : d0 * norm;
 #pragma unroll
@@ -1226,19 +1258,19 @@ K_INLINE void prepare_hart_biquadratic(const V3 (&dirs)[M], int count,
 }
 
 template <int M>
-K_INLINE V3 sample_hart_biquadratic(const HartBiquadratic<M>& w, float r0,
-                                    float r1, float& density) {
-  const float r1w = quadratic_warp(
+K_INLINE V3 sample_hart_biquadratic(const HartBiquadratic<M>& w, f32 r0,
+                                    f32 r1, f32& density) {
+  const f32 r1w = quadratic_warp(
       r1, 3.0f * w.density_0,
       w.density_1[0] + w.density_1[1] + w.density_1[2],
       w.density_2[0] + w.density_2[1] + w.density_2[2]);
-  const float d0 =
+  const f32 d0 =
       quadratic_bezier(w.density_0, w.density_1[0], w.density_2[0], r1w);
-  const float d1 =
+  const f32 d1 =
       quadratic_bezier(w.density_0, w.density_1[1], w.density_2[1], r1w);
-  const float d2 =
+  const f32 d2 =
       quadratic_bezier(w.density_0, w.density_1[2], w.density_2[2], r1w);
-  const float r0w = quadratic_warp(r0, d0, d1, d2);
+  const f32 r0w = quadratic_warp(r0, d0, d1, d2);
   density = quadratic_bezier(d0, d1, d2, r0w);
   return sample_sa<M>(w.poly, r0w, r1w);
 }
@@ -1246,12 +1278,12 @@ K_INLINE V3 sample_hart_biquadratic(const HartBiquadratic<M>& w, float r0,
 // --- Arvo's projected solid angle (ops/soa_arvo_psa.py) -----------------------
 
 struct ArvoEdge {
-  float cdf;
+  f32 cdf;
   V2 len, elev;
 };
 
 K_INLINE V3 normalize3_rl(V3 v) {
-  const float rl = rsqrtf(v.x * v.x + v.y * v.y + v.z * v.z);
+  const f32 rl = rsqrtf(v.x * v.x + v.y * v.y + v.z * v.z);
   return {v.x * rl, v.y * rl, v.z * rl};
 }
 
@@ -1262,78 +1294,78 @@ K_INLINE ArvoEdge arvo_prepare_edge(V3 v0, V3 v1) {
   e.cdf = 0.5f * na.z;
   const bool pos = e.cdf > 0.0f;
   const V3 ccw = pos ? v0 : v1;
-  const float rl = rsqrtf(ccw.x * ccw.x + ccw.y * ccw.y);
-  const float ncx = -ccw.y * rl, ncy = ccw.x * rl;
-  const float cos_beta = -(na.x * ncx + na.y * ncy);
-  const float sin_beta_sq = -cos_beta * cos_beta + 1.0f;
-  const float csc_beta =
+  const f32 rl = rsqrtf(ccw.x * ccw.x + ccw.y * ccw.y);
+  const f32 ncx = -ccw.y * rl, ncy = ccw.x * rl;
+  const f32 cos_beta = -(na.x * ncx + na.y * ncy);
+  const f32 sin_beta_sq = -cos_beta * cos_beta + 1.0f;
+  const f32 csc_beta =
       1.0f / sqrtf(vrt::jmax(sin_beta_sq, 0.0f) + 1e-30f);
-  const float csc_c =
+  const f32 csc_c =
       1.0f / sqrtf(vrt::jmax(-ccw.z * ccw.z + 1.0f, 0.0f) + 1e-30f);
-  const float scale = csc_beta * csc_c;
+  const f32 scale = csc_beta * csc_c;
   e.len = {sin_beta_sq * scale,
            (na.x * (-ncy) + na.y * ncx) * cos_beta * scale};
-  const float elev1 = ccw.x * na.y - ccw.y * na.x;
+  const f32 elev1 = ccw.x * na.y - ccw.y * na.x;
   e.elev = {ccw.z, pos ? -elev1 : elev1};
   return e;
 }
 
 // glsl:600-612.
-K_INLINE float arvo_edge_psa_in_sector(float cdf, V2 len, float ra0,
-                                       float ra1) {
-  const float c0 = cosf(ra0), s0 = sinf(ra0);
+K_INLINE f32 arvo_edge_psa_in_sector(f32 cdf, V2 len, f32 ra0,
+                                       f32 ra1) {
+  const f32 c0 = cosf(ra0), s0 = sinf(ra0);
   const V2 p0 = {len.x * c0 + len.y * s0, s0};
-  const float c1 = cosf(ra1), s1 = sinf(ra1);
+  const f32 c1 = cosf(ra1), s1 = sinf(ra1);
   const V2 p1 = {len.x * c1 + len.y * s1, s1};
-  const float rx = p0.x * p1.x + p0.y * p1.y;
-  const float ry = p0.x * p1.y - p0.y * p1.x;
+  const f32 rx = p0.x * p1.x + p0.y * p1.y;
+  const f32 ry = p0.x * p1.y - p0.y * p1.x;
   return cdf * positive_atan_unbiased(fabsf(ry) / rx);
 }
 
 // glsl:617-642: psa and d psa / d ra1.
-K_INLINE void arvo_edge_psa_and_derivative(float cdf, V2 len, float ra0,
-                                           float ra1, float& psa_out,
-                                           float& d_out) {
-  const float c0 = cosf(ra0), s0 = sinf(ra0);
+K_INLINE void arvo_edge_psa_and_derivative(f32 cdf, V2 len, f32 ra0,
+                                           f32 ra1, f32& psa_out,
+                                           f32& d_out) {
+  const f32 c0 = cosf(ra0), s0 = sinf(ra0);
   const V2 p0 = {len.x * c0 + len.y * s0, s0};
-  const float c1 = cosf(ra1), s1 = sinf(ra1);
+  const f32 c1 = cosf(ra1), s1 = sinf(ra1);
   const V2 p1 = {len.x * c1 + len.y * s1, s1};
-  const float rx = p0.x * p1.x + p0.y * p1.y;
-  const float ry = p0.x * p1.y - p0.y * p1.x;
-  const float quotient = fabsf(ry) / rx;
-  const float psa = positive_atan_unbiased(quotient);
-  const float d1x = -s1, d1y = c1;
+  const f32 rx = p0.x * p1.x + p0.y * p1.y;
+  const f32 ry = p0.x * p1.y - p0.y * p1.x;
+  const f32 quotient = fabsf(ry) / rx;
+  const f32 psa = positive_atan_unbiased(quotient);
+  const f32 d1x = -s1, d1y = c1;
   const V2 p1d = {len.x * d1x + len.y * d1y, d1y};
-  const float rxd = p0.x * p1d.x + p0.y * p1d.y;
-  const float ryd = p0.x * p1d.y - p0.y * p1d.x;
-  float qd = (ryd * rx - ry * rxd) / (rx * rx);
+  const f32 rxd = p0.x * p1d.x + p0.y * p1d.y;
+  const f32 ryd = p0.x * p1d.y - p0.y * p1d.x;
+  f32 qd = (ryd * rx - ry * rxd) / (rx * rx);
   qd = ry < 0.0f ? -qd : qd;
-  const float psa_d = qd / (quotient * quotient + 1.0f);
+  const f32 psa_d = qd / (quotient * quotient + 1.0f);
   psa_out = cdf * psa;
   d_out = cdf * psa_d;
 }
 
 // glsl:648-654.
-K_INLINE float arvo_edge_elevation(V2 len, V2 elev, float ra) {
-  const float c = cosf(ra), s = sinf(ra);
-  const float px = len.x * c + len.y * s;
-  const float rl = rsqrtf(px * px + s * s);
+K_INLINE f32 arvo_edge_elevation(V2 len, V2 elev, f32 ra) {
+  const f32 c = cosf(ra), s = sinf(ra);
+  const f32 px = len.x * c + len.y * s;
+  const f32 rl = rsqrtf(px * px + s * s);
   return (px * elev.x + s * elev.y) * rl;
 }
 
 // A sector bound: an edge with its azimuth.
 struct ArvoBound {
   ArvoEdge e;
-  float az;
+  f32 az;
 };
 
 template <int M>
 struct ArvoPoly {
-  float az[M];      // central: lane azimuths; decentral: sorted azimuths
+  f32 az[M];      // central: lane azimuths; decentral: sorted azimuths
   ArvoEdge edge[M]; // central: lane edges; decentral: sorted edges
   ArvoBound inner[M], outer[M];  // decentral sector bounds
-  float sector_psa[M];
-  float psa;
+  f32 sector_psa[M];
+  f32 psa;
   int count;
   bool central;
 };
@@ -1346,16 +1378,16 @@ K_INLINE void prepare_arvo_psa(const V3 (&verts)[M], int count_in,
   const int count = max(count_in, 3);
   poly.count = count;
   V3 v[M];
-  float az[M];
+  f32 az[M];
 #pragma unroll
   for (int k = 0; k < M; ++k) {
     v[k] = normalize3_rl(verts[k]);
     az[k] = atan2_soa(v[k].y, v[k].x);
   }
-  const float az0 = az[0];
+  const f32 az0 = az[0];
 #pragma unroll
   for (int k = 0; k < M; ++k) {
-    const float a = az[k] > az0 + kPi ? az[k] - kTwoPi : az[k];
+    const f32 a = az[k] > az0 + kPi ? az[k] - kTwoPi : az[k];
     az[k] = a < az0 - kPi ? a + kTwoPi : a;
   }
   ArvoEdge raw[M];
@@ -1386,10 +1418,10 @@ K_INLINE void prepare_arvo_psa(const V3 (&verts)[M], int count_in,
   poly.central = inner0.cdf > 0.0f;
 
   if (poly.central) {
-    float psa = 0.0f;
+    f32 psa = 0.0f;
 #pragma unroll
     for (int k = 0; k < M; ++k) {
-      const float s =
+      const f32 s =
           (count > k) ? arvo_edge_psa_in_sector(edge[k].cdf, edge[k].len,
                                                 0.0f, az[(k + 1) % M] - az[k])
                       : 0.0f;
@@ -1402,7 +1434,7 @@ K_INLINE void prepare_arvo_psa(const V3 (&verts)[M], int count_in,
     return;
   }
   // Decentral: azimuth sort (rank one-hot), then the sector walk.
-  float keys[M];
+  f32 keys[M];
 #pragma unroll
   for (int k = 0; k < M; ++k) keys[k] = (count > k) ? az[k] : INFINITY;
   int rank[M];
@@ -1418,7 +1450,7 @@ K_INLINE void prepare_arvo_psa(const V3 (&verts)[M], int count_in,
   }
 #pragma unroll
   for (int j = 0; j < M; ++j) {
-    float a_az = 0.0f;
+    f32 a_az = 0.0f;
     ArvoEdge a_e = {0.0f, {0.0f, 0.0f}, {0.0f, 0.0f}};
 #pragma unroll
     for (int k = 0; k < M; ++k)
@@ -1444,10 +1476,10 @@ K_INLINE void prepare_arvo_psa(const V3 (&verts)[M], int count_in,
   }
   poly.inner[M - 1] = poly.inner[M - 2];
   poly.outer[M - 1] = poly.outer[M - 2];
-  float psa = 0.0f;
+  f32 psa = 0.0f;
 #pragma unroll
   for (int i = 0; i < M; ++i) {
-    float s = 0.0f;
+    f32 s = 0.0f;
     if (i < M - 1 && i < count - 1) {
       const ArvoBound& o = poly.outer[i];
       const ArvoBound& n = poly.inner[i];
@@ -1464,14 +1496,14 @@ K_INLINE void prepare_arvo_psa(const V3 (&verts)[M], int count_in,
 }
 
 // Newton divided differences through 4 points (glsl:826-839).
-K_INLINE float arvo_cubic_interpolation(float x, const float (&xs)[4],
-                                        const float (&ys)[4]) {
-  const float y01 = (ys[0] - ys[1]) / (xs[0] - xs[1]);
-  const float y12 = (ys[1] - ys[2]) / (xs[1] - xs[2]);
-  const float y23 = (ys[2] - ys[3]) / (xs[2] - xs[3]);
-  const float y012 = (y01 - y12) / (xs[0] - xs[2]);
-  const float y123 = (y12 - y23) / (xs[1] - xs[3]);
-  const float y0123 = (y012 - y123) / (xs[0] - xs[3]);
+K_INLINE f32 arvo_cubic_interpolation(f32 x, const f32 (&xs)[4],
+                                        const f32 (&ys)[4]) {
+  const f32 y01 = (ys[0] - ys[1]) / (xs[0] - xs[1]);
+  const f32 y12 = (ys[1] - ys[2]) / (xs[1] - xs[2]);
+  const f32 y23 = (ys[2] - ys[3]) / (xs[2] - xs[3]);
+  const f32 y012 = (y01 - y12) / (xs[0] - xs[2]);
+  const f32 y123 = (y12 - y23) / (xs[1] - xs[3]);
+  const f32 y0123 = (y012 - y123) / (xs[0] - xs[3]);
   return (x - xs[0]) * ((x - xs[1]) * ((x - xs[2]) * y0123 + y012) + y01) +
          ys[0];
 }
@@ -1479,13 +1511,13 @@ K_INLINE float arvo_cubic_interpolation(float x, const float (&xs)[4],
 // sample_sector_within_edge / between_edges (glsl:845-929): the outer
 // bound alone (central) or between inner and outer.
 template <bool kInner>
-K_INLINE V3 arvo_sample_sector(float target, float r1, const ArvoBound& in,
-                               const ArvoBound& out, float azimuth_0,
-                               float azimuth_1) {
-  const float azs[4] = {azimuth_0, mix_fma(azimuth_0, azimuth_1, kThird),
+K_INLINE V3 arvo_sample_sector(f32 target, f32 r1, const ArvoBound& in,
+                               const ArvoBound& out, f32 azimuth_0,
+                               f32 azimuth_1) {
+  const f32 azs[4] = {azimuth_0, mix_fma(azimuth_0, azimuth_1, kThird),
                         mix_fma(azimuth_0, azimuth_1, kTwoThirds),
                         azimuth_1};
-  float psas[4];
+  f32 psas[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     psas[i] = arvo_edge_psa_in_sector(out.e.cdf, out.e.len,
@@ -1495,15 +1527,15 @@ K_INLINE V3 arvo_sample_sector(float target, float r1, const ArvoBound& in,
                                                   azimuth_0 - in.az,
                                                   azs[i] - in.az);
   }
-  float sampled = arvo_cubic_interpolation(target, psas, azs);
+  f32 sampled = arvo_cubic_interpolation(target, psas, azs);
 #pragma unroll
   for (int it = 0; it < 3; ++it) {
-    float out_psa, out_d;
+    f32 out_psa, out_d;
     arvo_edge_psa_and_derivative(out.e.cdf, out.e.len, azimuth_0 - out.az,
                                  sampled - out.az, out_psa, out_d);
-    float error, derivative;
+    f32 error, derivative;
     if (kInner) {
-      float in_psa, in_d;
+      f32 in_psa, in_d;
       arvo_edge_psa_and_derivative(in.e.cdf, in.e.len, azimuth_0 - in.az,
                                    sampled - in.az, in_psa, in_d);
       error = in_psa + out_psa - target;
@@ -1512,35 +1544,35 @@ K_INLINE V3 arvo_sample_sector(float target, float r1, const ArvoBound& in,
       error = out_psa - target;
       derivative = out_d;
     }
-    const float step = error / (derivative != 0.0f ? derivative : 1.0f);
+    const f32 step = error / (derivative != 0.0f ? derivative : 1.0f);
     sampled = vrt::jmin(vrt::jmax(sampled - step, azimuth_0), azimuth_1);
   }
-  const float cos_az = cosf(sampled);
-  const float sin_az = sinf(sampled);
-  const float out_z = arvo_edge_elevation(out.e.len, out.e.elev,
+  const f32 cos_az = cosf(sampled);
+  const f32 sin_az = sinf(sampled);
+  const f32 out_z = arvo_edge_elevation(out.e.len, out.e.elev,
                                           sampled - out.az);
-  float z_sq;
+  f32 z_sq;
   if (kInner) {
-    const float in_z = arvo_edge_elevation(in.e.len, in.e.elev,
+    const f32 in_z = arvo_edge_elevation(in.e.len, in.e.elev,
                                            sampled - in.az);
     z_sq = mix_fma(in_z * in_z, out_z * out_z, r1);
   } else {
     z_sq = mix_fma(1.0f, out_z * out_z, r1);
   }
-  const float z = sqrtf(vrt::jmax(z_sq, 0.0f));
-  const float r_xy = sqrtf(vrt::jmax(-z * z + 1.0f, 0.0f));
+  const f32 z = sqrtf(vrt::jmax(z_sq, 0.0f));
+  const f32 r_xy = sqrtf(vrt::jmax(-z * z + 1.0f, 0.0f));
   return {cos_az * r_xy, sin_az * r_xy, z};
 }
 
 // sample_projected_solid_angle_polygon_arvo (glsl:931-992), 3 Newton steps.
 template <int M>
-K_INLINE V3 sample_arvo_psa(const ArvoPoly<M>& poly, float r0, float r1) {
-  const float target = r0 * poly.psa;
-  float rem;
+K_INLINE V3 sample_arvo_psa(const ArvoPoly<M>& poly, f32 r0, f32 r1) {
+  const f32 target = r0 * poly.psa;
+  f32 rem;
   if (poly.central) {
     const int s = select_sector<M>(poly.sector_psa, target, poly.count, rem);
     ArvoBound out = {{0.0f, {0.0f, 0.0f}, {0.0f, 0.0f}}, 0.0f};
-    float az1 = 0.0f;
+    f32 az1 = 0.0f;
 #pragma unroll
     for (int k = 0; k < M; ++k)
       if (s == k) {
@@ -1553,7 +1585,7 @@ K_INLINE V3 sample_arvo_psa(const ArvoPoly<M>& poly, float r0, float r1) {
   const int s = select_sector<M>(poly.sector_psa, target, poly.count - 1, rem);
   ArvoBound in = {{0.0f, {0.0f, 0.0f}, {0.0f, 0.0f}}, 0.0f};
   ArvoBound out = in;
-  float az0 = 0.0f, az1 = 0.0f;
+  f32 az0 = 0.0f, az1 = 0.0f;
 #pragma unroll
   for (int k = 0; k < M; ++k)
     if (s == k) {
@@ -1584,8 +1616,8 @@ struct BaselineSampler {
     col1 = light_rot_col(ls, 1);
     ok = true;
   }
-  K_INLINE bool sample(const Pixel&, const float*, float r0, float r1, V3& d,
-                       float& density) const {
+  K_INLINE bool sample(const Pixel&, const float*, f32 r0, f32 r1, V3& d,
+                       f32& density) const {
     d = normalize3({corner.x + r0 * col0.x + r1 * col1.x,
                     corner.y + r0 * col0.y + r1 * col1.y,
                     corner.z + r0 * col0.z + r1 * col1.z});
@@ -1598,14 +1630,14 @@ template <int NV>
 struct AreaTurkSampler {
   bool ok;
   K_INLINE void prepare(const Pixel&, const float*) { ok = true; }
-  K_INLINE bool sample(const Pixel& px, const float* ls, float r0, float r1,
-                       V3& d, float& density) const {
+  K_INLINE bool sample(const Pixel& px, const float* ls, f32 r0, f32 r1,
+                       V3& d, f32& density) const {
     const V3 pos = sample_area_turk<NV>(ls, r0, r1);
     const V3 offset = sub3(pos, px.position);
-    const float dist_sq = dot3(offset, offset);
-    const float rcp = 1.0f / sqrtf(dist_sq);
+    const f32 dist_sq = dot3(offset, offset);
+    const f32 rcp = 1.0f / sqrtf(dist_sq);
     d = {offset.x * rcp, offset.y * rcp, offset.z * rcp};
-    const float projected =
+    const f32 projected =
         fabsf(d.x * ls[kLsPlane] + d.y * ls[kLsPlane + 1] +
               d.z * ls[kLsPlane + 2]) * ls[kLsArea];
     density = dist_sq / (projected > 0.0f ? projected : 1.0f);
@@ -1618,7 +1650,7 @@ struct AreaTurkSampler {
 template <int NV, bool kArvo>
 struct SolidAngleSampler {
   SaFan<NV> fan;
-  float density;
+  f32 density;
   bool ok;
   K_INLINE void prepare(const Pixel& px, const float* ls) {
     V3 dirs[NV];
@@ -1632,8 +1664,8 @@ struct SolidAngleSampler {
     ok = fan.solid_angle > 0.0f;
     density = 1.0f / (ok ? fan.solid_angle : 1.0f);
   }
-  K_INLINE bool sample(const Pixel&, const float*, float r0, float r1, V3& d,
-                       float& dens) const {
+  K_INLINE bool sample(const Pixel&, const float*, f32 r0, f32 r1, V3& d,
+                       f32& dens) const {
     d = kArvo ? sample_sa_arvo<NV>(fan, r0, r1) : sample_sa<NV>(fan, r0, r1);
     dens = density;
     return true;
@@ -1643,15 +1675,15 @@ struct SolidAngleSampler {
 template <int NV>
 struct UrenaSampler {
   Urena q;
-  float density;
+  f32 density;
   bool ok;
   K_INLINE void prepare(const Pixel& px, const float* ls) {
     prepare_urena(ls, px.position, q);
     ok = q.solid_angle > 0.0f;
     density = 1.0f / (ok ? q.solid_angle : 1.0f);
   }
-  K_INLINE bool sample(const Pixel&, const float*, float r0, float r1, V3& d,
-                       float& dens) const {
+  K_INLINE bool sample(const Pixel&, const float*, f32 r0, f32 r1, V3& d,
+                       f32& dens) const {
     d = sample_urena(q, r0, r1);
     dens = density;
     return true;
@@ -1689,7 +1721,7 @@ template <int NV>
 struct ClippedSolidAngleSampler {
   static constexpr int M = NV + 1;
   SaFan<M> fan;
-  float density;
+  f32 density;
   bool ok;
   K_INLINE void prepare(const Pixel& px, const float* ls) {
     V3 dirs[M];
@@ -1700,8 +1732,8 @@ struct ClippedSolidAngleSampler {
     ok = (fan.solid_angle > 0.0f) && clip_ok;
     density = 1.0f / (fan.solid_angle > 0.0f ? fan.solid_angle : 1.0f);
   }
-  K_INLINE bool sample(const Pixel& px, const float*, float r0, float r1,
-                       V3& d, float& dens) const {
+  K_INLINE bool sample(const Pixel& px, const float*, f32 r0, f32 r1,
+                       V3& d, f32& dens) const {
     d = rot_t_apply(px.w2s, sample_sa<M>(fan, r0, r1));
     dens = density;
     return true;
@@ -1721,8 +1753,8 @@ struct HartBilinearSampler {
     prepare_hart_bilinear<M>(dirs, max(count, 3), w);
     ok = (w.poly.solid_angle > 0.0f) && clip_ok;
   }
-  K_INLINE bool sample(const Pixel& px, const float*, float r0, float r1,
-                       V3& d, float& density) const {
+  K_INLINE bool sample(const Pixel& px, const float*, f32 r0, f32 r1,
+                       V3& d, f32& density) const {
     d = rot_t_apply(px.w2s, sample_hart_bilinear<M>(w, r0, r1, density));
     return true;
   }
@@ -1741,8 +1773,8 @@ struct HartBiquadraticSampler {
     prepare_hart_biquadratic<M>(dirs, max(count, 3), w);
     ok = (w.poly.solid_angle > 0.0f) && clip_ok;
   }
-  K_INLINE bool sample(const Pixel& px, const float*, float r0, float r1,
-                       V3& d, float& density) const {
+  K_INLINE bool sample(const Pixel& px, const float*, f32 r0, f32 r1,
+                       V3& d, f32& density) const {
     d = rot_t_apply(px.w2s, sample_hart_biquadratic<M>(w, r0, r1, density));
     return true;
   }
@@ -1753,9 +1785,9 @@ struct HartBiquadraticSampler {
 template <int NV>
 struct PsaSampler {
   static constexpr int M = NV + 1;
-  float rows[12];
+  f32 rows[12];
   PsaPoly<M> poly;
-  float rcp_psa;
+  f32 rcp_psa;
   bool ok;
   K_INLINE void prepare(const Pixel& px, const float* ls) {
     flipped_rows(px, ls, px.w2s, rows);
@@ -1767,8 +1799,8 @@ struct PsaSampler {
     ok = (count > 0) && (poly.psa > 0.0f);
     rcp_psa = 1.0f / (poly.psa > 0.0f ? poly.psa : 1.0f);
   }
-  K_INLINE bool sample(const Pixel&, const float*, float r0, float r1, V3& d,
-                       float& density) const {
+  K_INLINE bool sample(const Pixel&, const float*, f32 r0, f32 r1, V3& d,
+                       f32& density) const {
     const V3 d_sh = sample_psa<M>(poly, r0, r1);
     density = d_sh.z * rcp_psa;
     d = rot_t_apply(rows, d_sh);
@@ -1781,9 +1813,9 @@ struct PsaSampler {
 template <int NV>
 struct ArvoPsaSampler {
   static constexpr int M = NV + 1;
-  float rows[12];
+  f32 rows[12];
   ArvoPoly<M> poly;
-  float rcp_psa;
+  f32 rcp_psa;
   bool ok;
   K_INLINE void prepare(const Pixel& px, const float* ls) {
     flipped_rows(px, ls, px.w2s, rows);
@@ -1795,8 +1827,8 @@ struct ArvoPsaSampler {
     ok = (count > 0) && (poly.psa > 0.0f);
     rcp_psa = 1.0f / (poly.psa > 0.0f ? poly.psa : 1.0f);
   }
-  K_INLINE bool sample(const Pixel&, const float*, float r0, float r1, V3& d,
-                       float& density) const {
+  K_INLINE bool sample(const Pixel&, const float*, f32 r0, f32 r1, V3& d,
+                       f32& density) const {
     const V3 d_sh = sample_arvo_psa<M>(poly, r0, r1);
     density = d_sh.z * rcp_psa;
     d = rot_t_apply(rows, d_sh);
@@ -1820,52 +1852,56 @@ template <int NV> struct SamplerFor<kPsa, NV> { using type = PsaSampler<NV>; };
 template <int NV> struct SamplerFor<kPsaBiased, NV> { using type = PsaSampler<NV>; };
 
 // 1 / n rounded from double, as the plain version's Python scalar is.
-K_INLINE float inverse_count(int n) { return (float)(1.0 / (double)n); }
+K_INLINE f32 inverse_count(int n) { return (float)(1.0 / (double)n); }
 
 // --- one light, DIFFUSE_ONLY -------------------------------------------------
 //
-// nz points at this pixel's first noise value of the light; pair q is at
-// nz[2q * P] and nz[(2q + 1) * P]. emit(q, b[3], d_world, t_max) receives
-// ray slot q = s (one per sample), b already scaled by 1/n. The light's
-// base is zero in this mode.
+// The light's noise pairs are j0, j0 + 1, ... (j0 = light * rays per
+// light). emit(q, b[3], d_world, t_max) receives ray slot q = s (one per
+// sample), b already scaled by 1/n. The light's base is zero in this mode.
 template <int NV, typename Emit>
 K_INLINE void shade_light_diffuse(const Pixel& px, const float* ls,
-                                  const float* nz, size_t P, int n,
+                                  const Noise& noise, int j0, int n,
                                   Emit&& emit) {
-  const float inv_n = inverse_count(n);
+  const f32 inv_n = inverse_count(n);
   typename SamplerFor<kTechnique, NV>::type smp;
+  vrt::set_op_stage(vrt::kStagePrepare);
   smp.prepare(px, ls);
+  vrt::set_op_stage(vrt::kStageSample);
   for (int s = 0; s < n; ++s) {
-    const float r0 = nz[(size_t)(2 * s) * P];
-    const float r1 = nz[(size_t)(2 * s + 1) * P];
+    f32 r0, r1;
+    noise.pair(j0 + s, r0, r1);
     V3 d;
-    float density;
+    f32 density;
     const bool sample_ok = smp.sample(px, ls, r0, r1, d, density);
     const Radiance r = rad_brdf(px, ls, d);
-    const float scale =
+    const f32 scale =
         density > 0.0f ? r.lambert / (density > 0.0f ? density : 1.0f) : 0.0f;
     const bool gate = smp.ok && px.hit && sample_ok;
-    float b[3];
+    f32 b[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c)
       b[c] = inv_n * (gate ? scale * r.value[c] : 0.0f);
     emit(s, b, d, r.t_max);
   }
+  vrt::set_op_stage(vrt::kStagePixel);
 }
 
 // --- one light, PSA + DIFFUSE_SPECULAR_MIS (render/fused.py:392-462) ---------
 //
 // Two ray slots per sample (q = 2 s + j: j = 0 diffuse, 1 specular), noise
-// pairs 2 s and 2 s + 1. Writes the light's base, already scaled by 1/n.
+// pairs j0 + 2 s and j0 + 2 s + 1. Writes the light's base, already scaled
+// by 1/n.
 template <int NV, typename Emit>
 K_INLINE void shade_light_mis(const Pixel& px, const float* ls,
-                              const float* nz, size_t P, int n, float vis,
-                              float (&base_out)[3], Emit&& emit) {
+                              const Noise& noise, int j0, int n, f32 vis,
+                              f32 (&base_out)[3], Emit&& emit) {
   constexpr int M = NV + 1;
-  const float scale = inverse_count(n);
-  const float rad[3] = {ls[kLsRadiance], ls[kLsRadiance + 1],
+  vrt::set_op_stage(vrt::kStagePrepare);
+  const f32 scale = inverse_count(n);
+  const f32 rad[3] = {ls[kLsRadiance], ls[kLsRadiance + 1],
                         ls[kLsRadiance + 2]};
-  float w2s[12], w2c[12];
+  f32 w2s[12], w2c[12];
   flipped_rows(px, ls, px.w2s, w2s);
   flipped_rows(px, ls, px.w2c, w2c);
   V3 vs[NV], vc[NV];
@@ -1882,33 +1918,35 @@ K_INLINE void shade_light_mis(const Pixel& px, const float* ls,
   const int ccount_c = clip<NV>(vc, clipped);
   prepare_psa<M>(clipped, ccount_c, poly_s);
 
-  const float psa_d = poly_d.psa;
+  const f32 psa_d = poly_d.psa;
   const bool diffuse_ok = (ccount > 0) && (psa_d > 0.0f);
-  const float rcp_psa_d = 1.0f / (psa_d > 0.0f ? psa_d : 1.0f);
-  const float psa_s = ccount_c > 0 ? poly_s.psa : 0.0f;
+  const f32 rcp_psa_d = 1.0f / (psa_d > 0.0f ? psa_d : 1.0f);
+  const f32 psa_s = ccount_c > 0 ? poly_s.psa : 0.0f;
   const bool specular_ok = psa_s > 0.0f;
-  const float rcp_psa_s = 1.0f / (psa_s > 0.0f ? psa_s : 1.0f);
-  const float specular_weight = px.ltc_albedo * psa_s;
-  float diffuse_weight[3] = {vrt::jmax(px.albedo.x, 0.01f) * psa_d,
+  const f32 rcp_psa_s = 1.0f / (psa_s > 0.0f ? psa_s : 1.0f);
+  const f32 specular_weight = px.ltc_albedo * psa_s;
+  f32 diffuse_weight[3] = {vrt::jmax(px.albedo.x, 0.01f) * psa_d,
                              vrt::jmax(px.albedo.y, 0.01f) * psa_d,
                              vrt::jmax(px.albedo.z, 0.01f) * psa_d};
-  float specular_weight3[3] = {specular_weight, specular_weight,
+  f32 specular_weight3[3] = {specular_weight, specular_weight,
                                specular_weight};
   if (kHeuristic == 4) {  // optimal weights carry radiance / pi
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float rop = rad[c] * kInvPi;
+      const f32 rop = rad[c] * kInvPi;
       diffuse_weight[c] = diffuse_weight[c] * rop;
       specular_weight3[c] = specular_weight3[c] * rop;
     }
   }
 
-  float lbase[3] = {0.0f, 0.0f, 0.0f};
+  f32 lbase[3] = {0.0f, 0.0f, 0.0f};
+  vrt::set_op_stage(vrt::kStageSample);
   for (int s = 0; s < n; ++s) {
-    const V3 d_diffuse = sample_psa<M>(poly_d, nz[(size_t)(4 * s) * P],
-                                       nz[(size_t)(4 * s + 1) * P]);
-    const V3 d_spec_c = sample_psa<M>(poly_s, nz[(size_t)(4 * s + 2) * P],
-                                      nz[(size_t)(4 * s + 3) * P]);
+    f32 r0, r1, r2, r3;
+    noise.pair(j0 + 2 * s, r0, r1);
+    noise.pair(j0 + 2 * s + 1, r2, r3);
+    const V3 d_diffuse = sample_psa<M>(poly_d, r0, r1);
+    const V3 d_spec_c = sample_psa<M>(poly_s, r2, r3);
     V3 d_specular = {
         px.c2s[0] * d_spec_c.x + px.c2s[1] * d_spec_c.y +
             px.c2s[2] * d_spec_c.z,
@@ -1920,27 +1958,27 @@ K_INLINE void shade_light_mis(const Pixel& px, const float* ls,
     for (int j = 0; j < 2; ++j) {
       const V3 d_sh = j == 0 ? d_diffuse : d_specular;
       const bool in_upper = d_sh.z > 0.0f;
-      const float diffuse_density = d_sh.z * rcp_psa_d;
-      const float specular_density =
+      const f32 diffuse_density = d_sh.z * rcp_psa_d;
+      const f32 specular_density =
           ltc_density(px.s2c, px.ltc_det, d_sh, rcp_psa_s);
       const V3 d_world = rot_t_apply(w2s, d_sh);
       const Radiance r = rad_brdf(px, ls, d_world);
       const bool gate =
           (j == 0 ? (in_upper && diffuse_ok)
                   : (in_upper && diffuse_ok && specular_ok)) && px.hit;
-      const float dd_safe = diffuse_density > 0.0f ? diffuse_density : 1.0f;
-      float b[3];
+      const f32 dd_safe = diffuse_density > 0.0f ? diffuse_density : 1.0f;
+      f32 b[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const float integrand1 = d_sh.z * r.value[c];
-        const float sw = j == 0 ? diffuse_weight[c] : specular_weight3[c];
-        const float sd = j == 0 ? diffuse_density : specular_density;
-        const float ow = j == 0 ? specular_weight3[c] : diffuse_weight[c];
-        const float od = j == 0 ? specular_density : diffuse_density;
-        const float est0 = mis_estimate(0.0f, sw, sd, ow, od, vis);
-        const float est1 = mis_estimate(integrand1, sw, sd, ow, od, vis);
-        const float est_delta = est1 - est0;
-        float a_term, b_term;
+        const f32 integrand1 = d_sh.z * r.value[c];
+        const f32 sw = j == 0 ? diffuse_weight[c] : specular_weight3[c];
+        const f32 sd = j == 0 ? diffuse_density : specular_density;
+        const f32 ow = j == 0 ? specular_weight3[c] : diffuse_weight[c];
+        const f32 od = j == 0 ? specular_density : diffuse_density;
+        const f32 est0 = mis_estimate(0.0f, sw, sd, ow, od, vis);
+        const f32 est1 = mis_estimate(integrand1, sw, sd, ow, od, vis);
+        const f32 est_delta = est1 - est0;
+        f32 a_term, b_term;
         if (j == 0) {
           a_term = specular_ok ? est0 : 0.0f;
           b_term = specular_ok ? est_delta : (1.0f / dd_safe) * integrand1;
@@ -1954,19 +1992,20 @@ K_INLINE void shade_light_mis(const Pixel& px, const float* ls,
       emit(2 * s + j, b, d_world, r.t_max);
     }
   }
+  vrt::set_op_stage(vrt::kStagePixel);
 #pragma unroll
   for (int c = 0; c < 3; ++c) base_out[c] = scale * lbase[c];
 }
 
-// One light in the compile-time strategy.
+// One light in the compile-time strategy; its noise pairs start at j0.
 template <int NV, typename Emit>
-K_INLINE void shade_light(const Pixel& px, const float* ls, const float* nz,
-                          size_t P, int n, float vis, float (&base_out)[3],
-                          Emit&& emit) {
+K_INLINE void shade_light(const Pixel& px, const float* ls,
+                          const Noise& noise, int j0, int n, f32 vis,
+                          f32 (&base_out)[3], Emit&& emit) {
   if constexpr (kMis) {
-    shade_light_mis<NV>(px, ls, nz, P, n, vis, base_out, emit);
+    shade_light_mis<NV>(px, ls, noise, j0, n, vis, base_out, emit);
   } else {
-    shade_light_diffuse<NV>(px, ls, nz, P, n, emit);
+    shade_light_diffuse<NV>(px, ls, noise, j0, n, emit);
 #pragma unroll
     for (int c = 0; c < 3; ++c) base_out[c] = 0.0f;
   }

@@ -1,15 +1,19 @@
-"""The frame's noise image (reference: noise_utility.glsl:21-117).
+"""The frame's noise (reference: noise_utility.glsl:21-117).
 
 Counterpart of vulkan_renderer_tpu/ops/noise.py::get_noise_image. The
 reference scrambles per FRAME, not per pixel: a fetch reads
 table[layer, (y + off_y) & mask_y, (x + off_x) & mask_x] with offsets and
 layer shared by every pixel. Those three uint32 scalars per fetch are
-computed on the host in numpy (torch lacks uint32 shifts); the image is
-then one wrapped gather of a table layer per fetch, bit-identical to the
-JAX package's get_noise_pairs.
+computed on the host in numpy (torch lacks uint32 shifts). Kernels K4 and
+K5 read the table themselves at each pixel (FrameNoise, csrc/
+techniques.cuh Noise); the plain versions build the noise image, one
+wrapped gather of a table layer per fetch, bit-identical to the JAX
+package's get_noise_pairs.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -60,3 +64,67 @@ def get_noise_image(table: torch.Tensor, width: int, height: int,
             :, ((ys + off_y) & (th - 1))[:, None],
             ((xs + off_x) & (tw - 1))[None, :]]
     return planes.reshape(2 * pair_count, height * width)
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameNoise:
+    """One frame's noise as kernels K4 and K5 read it.
+
+    table: (layers, H, W, 4) int32 UNORM16 values, H and W powers of two;
+    fetches: (F, 3) int32 on the table's device, fetch i's (off_x mod W,
+    off_y mod H, layer), so that pair j of a pixel is channels 2 (j & 1)
+    and 2 (j & 1) + 1 of fetch j >> 1; width, height: the frame;
+    pair_count, texture_index_mask, random_numbers: get_noise_image's
+    arguments, from which image() builds the plain versions' noise;
+    pixels: (P,) int32, the frame pixel (row-major index) of each plane
+    column, or None for the whole frame in row-major order."""
+    table: torch.Tensor
+    fetches: torch.Tensor
+    width: int
+    height: int
+    pair_count: int
+    texture_index_mask: int
+    random_numbers: tuple
+    pixels: torch.Tensor | None = None
+
+    @property
+    def column_count(self) -> int:
+        return self.width * self.height if self.pixels is None \
+            else self.pixels.shape[0]
+
+    def image(self) -> torch.Tensor:
+        """(2 pair_count, P) float32: get_noise_image at the columns'
+        pixels."""
+        planes = get_noise_image(self.table, self.width, self.height,
+                                 self.pair_count, self.texture_index_mask,
+                                 self.random_numbers)
+        return planes if self.pixels is None \
+            else planes[:, self.pixels.long()]
+
+    def subset(self, columns: torch.Tensor) -> "FrameNoise":
+        """The noise of plane columns `columns` (int indices)."""
+        pixels = columns if self.pixels is None else self.pixels[columns]
+        return dataclasses.replace(
+            self, pixels=pixels.to(device=self.table.device,
+                                   dtype=torch.int32).contiguous())
+
+
+def frame_noise(table: torch.Tensor, width: int, height: int,
+                pair_count: int, texture_index_mask: int,
+                noise_random_numbers) -> FrameNoise:
+    """The FrameNoise of a width x height frame reading pair_count pairs;
+    the fetch scalars are fetch_scalars', the offsets reduced modulo the
+    table's sides ((y + off_y) & (H - 1) is unchanged by that)."""
+    th, tw = table.shape[1], table.shape[2]
+    rows = []
+    for i in range((pair_count + 1) // 2):
+        off_x, off_y, layer = fetch_scalars(i, texture_index_mask,
+                                            noise_random_numbers)
+        rows.append((off_x & (tw - 1), off_y & (th - 1), layer))
+    fetches = torch.tensor(rows, dtype=torch.int32).reshape(-1, 3)
+    return FrameNoise(
+        table=table, fetches=fetches.to(table.device), width=width,
+        height=height, pair_count=pair_count,
+        texture_index_mask=texture_index_mask,
+        random_numbers=tuple(int(v) for v in
+                             np.asarray(noise_random_numbers, np.uint32)))

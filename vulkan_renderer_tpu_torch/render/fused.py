@@ -15,12 +15,13 @@ K5 replaces fused_light_shading_resolved (one_group.kernel, pallas_call
 :816): the same shading with visibility resolved to 1 (no shadow rays),
 accumulated into one RGB value per pixel.
 
-K4 inputs are the (NIN, P) planes of BASE_PLANES followed by the noise
-pairs, and the (L, 58) per-light records of pack_light_scalars; its output
-is (3 + 7 S, P): base RGB, then per ray slot b RGB, direction xyz, t_max
-(S = light_count * rays_per_light). K5 takes the 62 base planes, the noise
-light-major (L, 2 rays_per_light, P) and the light records, and returns
-(P, 3).
+Both take the (62, P) planes of BASE_PLANES, the frame's noise as an
+ops/noise.py FrameNoise (the kernels read the noise table at each pixel;
+light i's pair q is the frame's pair i * rays_per_light + q) and the
+(L, 58) per-light records of pack_light_scalars. K4 returns (3 + 7 S, P):
+base RGB, then per ray slot b RGB, direction xyz, t_max (S = light_count *
+rays_per_light); K5 returns (P, 3). The plain versions take the same
+arguments and build the noise image with get_noise_image.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ..core.settings import (ErrorDisplay, MisHeuristic,
 from ..kernels import build
 from ..ops import soa
 from ..ops import soa_techniques as st
+from ..ops.noise import FrameNoise
 from ..ops.soa import vadd, vdot, vscale, vwh
 from ..ops.soa_arvo_psa import prepare_arvo_psa_soa, sample_arvo_psa_soa
 
@@ -163,9 +165,9 @@ def pack_light_scalars(lights, light_count: int) -> torch.Tensor:
     return torch.stack(rows).to(torch.float32).contiguous()
 
 
-def pack_planes(data, ltc, hit, noise_planes) -> torch.Tensor:
-    """ShadingData / LtcCoefficients with (P, ...) fields, hit (P,) bool,
-    noise_planes (2 PAIRS, P) (ops/noise.py) -> (NIN, P) float32 planes."""
+def pack_planes(data, ltc, hit) -> torch.Tensor:
+    """ShadingData / LtcCoefficients with (P, ...) fields, hit (P,) bool ->
+    the (62, P) float32 planes of BASE_PLANES."""
     cols = [data.position.T, data.normal.T, data.outgoing.T,
             data.lambert_outgoing[None], data.diffuse_albedo.T,
             data.fresnel_0.T, data.roughness[None],
@@ -174,8 +176,7 @@ def pack_planes(data, ltc, hit, noise_planes) -> torch.Tensor:
             ltc.world_to_shading_space.reshape(-1, 12).T,
             ltc.world_to_cosine_space.reshape(-1, 12).T,
             ltc.shading_to_cosine_space.reshape(-1, 9).T,
-            ltc.cosine_to_shading_space.reshape(-1, 9).T,
-            noise_planes]
+            ltc.cosine_to_shading_space.reshape(-1, 9).T]
     return torch.cat(cols, dim=0).to(torch.float32).contiguous()
 
 
@@ -509,24 +510,29 @@ def _shade_one_light(px, light, nv: int, settings: RenderSettings, noise):
     return _shade_one_light_psa(px, light, nv, settings, noise)
 
 
-def fused_light_shading_plain(planes: torch.Tensor,
+def _light_noise(image: torch.Tensor, light: int, ppl: int):
+    """Light `light`'s (r0, r1) plane pairs of the (2 pairs, P) noise
+    image."""
+    return [(image[2 * (light * ppl + q)], image[2 * (light * ppl + q) + 1])
+            for q in range(ppl)]
+
+
+def fused_light_shading_plain(planes: torch.Tensor, noise: FrameNoise,
                               light_scalars: torch.Tensor, static,
                               settings: RenderSettings) -> torch.Tensor:
-    """Plain version of K4: (NIN, P) planes -> (3 + 7 S, P)."""
+    """Plain version of K4: (62, P) planes -> (3 + 7 S, P)."""
     check_supported(static, settings)
     ppl = rays_per_light(settings)
     px = _unpack_px(planes)
-    n_base = len(BASE_PLANES)
+    image = noise.image()
     zero = torch.zeros_like(px["roughness"])
     base = (zero, zero, zero)
     outs = []
     for i in range(static.light_count):
         nv = static.light_vertex_counts[i]
-        noise = [(planes[n_base + 2 * (i * ppl + q)],
-                  planes[n_base + 2 * (i * ppl + q) + 1])
-                 for q in range(ppl)]
         lbase, slots = _shade_one_light(
-            px, _light_record(light_scalars, i, nv), nv, settings, noise)
+            px, _light_record(light_scalars, i, nv), nv, settings,
+            _light_noise(image, i, ppl))
         base = vadd(base, lbase)
         for (b, d, t) in slots:
             outs.extend([b[0], b[1], b[2], d[0], d[1], d[2], t])
@@ -534,27 +540,27 @@ def fused_light_shading_plain(planes: torch.Tensor,
 
 
 def fused_light_shading_resolved_plain(planes: torch.Tensor,
-                                       noise: torch.Tensor,
+                                       noise: FrameNoise,
                                        light_scalars: torch.Tensor, static,
                                        settings: RenderSettings
                                        ) -> torch.Tensor:
-    """Plain version of K5: (62, P) base planes, (L, 2 ppl, P) noise ->
-    (P, 3) = base + sum over lights and slots of b. Sums go per light
-    base + (0 + b_0 + b_1 + ...), lights in ascending vertex-count groups,
-    groups added in turn: the order K5 uses."""
+    """Plain version of K5: (62, P) base planes -> (P, 3) = base + sum over
+    lights and slots of b. Sums go per light base + (0 + b_0 + b_1 + ...),
+    lights in ascending vertex-count groups, groups added in turn: the
+    order K5 uses."""
     check_supported(static, settings)
     ppl = rays_per_light(settings)
     px = _unpack_px(planes)
+    image = noise.image()
     zero = torch.zeros_like(px["roughness"])
     zero3 = (zero, zero, zero)
     out = None
     for nv, ids in vertex_groups(static):
         group = zero3
         for i in ids:
-            pairs = [(noise[i, 2 * q], noise[i, 2 * q + 1])
-                     for q in range(ppl)]
             lbase, slots = _shade_one_light(
-                px, _light_record(light_scalars, i, nv), nv, settings, pairs)
+                px, _light_record(light_scalars, i, nv), nv, settings,
+                _light_noise(image, i, ppl))
             bsum = zero3
             for (b, _, _) in slots:
                 bsum = vadd(bsum, b)
@@ -567,100 +573,168 @@ def fused_light_shading_resolved_plain(planes: torch.Tensor,
 # Kernels K4 and K5
 # ---------------------------------------------------------------------------
 
-_K4_ARGTYPES = [ctypes.c_void_p, ctypes.c_int,    # planes, P
-                ctypes.c_void_p, ctypes.c_void_p,  # lights, light ids
-                ctypes.c_int,                     # lights in the group
-                ctypes.c_int, ctypes.c_int,       # vertex count, sample count
-                ctypes.c_int,                     # first group (writes)
-                ctypes.c_float,                   # mis visibility estimate
-                ctypes.c_void_p, ctypes.c_void_p]  # out, stream
-_K5_ARGTYPES = _K4_ARGTYPES[:2] + [ctypes.c_void_p] + _K4_ARGTYPES[2:]
+# k4_fused_shading and k5_fused_resolved take the same arguments.
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int,    # planes, P
+             ctypes.c_void_p, ctypes.c_int,    # noise table, its height
+             ctypes.c_int, ctypes.c_void_p,    # its width, fetches
+             ctypes.c_void_p, ctypes.c_int,    # pixels or null, frame width
+             ctypes.c_void_p, ctypes.c_void_p,  # lights, light ids
+             ctypes.c_int,                     # lights in the group
+             ctypes.c_int, ctypes.c_int,       # vertex count, sample count
+             ctypes.c_int,                     # first group (writes)
+             ctypes.c_float,                   # mis visibility estimate
+             ctypes.c_void_p, ctypes.c_void_p,  # out, op counts or null
+             ctypes.c_void_p]                  # stream
+# The counting build's counters (csrc/count_ops.cuh): stage-major, kinds
+# within a stage.
+OP_KINDS = ("add", "mul", "fma", "div", "sqrt", "transcendental", "compare")
+OP_STAGES = ("pixel", "prepare", "sample")
+_KERNELS = {"K4": ("fused_shading", "k4_fused_shading"),
+            "K5": ("fused_resolved", "k5_fused_resolved")}
+# Threads per block and the blocks per SM that __launch_bounds__ asks the
+# register allocator for, per kernel: chosen by measurement over a few
+# candidates (tools/tune_shading.py, PERF.md section 6).
+LAUNCH_BOUNDS = {"K4": {"VR_THREADS": 128, "VR_MIN_BLOCKS": 1},
+                 "K5": {"VR_THREADS": 128, "VR_MIN_BLOCKS": 1}}
 
 
-def _library(name: str, entry: str, argtypes, static, settings):
-    return build.load_library(
-        name, {entry: argtypes},
-        defines={**kernel_defines(settings),
-                 "VR_NV_MASK": vertex_count_mask(static)})
+def library_defines(kernel: str, static, settings: RenderSettings) -> dict:
+    """The defines of K4's or K5's (`kernel`) library for this light layout
+    and these settings."""
+    return {**kernel_defines(settings), **LAUNCH_BOUNDS[kernel],
+            "VR_NV_MASK": vertex_count_mask(static)}
 
 
-def fused_light_shading(planes: torch.Tensor, light_scalars: torch.Tensor,
-                        static, settings: RenderSettings) -> torch.Tensor:
-    """(NIN, P) planes, (L, 58) light records -> (3 + 7 S, P).
-
-    CPU tensors take fused_light_shading_plain; CUDA tensors launch K4 (one
-    launch per distinct light vertex count)."""
-    if planes.device.type == "cpu":
-        return fused_light_shading_plain(planes, light_scalars, static,
-                                         settings)
-    build.require_cuda(planes, light_scalars)
+def _check_inputs(planes, noise: FrameNoise, light_scalars, static,
+                  settings) -> int:
+    build.require_cuda(planes, noise.table, noise.fetches, light_scalars)
     check_supported(static, settings)
-    ppl = rays_per_light(settings)
-    nin = len(BASE_PLANES) + 2 * ppl * static.light_count
     p = planes.shape[1]
-    build.check_tensor(planes, "planes", torch.float32, (nin, p))
+    build.check_tensor(planes, "planes", torch.float32,
+                       (len(BASE_PLANES), p))
     build.check_tensor(light_scalars, "light_scalars", torch.float32,
                        (static.light_count, LIGHT_SCALARS))
-    nout = 3 + 7 * ppl * static.light_count
-    if p == 0:
-        return planes.new_zeros((nout, 0))
-    lib = _library("fused_shading", "k4_fused_shading", _K4_ARGTYPES, static,
-                   settings)
-    out = torch.empty((nout, p), dtype=torch.float32, device=planes.device)
+    table = noise.table
+    if table.dtype != torch.int32 or table.dim() != 4 \
+            or table.shape[3] != 4 or not table.is_contiguous():
+        raise ValueError("noise table: expected a contiguous int32 "
+                         f"(layers, H, W, 4) tensor, got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    for side in table.shape[1:3]:
+        if side & (side - 1):
+            raise ValueError(f"noise table sides must be powers of two, "
+                             f"got {tuple(table.shape[1:3])}")
+    pairs = rays_per_light(settings) * static.light_count
+    if noise.fetches.shape[0] < (pairs + 1) // 2:
+        raise ValueError(f"{noise.fetches.shape[0]} noise fetches for "
+                         f"{pairs} pairs")
+    build.check_tensor(noise.fetches, "fetches", torch.int32,
+                       (noise.fetches.shape[0], 3))
+    if noise.column_count != p:
+        raise ValueError(f"the noise covers {noise.column_count} pixels, "
+                         f"the planes {p}")
+    if noise.pixels is not None:
+        build.require_cuda(planes, noise.pixels)
+        build.check_tensor(noise.pixels, "pixels", torch.int32, (p,))
+    return p
+
+
+def launch_kernel(kernel: str, lib, planes, noise: FrameNoise,
+                  light_scalars, static, settings, out,
+                  op_counts=None) -> None:
+    """Launch K4 or K5 (`kernel`) from library `lib` over every vertex-count
+    group: the first launch writes `out`, the others add to it."""
+    entry = getattr(lib, _KERNELS[kernel][1])
+    table = noise.table
     for first, (nv, ids) in enumerate(vertex_groups(static)):
         ids_t = torch.tensor(ids, dtype=torch.int32, device=planes.device)
         with torch.cuda.device(planes.device):
-            err = lib.k4_fused_shading(
-                build.ptr(planes), p, build.ptr(light_scalars),
-                build.ptr(ids_t), len(ids), nv, settings.sample_count,
-                int(first == 0), float(settings.mis_visibility_estimate),
-                build.ptr(out), build.stream(planes.device))
-        build.check_launch(err, "k4_fused_shading")
-        fused_light_shading.launches += 1
+            err = entry(
+                build.ptr(planes), planes.shape[1], build.ptr(table),
+                table.shape[1], table.shape[2], build.ptr(noise.fetches),
+                None if noise.pixels is None else build.ptr(noise.pixels),
+                noise.width, build.ptr(light_scalars), build.ptr(ids_t),
+                len(ids), nv, settings.sample_count, int(first == 0),
+                float(settings.mis_visibility_estimate), build.ptr(out),
+                None if op_counts is None else build.ptr(op_counts),
+                build.stream(planes.device))
+        build.check_launch(err, _KERNELS[kernel][1])
+
+
+def load_kernel(kernel: str, static, settings, extra_defines=None):
+    """K4's or K5's library for this light layout and settings; extra
+    defines select a measurement build (VR_COUNT_OPS, VR_THREADS)."""
+    name, entry = _KERNELS[kernel]
+    return build.load_library(
+        name, {entry: _ARGTYPES},
+        defines={**library_defines(kernel, static, settings),
+                 **(extra_defines or {})})
+
+
+def _op_count_defines(planes, op_counts):
+    """The counting build's defines, or none without op_counts (an int64
+    tensor of len(OP_STAGES) * len(OP_KINDS) on the planes' device)."""
+    if op_counts is None:
+        return None
+    build.require_cuda(planes, op_counts)
+    build.check_tensor(op_counts, "op_counts", torch.int64,
+                       (len(OP_STAGES) * len(OP_KINDS),))
+    return {"VR_COUNT_OPS": 1}
+
+
+def fused_light_shading(planes: torch.Tensor, noise: FrameNoise,
+                        light_scalars: torch.Tensor, static,
+                        settings: RenderSettings,
+                        op_counts=None) -> torch.Tensor:
+    """(62, P) planes, the frame's noise, (L, 58) light records ->
+    (3 + 7 S, P).
+
+    CPU tensors take fused_light_shading_plain; CUDA tensors launch K4 (one
+    launch per distinct light vertex count). op_counts: the counting
+    build adds the float operations it executes into it (a measurement
+    build; see _op_count_defines)."""
+    if planes.device.type == "cpu":
+        return fused_light_shading_plain(planes, noise, light_scalars, static,
+                                         settings)
+    p = _check_inputs(planes, noise, light_scalars, static, settings)
+    nout = 3 + 7 * rays_per_light(settings) * static.light_count
+    if p == 0:
+        return planes.new_zeros((nout, 0))
+    lib = load_kernel("K4", static, settings,
+                      _op_count_defines(planes, op_counts))
+    out = torch.empty((nout, p), dtype=torch.float32, device=planes.device)
+    launch_kernel("K4", lib, planes, noise, light_scalars, static, settings,
+                  out, op_counts)
+    fused_light_shading.launches += len(vertex_groups(static))
     return out
 
 
 fused_light_shading.launches = 0
 
 
-def fused_light_shading_resolved(planes: torch.Tensor, noise: torch.Tensor,
+def fused_light_shading_resolved(planes: torch.Tensor, noise: FrameNoise,
                                  light_scalars: torch.Tensor, static,
-                                 settings: RenderSettings) -> torch.Tensor:
-    """(62, P) base planes, (L, 2 ppl, P) light-major noise, (L, 58) light
-    records -> (P, 3) color with visibility 1.
+                                 settings: RenderSettings,
+                                 op_counts=None) -> torch.Tensor:
+    """(62, P) base planes, the frame's noise, (L, 58) light records ->
+    (P, 3) color with visibility 1.
 
     CPU tensors take fused_light_shading_resolved_plain; CUDA tensors
-    launch K5 (one launch per distinct light vertex count)."""
+    launch K5 (one launch per distinct light vertex count). op_counts: as
+    for fused_light_shading."""
     if planes.device.type == "cpu":
         return fused_light_shading_resolved_plain(planes, noise,
                                                   light_scalars, static,
                                                   settings)
-    build.require_cuda(planes, noise, light_scalars)
-    check_supported(static, settings)
-    ppl = rays_per_light(settings)
-    p = planes.shape[1]
-    build.check_tensor(planes, "planes", torch.float32,
-                       (len(BASE_PLANES), p))
-    build.check_tensor(noise, "noise", torch.float32,
-                       (static.light_count, 2 * ppl, p))
-    build.check_tensor(light_scalars, "light_scalars", torch.float32,
-                       (static.light_count, LIGHT_SCALARS))
+    p = _check_inputs(planes, noise, light_scalars, static, settings)
     if p == 0:
         return planes.new_zeros((0, 3))
-    lib = _library("fused_resolved", "k5_fused_resolved", _K5_ARGTYPES,
-                   static, settings)
+    lib = load_kernel("K5", static, settings,
+                      _op_count_defines(planes, op_counts))
     out = torch.empty((3, p), dtype=torch.float32, device=planes.device)
-    for first, (nv, ids) in enumerate(vertex_groups(static)):
-        ids_t = torch.tensor(ids, dtype=torch.int32, device=planes.device)
-        with torch.cuda.device(planes.device):
-            err = lib.k5_fused_resolved(
-                build.ptr(planes), p, build.ptr(noise),
-                build.ptr(light_scalars), build.ptr(ids_t), len(ids), nv,
-                settings.sample_count, int(first == 0),
-                float(settings.mis_visibility_estimate), build.ptr(out),
-                build.stream(planes.device))
-        build.check_launch(err, "k5_fused_resolved")
-        fused_light_shading_resolved.launches += 1
+    launch_kernel("K5", lib, planes, noise, light_scalars, static, settings,
+                  out, op_counts)
+    fused_light_shading_resolved.launches += len(vertex_groups(static))
     return out.T
 
 

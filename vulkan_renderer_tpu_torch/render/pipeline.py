@@ -5,7 +5,9 @@ on its accelerator path (Pallas tracers + fused shader), stage by stage:
 
 1. camera rays, pixels row-major (:372-373);
 2. primary closest hit (K2) and attribute fetch (K3);
-3. the noise image (ops/noise.py);
+3. the frame's noise fetches (ops/noise.py frame_noise: three scalars per
+   fetch; the shading kernels read the noise table themselves, so no
+   noise image is built);
 4. the per-pixel preamble: texture fetch and material decode, light
    display, LTC coefficients (:78-120);
 5. fused light shading: with shadow rays, K4 exports every ray slot;
@@ -31,7 +33,7 @@ import torch
 from ..core.settings import RenderSettings
 from ..ops.intersect import polygonal_light_ray_intersection
 from ..ops.ltc import get_ltc_coefficients
-from ..ops.noise import get_noise_image
+from ..ops.noise import frame_noise
 from ..ops.srgb import linear_to_srgb
 from ..scene.camera import (FirstPersonCamera,
                             get_pixel_to_ray_direction_world_space)
@@ -149,28 +151,24 @@ def render_frame_constants(scene, static: SceneStatic,
     t_safe = torch.where(hit & torch.isfinite(t_hit), t_hit, 0.0)
     position = cam + t_safe[:, None] * ray_dirs
 
-    ppl = pairs_per_light(settings)
-    noise_planes = get_noise_image(
-        scene.noise_table, width, height, max(ppl * static.light_count, 1),
+    noise = frame_noise(
+        scene.noise_table, width, height,
+        max(pairs_per_light(settings) * static.light_count, 1),
         scene.noise_texture_index_mask, constants.noise_random_numbers)
 
     data, ltc, base0 = pixel_preamble(scene, static, settings, constants,
                                       hit, ray_dirs, attrs, position)
     light_scalars = pack_light_scalars(scene.lights, static.light_count)
+    planes = pack_planes(data, ltc, hit)
     if not settings.trace_shadow_rays:
         # No shadow rays: every slot's visibility is 1, so K5 accumulates
         # the color in registers and no slot plane is stored (:503-514).
-        # The noise planes viewed light-major: (L, 2 ppl, P), no copy.
-        noise_lm = noise_planes[:2 * ppl * static.light_count].view(
-            static.light_count, 2 * ppl, p)
-        colors = base0 + kernels.fused_resolved(
-            pack_planes(data, ltc, hit, noise_planes[:0]), noise_lm,
-            light_scalars, static, settings)
+        colors = base0 + kernels.fused_resolved(planes, noise, light_scalars,
+                                                static, settings)
         return _resolve(colors, constants, settings, width, height)
 
-    out = kernels.fused_shading(
-        pack_planes(data, ltc, hit, noise_planes), light_scalars, static,
-        settings)
+    out = kernels.fused_shading(planes, noise, light_scalars, static,
+                                settings)
     slots = static.light_count * rays_per_light(settings)
     rest = out[3:].reshape(slots, 7, p)     # slot-major: (S, 7, P)
     b = rest[:, 0:3]                        # (S, 3, P)

@@ -6,20 +6,29 @@ buildings, detail 10), lit by four quad street lights, with PSA +
 DIFFUSE_SPECULAR_MIS, clamped-optimal MIS and shadows on. `chip_smoke.py`
 builds its main-path run from the functions below.
 
+The two timing-sweep cells that chip_smoke.py runs (SWEEP_CELLS) are
+defined here too.
+
 Run as a script, it times the port found under --root (default: the
 checkout this file is in), so that two trees can be compared in one run
 on one card:
 
     python3 vulkan_renderer_tpu_torch/tools/bench_frame.py \
-        [--root DIR] [--data DIR]
+        [--root DIR] [--data DIR] [--sweep]
 
 It builds the bench frame's kernel libraries (K1-K4), writes or reuses
 the bench city under --data, and prints one JSON line: the root, the
 card (nvidia-smi name and power limit), the median and all ms/frame of
 FRAMES frames after WARMUP warm-up frames (host clock around each frame
-and a synchronize), and each kernel's ms at the frame's shapes (CUDA
-events, warm L2). It uses only the entry points that every tree of the
-port has had since the bench frame was first ported, and imports no JAX.
+and a synchronize), each kernel's ms at the frame's shapes (CUDA events,
+warm L2), the share of hit pixels K4 shades, and the register report of
+every library built. With --sweep it adds, for PSA and Arvo PSA in both
+sweep cells: the harness's median ms/frame (SWEEP_WARMUP warm-up and
+SWEEP_MEASURED measured frames, pipelined), K5's ms on the frame's
+inputs, the device memory allocated before a frame and at its peak
+(torch.cuda.max_memory_allocated), and the hit share. It uses only the
+entry points that every tree of the port has had since the timing sweep
+was first ported, and imports no JAX.
 """
 
 import argparse
@@ -33,6 +42,13 @@ import time
 WIDTH, HEIGHT = 960, 540
 CITY = "city_300x10"
 WARMUP, FRAMES = 3, 15
+# Timing-sweep cells (experiment_list.c:364-409): (name, index of the
+# cell's first technique in the harness's list), at 1920x1080.
+SWEEP_CELLS = (("central_4_128", 102), ("decentral_5_1x128spp", 193))
+SWEEP_WIDTH, SWEEP_HEIGHT = 1920, 1080
+SWEEP_WARMUP, SWEEP_MEASURED = 3, 7
+# BASE_PLANES row of the hit mask (render/fused.py).
+HIT_PLANE = 17
 
 
 def cuda_ms(torch, fn, reps):
@@ -181,6 +197,74 @@ def kernel_ms(torch, captured):
     }
 
 
+def sweep_measurements(torch, data_dir, techniques):
+    """For each sweep cell and technique (PolygonSamplingTechnique names):
+    the harness's median ms/frame, K5's ms on the frame's inputs, the
+    device memory allocated before one frame and at its peak (GiB), and
+    the hit share."""
+    from vulkan_renderer_tpu_torch.assets.noise import \
+        advance_noise_random_numbers
+    from vulkan_renderer_tpu_torch.experiments import harness, setups
+    from vulkan_renderer_tpu_torch.render import pipeline
+    experiments = harness.create_experiment_list()
+    rows = {}
+    for cell, first in SWEEP_CELLS:
+        for t, exp in enumerate(experiments[first:first + 13]):
+            tech = exp.settings.polygon_sampling_technique
+            if tech.name not in techniques:
+                continue
+            exp = dataclasses.replace(exp, screenshot_path=os.path.join(
+                data_dir, "bench_sweep",
+                os.path.basename(exp.screenshot_path)))
+            app = setups.build_default_application(exp, data_dir,
+                                                   device="cuda")
+            _, randoms = advance_noise_random_numbers(
+                app.noise_seed, app.settings.animate_noise)
+            constants = pipeline.make_frame_constants(
+                app.scene_spec.camera, exp.width, exp.height, app.settings,
+                randoms, torch.device("cuda"))
+            captured = {}
+
+            def record(*args):
+                captured["args"] = args
+                return pipeline.KERNELS.fused_resolved(*args)
+
+            kernels = dataclasses.replace(pipeline.KERNELS,
+                                          fused_resolved=record)
+
+            def frame():
+                with torch.no_grad():
+                    return pipeline.render_frame_constants(
+                        app.scene, app.static, app.settings, constants,
+                        exp.width, exp.height, kernels)
+            frame()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            frame()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            args = captured["args"]
+            k5 = cuda_ms(torch, lambda: pipeline.KERNELS.fused_resolved(
+                *args), 3)
+            hit = float(args[0][HIT_PLANE].mean())
+            del app, captured, args, kernels
+            torch.cuda.empty_cache()
+            result = harness.run_experiments(
+                [exp], min_warmup_seconds=0.0,
+                min_warmup_frames=SWEEP_WARMUP,
+                measure_frames=SWEEP_MEASURED, data_directory=data_dir,
+                device="cuda")[0]
+            rows[f"{cell}/{tech.value}"] = {
+                "frame_ms": round(result.frame_time_ms, 4),
+                "k5_ms": round(k5, 4),
+                "allocated_gib": round(before / 2**30, 4),
+                "peak_gib": round(peak / 2**30, 4),
+                "hit_share": round(hit, 6)}
+            torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -189,6 +273,9 @@ def main(argv=None) -> int:
     parser.add_argument("--data", default=None,
                         help="directory of the bench city (default: "
                         "ROOT/data)")
+    parser.add_argument("--sweep", action="store_true",
+                        help="also time PSA and Arvo PSA in both sweep "
+                        "cells")
     args = parser.parse_args(argv)
     import numpy as np
     import torch
@@ -206,13 +293,25 @@ def main(argv=None) -> int:
     scene, static = load_city(data_dir, torch.device("cuda"))
     captured = capture_inputs(scene, static, s)
     times = frame_ms(torch, scene, static, s)
-    print(json.dumps({
+    line = {
         "root": root, "card": card, "build_wall_s": round(wall, 2),
         "frame_ms_median": round(float(np.median(times)), 4),
         "frame_ms": [round(t, 4) for t in times],
         "kernel_ms": {n: round(v, 4)
-                      for n, v in kernel_ms(torch, captured).items()}}),
-        flush=True)
+                      for n, v in kernel_ms(torch, captured).items()},
+        "k4_hit_share": round(float(
+            captured["fused_shading"][0][HIT_PLANE].mean()), 6)}
+    if args.sweep:
+        del scene, captured
+        torch.cuda.empty_cache()
+        line["sweep"] = sweep_measurements(
+            torch, data_dir, ("PROJECTED_SOLID_ANGLE",
+                              "PROJECTED_SOLID_ANGLE_ARVO"))
+    line["ptxas"] = {tag: build.register_report(report)
+                     for tag, (_, report) in sorted(
+                         build.BUILD_REPORTS.items())
+                     if tag.startswith("fused")}
+    print(json.dumps(line), flush=True)
     return 0
 
 
