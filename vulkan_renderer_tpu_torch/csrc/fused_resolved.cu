@@ -31,8 +31,13 @@
 
 #include "techniques.cuh"
 
+// Block size and the blocks per SM that __launch_bounds__ asks the
+// register allocator for (PERF.md: chosen by measurement).
 #ifndef VR_THREADS
 #define VR_THREADS 128
+#endif
+#ifndef VR_MIN_BLOCKS
+#define VR_MIN_BLOCKS 1
 #endif
 
 namespace {
@@ -40,7 +45,7 @@ namespace {
 using namespace shade;
 
 template <int NV>
-__global__ void __launch_bounds__(VR_THREADS)
+__global__ void __launch_bounds__(VR_THREADS, VR_MIN_BLOCKS)
 fused_resolved_kernel(const float* __restrict__ planes, int pixel_count,
                       Noise noise, const int* __restrict__ pixels,
                       int frame_width, const float* __restrict__ lights,
@@ -48,31 +53,40 @@ fused_resolved_kernel(const float* __restrict__ planes, int pixel_count,
                       int sample_count, bool first_group, float vis,
                       float* __restrict__ out,
                       unsigned long long* __restrict__ op_counts) {
+  __shared__ LightChunk chunk;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= pixel_count) return;
+  // Threads past the last pixel stay for the block's light staging.
+  const bool live = p < pixel_count;
+  const int q = live ? p : 0;
   vrt::begin_op_count();
   const size_t P = (size_t)pixel_count;
-  const Pixel px = load_pixel(planes, P, p);
-  const int pixel = pixels != nullptr ? pixels[p] : p;
+  const Pixel px = load_pixel(planes, P, q);
+  const int pixel = pixels != nullptr ? pixels[q] : q;
   noise.x = pixel % frame_width;
   noise.y = pixel / frame_width;
   const int ppl = rays_per_light(sample_count);
 
   f32 group[3] = {0.0f, 0.0f, 0.0f};
-  for (int li = 0; li < group_size; ++li) {
-    const int light = light_ids[li];
-    const float* ls = lights + (size_t)light * kLightScalars;
-    f32 lbase[3];
-    f32 bsum[3] = {0.0f, 0.0f, 0.0f};
-    shade_light<NV>(px, ls, noise, light * ppl, sample_count, vis, lbase,
-                    [&](int, const f32* b, V3, f32) {
-                      bsum[0] = bsum[0] + b[0];
-                      bsum[1] = bsum[1] + b[1];
-                      bsum[2] = bsum[2] + b[2];
-                    });
+  for (int start = 0; start < group_size; start += kLightChunk) {
+    const int count = min(kLightChunk, group_size - start);
+    stage_lights(chunk, lights, light_ids, start, count);
+    if (!live) continue;
+    for (int li = 0; li < count; ++li) {
+      const int light = chunk.ids[li];
+      const float* ls = chunk.records + li * kLightScalars;
+      f32 lbase[3];
+      f32 bsum[3] = {0.0f, 0.0f, 0.0f};
+      shade_light<NV>(px, ls, noise, light * ppl, sample_count, vis, lbase,
+                      [&](int, const f32* b, V3, f32) {
+                        bsum[0] = bsum[0] + b[0];
+                        bsum[1] = bsum[1] + b[1];
+                        bsum[2] = bsum[2] + b[2];
+                      });
 #pragma unroll
-    for (int c = 0; c < 3; ++c) group[c] = group[c] + (lbase[c] + bsum[c]);
+      for (int c = 0; c < 3; ++c) group[c] = group[c] + (lbase[c] + bsum[c]);
+    }
   }
+  if (!live) return;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float* o = out + (size_t)c * P + p;

@@ -38,8 +38,13 @@
 
 #include "techniques.cuh"
 
+// Block size and the blocks per SM that __launch_bounds__ asks the
+// register allocator for (PERF.md: chosen by measurement).
 #ifndef VR_THREADS
 #define VR_THREADS 128
+#endif
+#ifndef VR_MIN_BLOCKS
+#define VR_MIN_BLOCKS 1
 #endif
 
 namespace {
@@ -47,7 +52,7 @@ namespace {
 using namespace shade;
 
 template <int NV>
-__global__ void __launch_bounds__(VR_THREADS)
+__global__ void __launch_bounds__(VR_THREADS, VR_MIN_BLOCKS)
 fused_shading_kernel(const float* __restrict__ planes, int pixel_count,
                      Noise noise, const int* __restrict__ pixels,
                      int frame_width, const float* __restrict__ lights,
@@ -55,35 +60,44 @@ fused_shading_kernel(const float* __restrict__ planes, int pixel_count,
                      int sample_count, bool first_group, float vis,
                      float* __restrict__ out,
                      unsigned long long* __restrict__ op_counts) {
+  __shared__ LightChunk chunk;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= pixel_count) return;
+  // Threads past the last pixel stay for the block's light staging.
+  const bool live = p < pixel_count;
+  const int q = live ? p : 0;
   vrt::begin_op_count();
   const size_t P = (size_t)pixel_count;
-  const Pixel px = load_pixel(planes, P, p);
-  const int pixel = pixels != nullptr ? pixels[p] : p;
+  const Pixel px = load_pixel(planes, P, q);
+  const int pixel = pixels != nullptr ? pixels[q] : q;
   noise.x = pixel % frame_width;
   noise.y = pixel / frame_width;
   const int ppl = rays_per_light(sample_count);
 
   f32 base[3] = {0.0f, 0.0f, 0.0f};
-  for (int li = 0; li < group_size; ++li) {
-    const int light = light_ids[li];
-    const float* ls = lights + (size_t)light * kLightScalars;
-    f32 lbase[3];
-    shade_light<NV>(px, ls, noise, light * ppl, sample_count, vis, lbase,
-                    [&](int q, const f32* b, V3 d, f32 t_max) {
-                      float* o = out + (size_t)(3 + 7 * (light * ppl + q)) * P + p;
-                      o[0] = raw(b[0]);
-                      o[P] = raw(b[1]);
-                      o[2 * P] = raw(b[2]);
-                      o[3 * P] = raw(d.x);
-                      o[4 * P] = raw(d.y);
-                      o[5 * P] = raw(d.z);
-                      o[6 * P] = raw(t_max);
-                    });
+  for (int start = 0; start < group_size; start += kLightChunk) {
+    const int count = min(kLightChunk, group_size - start);
+    stage_lights(chunk, lights, light_ids, start, count);
+    if (!live) continue;
+    for (int li = 0; li < count; ++li) {
+      const int light = chunk.ids[li];
+      const float* ls = chunk.records + li * kLightScalars;
+      f32 lbase[3];
+      shade_light<NV>(px, ls, noise, light * ppl, sample_count, vis, lbase,
+                      [&](int slot, const f32* b, V3 d, f32 t_max) {
+                        float* o = out + (size_t)(3 + 7 * (light * ppl + slot)) * P + p;
+                        o[0] = raw(b[0]);
+                        o[P] = raw(b[1]);
+                        o[2 * P] = raw(b[2]);
+                        o[3 * P] = raw(d.x);
+                        o[4 * P] = raw(d.y);
+                        o[5 * P] = raw(d.z);
+                        o[6 * P] = raw(t_max);
+                      });
 #pragma unroll
-    for (int c = 0; c < 3; ++c) base[c] = base[c] + lbase[c];
+      for (int c = 0; c < 3; ++c) base[c] = base[c] + lbase[c];
+    }
   }
+  if (!live) return;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float* o = out + (size_t)c * P + p;
