@@ -109,15 +109,17 @@ K_INLINE f32 clip01(f32 x) { return vrt::jclip(x, 0.0f, 1.0f); }
 
 // --- error-free products (ops/math_utils.py two_product / kahan) -----------
 
+// p = a * b rounded and its exact error e = a * b - p. The plain version
+// computes e with Dekker's split (17 operations); one fused multiply-add
+// rounds a * b - p once, and that difference is exactly representable, so
+// e is the same float (barring overflow of a * 4097 in Dekker's split, or
+// products in the subnormal range, which these inputs do not reach:
+// chip_smoke.py holds the kernels to their plain versions bit for bit).
+// The only FMA the kernels issue; --fmad=false keeps every other product
+// rounded on its own.
 K_INLINE void two_product(f32 a, f32 b, f32& p, f32& e) {
   p = a * b;
-  f32 a_hi = a * 4097.0f;
-  a_hi = a_hi - (a_hi - a);
-  const f32 a_lo = a - a_hi;
-  f32 b_hi = b * 4097.0f;
-  b_hi = b_hi - (b_hi - b);
-  const f32 b_lo = b - b_hi;
-  e = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo;
+  e = vrt::fma_rn(a, b, -p);
 }
 
 K_INLINE f32 kahan(f32 a, f32 b, f32 c, f32 d) {
