@@ -167,7 +167,7 @@ def jax_reference(data, ltc, hit, noise, specs, settings):
         jnp.asarray(hit), jnp.asarray(noise),
         j_fused._pack_light_scalars(lights, len(specs)),
         jnp.float32(settings.mis_visibility_estimate), jstatic, settings)
-    return [np.asarray(o) for o in out]
+    return [np.array(o) for o in out]
 
 
 def port_inputs(data, ltc, hit, specs):

@@ -112,7 +112,11 @@ def test_fused_plain_matches_reference(inputs, heuristic, biased):
     may fuse multiply-adds and its rsqrt/cos/sin differ from torch's by an
     ulp, which can move a sample across a sector boundary. So >= 99.5% of
     the output values agree within 1e-4 of their plane's scale (+1e-3
-    relative), and the rest are sector flips of single slots."""
+    relative), and the rest are sector flips of single slots. base and b
+    are held to the reference at every pixel; directions and t_max where
+    the pixel hit something, and to the dead slot (direction 0, t_max -1)
+    where it did not: the port does not shade a miss pixel, whose b the
+    reference gates to 0."""
     data, ltc, hit = inputs
     settings = _settings(heuristic, biased)
     jax_noise, noise = noise_inputs(settings, 2, seed=12, p=256, width=8)
@@ -125,7 +129,8 @@ def test_fused_plain_matches_reference(inputs, heuristic, biased):
         jnp.asarray(hit), jnp.asarray(jax_noise),
         j_fused._pack_light_scalars(lights, 2),
         jnp.float32(settings.mis_visibility_estimate), jstatic, settings)
-    want = [np.asarray(w) for w in want]
+    want = [np.array(w) for w in want]
+    want[2][~hit], want[3][~hit] = 0.0, -1.0
 
     planes = fused.pack_planes(
         ShadingData(**{k: torch.from_numpy(v) for k, v in data.items()}),

@@ -9,7 +9,11 @@ Tolerance: the two run the same float32 operations in the same order, but
 XLA may fuse multiply-adds and its rsqrt/cos/sin/exp differ from torch's by
 an ulp, which can move a sample across a fan-triangle or sector boundary.
 So >= 99.5% of the output values agree within 1e-4 of their array's scale
-(+1e-3 relative), and the finite pattern is identical. The Arvo techniques
+(+1e-3 relative), and the finite pattern is identical. base and b are
+held to the reference at every pixel; directions and t_max where the
+pixel hit something, and to the dead slot (direction 0, t_max -1) where it
+did not: the port does not shade a miss pixel, whose b the reference
+gates to 0. The Arvo techniques
 select sectors by azimuth and Newton-solve inside them, so a boundary
 sample flips more often: >= 99% for them (ROADMAP Queue 3)."""
 
@@ -49,6 +53,7 @@ def test_diffuse_only_plain_matches_reference(inputs, tech):
                               sample_count=2)
     jax_noise, noise = noise_inputs(settings, len(specs))
     want = jax_reference(data, ltc, hit, jax_noise, specs, settings)
+    want[2][~hit], want[3][~hit] = 0.0, -1.0
     planes, light_scalars, static = port_inputs(data, ltc, hit, specs)
     out = fused.fused_light_shading(planes, noise, light_scalars, static,
                                     to_port(settings))

@@ -27,7 +27,8 @@
 //
 // What bounds it on the H100: arithmetic and registers, as for K4 (see
 // fused_shading.cu); the only memory traffic per pixel-light is one
-// 8-byte table read per noise pair.
+// 8-byte table read per noise pair. A pixel that hit nothing adds +0 and
+// skips its lights.
 
 #include "techniques.cuh"
 
@@ -65,12 +66,15 @@ fused_resolved_kernel(const float* __restrict__ planes, int pixel_count,
   noise.x = pixel % frame_width;
   noise.y = pixel / frame_width;
   const int ppl = rays_per_light(sample_count);
+  // A pixel that hit nothing gates every slot and base term to +0, so its
+  // sum is +0 and it skips the light loop (bit for bit the same sum).
+  const bool shade = live && px.hit;
 
   f32 group[3] = {0.0f, 0.0f, 0.0f};
   for (int start = 0; start < group_size; start += kLightChunk) {
     const int count = min(kLightChunk, group_size - start);
     stage_lights(chunk, lights, light_ids, start, count);
-    if (!live) continue;
+    if (!shade) continue;
     for (int li = 0; li < count; ++li) {
       const int light = chunk.ids[li];
       const float* ls = chunk.records + li * kLightScalars;

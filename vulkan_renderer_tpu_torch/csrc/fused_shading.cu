@@ -28,6 +28,11 @@
 // and stores of one plane coalesce. Lights are (L, 58) records
 // (fused.py:49-60) read uniformly by all threads.
 //
+// A pixel that hit nothing skips its lights: its base and every b are +0
+// (the gate includes the hit), and its slots are written dead, direction 0
+// and t_max -1, as the plain version writes them; the frame traces no ray
+// whose b is 0 (render/pipeline.py).
+//
 // What bounds it on the H100: arithmetic and registers. Each pixel-light
 // pair costs thousands of FP32 operations (clip, prepare with a sort,
 // Newton steps, tens of transcendentals) against 62 input floats and 7
@@ -80,6 +85,15 @@ fused_shading_kernel(const float* __restrict__ planes, int pixel_count,
     if (!live) continue;
     for (int li = 0; li < count; ++li) {
       const int light = chunk.ids[li];
+      if (!px.hit) {
+        for (int slot = 0; slot < ppl; ++slot) {
+          float* o = out + (size_t)(3 + 7 * (light * ppl + slot)) * P + p;
+#pragma unroll
+          for (int k = 0; k < 6; ++k) o[k * P] = 0.0f;
+          o[6 * P] = -1.0f;
+        }
+        continue;
+      }
       const float* ls = chunk.records + li * kLightScalars;
       f32 lbase[3];
       shade_light<NV>(px, ls, noise, light * ppl, sample_count, vis, lbase,

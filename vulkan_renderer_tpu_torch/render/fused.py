@@ -20,7 +20,8 @@ ops/noise.py FrameNoise (the kernels read the noise table at each pixel;
 light i's pair q is the frame's pair i * rays_per_light + q) and the
 (L, 58) per-light records of pack_light_scalars. K4 returns (3 + 7 S, P):
 base RGB, then per ray slot b RGB, direction xyz, t_max (S = light_count *
-rays_per_light); K5 returns (P, 3). The plain versions take the same
+rays_per_light; a pixel that hit nothing gets dead slots, b 0, direction 0,
+t_max -1); K5 returns (P, 3). The plain versions take the same
 arguments and build the noise image with get_noise_image.
 """
 
@@ -520,7 +521,9 @@ def _light_noise(image: torch.Tensor, light: int, ppl: int):
 def fused_light_shading_plain(planes: torch.Tensor, noise: FrameNoise,
                               light_scalars: torch.Tensor, static,
                               settings: RenderSettings) -> torch.Tensor:
-    """Plain version of K4: (62, P) planes -> (3 + 7 S, P)."""
+    """Plain version of K4: (62, P) planes -> (3 + 7 S, P). A pixel that
+    hit nothing has base and b +0 (every gate includes the hit) and dead
+    slots: direction 0, t_max -1, as K4 writes them without shading it."""
     check_supported(static, settings)
     ppl = rays_per_light(settings)
     px = _unpack_px(planes)
@@ -535,6 +538,8 @@ def fused_light_shading_plain(planes: torch.Tensor, noise: FrameNoise,
             _light_noise(image, i, ppl))
         base = vadd(base, lbase)
         for (b, d, t) in slots:
+            d = tuple(torch.where(px["hit"], c, 0.0) for c in d)
+            t = torch.where(px["hit"], t, -1.0)
             outs.extend([b[0], b[1], b[2], d[0], d[1], d[2], t])
     return torch.stack(list(base) + outs, dim=0)
 
