@@ -9,17 +9,22 @@ It
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the CUDA kernels K1-K5 from vulkan_renderer_tpu_torch/csrc with
    nvcc, one process per library, all at once (K4 and K5 for each of the
-   13 techniques at the timing sweep's vertex counts), and prints each
-   build's time and register report;
+   13 techniques at the timing sweep's vertex counts, both under
+   DIFFUSE_SPECULAR_MIS for PSA and PSA-biased with every heuristic, and
+   the operation-counting builds of K4 and K5, -DVR_COUNT_OPS=1), and
+   prints each build's time and, for every K4 and K5 instantiation, the
+   registers, stack, spills and shared memory ptxas reports with the
+   theoretical resident warps per SM that follow;
 3. writes the procedural bench city (300 buildings, detail 10) into data/
    with the port's own writer and loads it onto the card, as
    vulkan_renderer_tpu_torch/tools/bench_frame.py defines the bench frame;
 4. holds every kernel against its plain PyTorch version on the card at
    the bench frame's shapes: K2 on all 518,400 primary rays (primitive
-   and t equal exactly, ties included), K1 on 131,072 live shadow rays
-   (0 mismatches); then counts the BVH tracers' box and triangle tests
-   per ray with their counting builds (-DVR_COUNT_TESTS=1) over the whole
-   bench frame;
+   and t equal exactly, ties included), K4 on all 518,400 pixels x 4
+   lights (bit for bit), K1 on 131,072 live shadow rays (0 mismatches);
+   then counts the BVH tracers' box and triangle tests per ray with their
+   counting builds (-DVR_COUNT_TESTS=1) over the whole bench frame, and
+   K4's float operations with its counting build;
 5. renders a 128x64 frame through the kernels and through the plain
    versions and compares the images;
 6. renders the bench frame (960x540, 1 spp, four quad street lights, PSA
@@ -28,16 +33,18 @@ It
    checks the image, and times it (bench_frame.frame_ms: the median of 15
    frames after 3 warm-up) along with each kernel and its plain version;
    then, with shadows off (the default settings, which take K5 under
-   DIFFUSE_SPECULAR_MIS), holds K5 against its plain version bit for bit
-   on 4,096 of the bench frame's pixels for PSA and PSA-biased with each
-   of the 5 heuristics;
+   DIFFUSE_SPECULAR_MIS), holds K5 and K4 against their plain versions bit
+   for bit on 4,096 of the bench frame's pixels for PSA and PSA-biased
+   with each of the 5 heuristics;
 7. for every technique, captures K5's inputs from the harness's own
    timing-sweep frames at 1920x1080 (the 128-light x 1-spp central
    quadrilaterals, experiment 102 + t, and the 1-light x 128-spp decentral
    pentagon, experiment 193 + t) and holds K5 and K4 under DIFFUSE_ONLY
    against their plain versions on 4,096 evenly spaced pixels, and K4's
-   slots resolved with visibility 1 against K5; and K2 against its plain
-   version on every primary ray of each cell's first frame (exact);
+   slots resolved with visibility 1 against K5; K2 against its plain
+   version on every primary ray of each cell's first frame (exact); each
+   frame's peak device memory and hit share; and K5's float operations on
+   the whole frame for PSA and Arvo PSA with its counting build;
 8. runs those 26 timing-sweep experiments through the port's harness
    (3 warm-up and 7 measured frames each; the harness's defaults of
    110/100 stay for real sweeps) with every launch counter reset before
@@ -47,9 +54,11 @@ It
 The line before the last is a JSON object listing the kernels, each with
 its launches on the main path, time, plain version's time and bound
 (bytes over 3.35 TB/s or float32 operations over 33.5 T/s, whichever is
-larger; for the tracers the operations are the least any binary tree
-over the clusters needs, and the counted tests of this design are a
-separate field); the last line is {"ok": true, "device": {...}}. Any failed
+larger, and which side binds; for the tracers the operations are the
+least any binary tree over the clusters needs, and the counted tests of
+this design are a separate field; K3's are counted from its source per
+hit, K4's and K5's by their counting builds on these inputs); the last
+line is {"ok": true, "device": {...}}. Any failed
 check, missing GPU or missing package exits non-zero without that line.
 Neither JAX nor any module of the JAX package (vulkan_renderer_tpu) is
 imported; the script uses only the PyTorch port.
@@ -58,6 +67,7 @@ imported; the script uses only the PyTorch port.
 import dataclasses
 import json
 import os
+import re
 import sys
 import time
 
@@ -73,10 +83,16 @@ FP32_OPS_PER_S = 33.5e12
 # 2 sub, 2 mul, min, max; 4 min/max to combine; 4 comparisons) and the two
 # Moeller-Trumbore bodies (crosses, dots, sign or reciprocal, 6-7 tests).
 SLAB_OPS, ANYHIT_TRI_OPS, CLOSEST_TRI_OPS = 26, 55, 57
+# K3's float32 operations per hit ray, counted from csrc/closest.cu
+# attrs_kernel as K4's and K5's counting builds count (csrc/count_ops.cuh:
+# add, sub, mul, div, sqrt, rsqrt, compare, max one each): barycentrics 42,
+# the two UV-derivative rows 2 x 43, normal, UV, tangent frame 88. A miss
+# does none.
+K3_OPS_PER_HIT = 216
 SWEEP_SUBSET = 4096
-SWEEP_WIDTH, SWEEP_HEIGHT = 1920, 1080
-SWEEP_CELLS = (("central_4_128", 102), ("decentral_5_1x128spp", 193))
-SWEEP_WARMUP, SWEEP_MEASURED = 3, 7
+# The techniques whose K5 operations are counted over the whole sweep
+# frame (the PSA row of the kernels line, and the slowest technique).
+COUNTED_TECHNIQUES = ("PROJECTED_SOLID_ANGLE", "PROJECTED_SOLID_ANGLE_ARVO")
 
 
 class SmokeFailure(RuntimeError):
@@ -151,6 +167,40 @@ def subset_indices(torch, count, available, device):
     return torch.linspace(0, available - 1, count, device=device).long()
 
 
+def subset_args(args, idx):
+    """K4's or K5's arguments (planes, noise, lights, static, settings) at
+    plane columns idx."""
+    planes, noise, ls, st, s = args
+    return (planes[:, idx].contiguous(), noise.subset(idx), ls, st, s)
+
+
+def noise_table_bytes(noise, pairs):
+    """The table bytes `pairs` noise pairs of this frame need at the least:
+    per table layer, the texels its fetches reach (all of them once the
+    frame's pixels outnumber a layer's) in the channels they read."""
+    th, tw = noise.table.shape[1], noise.table.shape[2]
+    reach, channels = {}, {}
+    for f, (_, _, layer) in enumerate(noise.fetches.tolist()):
+        used = min(4, 2 * pairs - 4 * f)
+        if used <= 0:
+            break
+        reach[layer] = reach.get(layer, 0) + noise.column_count
+        channels[layer] = max(channels.get(layer, 0), used)
+    return sum(min(th * tw, reach[k]) * channels[k] * 4 for k in reach)
+
+
+def op_counts(torch, fn, args, kinds, stages):
+    """Run fn's counting build on args: ({stage: {kind: n}}, total)."""
+    counts = torch.zeros(len(kinds) * len(stages), dtype=torch.int64,
+                         device=args[0].device)
+    fn(*args, op_counts=counts)
+    values = counts.tolist()
+    table = {stage: {kind: values[i * len(kinds) + k]
+                     for k, kind in enumerate(kinds)}
+             for i, stage in enumerate(stages)}
+    return table, sum(values)
+
+
 def run():
     try:
         import torch
@@ -184,8 +234,12 @@ def run():
     from vulkan_renderer_tpu_torch.tools import bench_frame as bench
     from vulkan_renderer_tpu_torch.tools import kernel_check
 
-    kernel_defines = bench.kernel_defines
     WIDTH, HEIGHT = bench.WIDTH, bench.HEIGHT
+    SWEEP_WIDTH, SWEEP_HEIGHT = bench.SWEEP_WIDTH, bench.SWEEP_HEIGHT
+    SWEEP_CELLS = bench.SWEEP_CELLS
+    SWEEP_WARMUP, SWEEP_MEASURED = bench.SWEEP_WARMUP, bench.SWEEP_MEASURED
+    kinds, stages = fused.OP_KINDS, fused.OP_STAGES
+    count_defines = {"VR_COUNT_OPS": 1}
     card = bench.card_name()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -202,6 +256,12 @@ def run():
     jobs = bench.kernel_jobs(settings) + [
         ("anyhit", {"VR_COUNT_TESTS": 1}),
         ("closest", {"VR_COUNT_TESTS": 1})]
+    def shading_job(kernel, s, static_, extra=None):
+        return (fused._KERNELS[kernel][0],
+                {**fused.library_defines(kernel, static_, s),
+                 **(extra or {})})
+    # K4's counting build at the bench frame's settings.
+    jobs.append(shading_job("K4", settings, bench_static, count_defines))
     for tech in PolygonSamplingTechnique:
         tech_settings = RenderSettings(
             sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
@@ -209,25 +269,49 @@ def run():
         for nv in (4, 5):
             static_nv = SceneStatic(light_count=1, light_texturing=(0,),
                                     light_vertex_counts=(nv,))
-            for name in ("fused_shading", "fused_resolved"):
-                jobs.append((name, kernel_defines(tech_settings, static_nv)))
-    # K5 under DIFFUSE_SPECULAR_MIS (the default settings with shadows off):
-    # the PSA pair with every heuristic, at the bench layout.
+            jobs += [shading_job(k, tech_settings, static_nv)
+                     for k in ("K4", "K5")]
+            if tech.name in COUNTED_TECHNIQUES:
+                jobs.append(shading_job("K5", tech_settings, static_nv,
+                                        count_defines))
+    # K5 and K4 under DIFFUSE_SPECULAR_MIS (the default settings; K5 takes
+    # it with shadows off): the PSA pair with every heuristic, at the
+    # bench layout.
     mis_variants = [dataclasses.replace(
         settings, polygon_sampling_technique=tech, mis_heuristic=heuristic,
         trace_shadow_rays=False)
         for tech in (PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE,
                      PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE_BIASED)
         for heuristic in MisHeuristic]
-    jobs += [("fused_resolved", kernel_defines(s, bench_static))
-             for s in mis_variants]
-    wall = build.build_many(jobs)
+    jobs += [shading_job(k, s, bench_static) for s in mis_variants
+             for k in ("K4", "K5")]
+    jobs = list(dict.fromkeys((n, tuple(sorted(d.items())))
+                              for n, d in jobs))
+    wall = build.build_many([(n, dict(d)) for n, d in jobs])
     log(f"kernel build: {len(jobs)} libraries, {wall:.2f} s wall")
+    ptxas_rows = []
     for tag, (seconds, report) in sorted(build.BUILD_REPORTS.items()):
         log(f"  {tag}: nvcc {seconds:.2f} s")
-        for line in build.register_report(report):
-            if "registers" in line or "spill" in line:
-                log(f"    {line}")
+        if not tag.startswith("fused"):
+            for line in build.register_report(report):
+                if "registers" in line or "spill" in line:
+                    log(f"    {line}")
+            continue
+        threads = int(re.search(r"_VR_THREADS(\d+)", tag).group(1))
+        for row in build.ptxas_table(report):
+            nv = re.search(r"kernelILi(\d)E", row["function"])
+            row = dict(library=tag, vertex_count=int(nv.group(1)),
+                       threads=threads, **{k: v for k, v in row.items()
+                                           if k != "function"})
+            row["resident_warps"] = build.resident_warps(
+                row["registers"], threads, row["smem"])
+            ptxas_rows.append(row)
+            log(f"    NV={row['vertex_count']}: {row['registers']} "
+                f"registers, {row['stack']} B stack, {row['spill_stores']} "
+                f"B spill stores, {row['spill_loads']} B spill loads, "
+                f"{row['smem']} B shared, {row['resident_warps']} resident "
+                f"warps/SM at {threads} threads a block")
+    print(json.dumps({"ptxas": ptxas_rows}), flush=True)
 
     # --- 3. the bench city ---------------------------------------------------
     data_dir = os.path.join(ROOT, "data")
@@ -278,25 +362,23 @@ def run():
     check(int(a_bad.sum()) == 0, "K3 disagrees with its plain version")
     results["K3"] = dict(max_abs_err=k3_err, compared=prim.numel())
 
-    planes, light_scalars, _, _ = captured["fused_shading"]
-    out_k = fused.fused_light_shading(planes, light_scalars, static, settings)
-    out_p = fused.fused_light_shading_plain(planes, light_scalars, static,
-                                            settings)
-    fin_p = torch.isfinite(out_p)
-    nan_mismatch = int((fin_p != torch.isfinite(out_k)).sum())
-    scale = torch.where(fin_p, out_p.abs(), 0.0).amax(dim=1, keepdim=True)
-    diff = torch.where(fin_p, (out_k - out_p).abs(), 0.0)
-    outside = fin_p & (diff > 1e-4 * scale + 1e-3 * out_p.abs())
-    k4_err = float(diff.max())
-    frac = int(outside.sum()) / outside.numel()
-    log(f"K4 fused shading vs plain ({planes.shape[1]} pixels, "
-        f"{out_p.shape[0]} planes): max |d| {k4_err:.3g}, outside "
-        f"1e-4*plane scale + 1e-3*|ref|: {int(outside.sum())} "
-        f"({frac:.2e}, tolerance 1e-3: sector flips), finite-pattern "
-        f"mismatches {nan_mismatch} (tolerance 1e-4 of elements)")
-    check(frac <= 1e-3, "K4 disagrees with its plain version")
-    check(nan_mismatch <= 1e-4 * out_p.numel(),
-          "K4 non-finite pattern differs from its plain version")
+    # K4 on every pixel of the bench frame. Tolerance: bit for bit (the
+    # same float32 operations in the same order; the one FMA, two_product's
+    # error term, is exact).
+    f_args = captured["fused_shading"]
+    planes = f_args[0]
+    out_k = fused.fused_light_shading(*f_args)
+    out_p = fused.fused_light_shading_plain(*f_args)
+    r4 = kernel_check.compare(out_k, out_p)
+    k4_err = r4["max_abs_err"]
+    k4_hits = float(planes[bench.HIT_PLANE].mean())
+    log(f"K4 fused shading vs plain ({planes.shape[1]} pixels x "
+        f"{static.light_count} lights, {out_p.shape[0]} planes, hit share "
+        f"{k4_hits:.4f}): exact {r4['exact']:.6f} (tolerance: bit for "
+        f"bit), max |d| {k4_err:.3g}, finite-pattern mismatches "
+        f"{r4['nonfinite_mismatch']}")
+    check(r4["exact"] == 1.0 and r4["nonfinite_mismatch"] == 0,
+          "K4 disagrees with its plain version")
     results["K4"] = dict(max_abs_err=k4_err, compared=planes.shape[1])
 
     clusters, s_orig, s_dirs, s_tmax = captured["trace_anyhit"]
@@ -330,6 +412,15 @@ def run():
         log(f"{name} BVH tests per live ray ({rays} rays): child boxes "
             f"{boxes / rays:.2f}, sub-boxes {subboxes / rays:.2f}, "
             f"triangles {tris / rays:.2f}")
+
+    # --- 4c. K4's float operations on the bench frame ------------------------
+    k4_ops_table, k4_ops = op_counts(torch, fused.fused_light_shading,
+                                     f_args, kinds, stages)
+    k4_hit_lights = int(planes[bench.HIT_PLANE].sum()) * static.light_count
+    log(f"K4 float operations (counting build, {planes.shape[1]} px x "
+        f"{static.light_count} lights, {k4_hit_lights} hit pixel-lights): "
+        f"{k4_ops} = {k4_ops / max(k4_hit_lights, 1):.1f} per hit "
+        f"pixel-light; by stage and kind {json.dumps(k4_ops_table)}")
 
     # --- 5. small frame: kernels vs plain versions ---------------------------
     with torch.no_grad():
@@ -390,7 +481,6 @@ def run():
     # --- per-kernel times at the bench shapes --------------------------------
     c_args = captured["trace_closest"]
     a_args = captured["closest_attrs"]
-    f_args = captured["fused_shading"]
     s_args = captured["trace_anyhit"]
     kernel_ms = bench.kernel_ms(torch, captured)
     timings = {
@@ -437,23 +527,32 @@ def run():
                     camera, WIDTH, HEIGHT, s, noise_numbers, device),
                 WIDTH, HEIGHT, dataclasses.replace(
                     pipeline.KERNELS, fused_resolved=record_k5))
-        planes, noise, ls, st, s = k5_args["args"]
+        args = k5_args["args"]
+        planes, st, s = args[0], args[3], args[4]
         idx = subset_indices(torch, SWEEP_SUBSET, planes.shape[1], device)
-        sub_planes = planes[:, idx].contiguous()
-        sub_noise = noise[:, :, idx].contiguous()
-        got5 = fused.fused_light_shading_resolved(sub_planes, sub_noise, ls,
-                                                  st, s)
-        want5 = fused.fused_light_shading_resolved_plain(sub_planes,
-                                                         sub_noise, ls, st, s)
+        sub = subset_args(args, idx)
+        got5 = fused.fused_light_shading_resolved(*sub)
+        want5 = fused.fused_light_shading_resolved_plain(*sub)
         r5 = kernel_check.compare(got5.T, want5.T)
+        # K4 under the same settings on the same pixels (its shadow-ray
+        # slots), against its plain version.
+        r4m = kernel_check.compare(fused.fused_light_shading(*sub),
+                                   fused.fused_light_shading_plain(*sub))
         variant = (f"{s.polygon_sampling_technique.value}/"
                    f"{s.mis_heuristic.value}")
         mis_rows.append(dict(variant=variant, **r5))
-        log(f"K5 MIS {variant} vs plain ({idx.numel()} of {planes.shape[1]} "
-            f"px x {st.light_count} lights): exact {r5['exact']:.6f} "
-            f"(tolerance: bit for bit), max |d| {r5['max_abs_err']:.3g}")
+        results["K4"]["max_abs_err"] = max(results["K4"]["max_abs_err"],
+                                           r4m["max_abs_err"])
+        log(f"K5 and K4 MIS {variant} vs plain ({idx.numel()} of "
+            f"{planes.shape[1]} px x {st.light_count} lights, hit share "
+            f"{float(sub[0][bench.HIT_PLANE].mean()):.4f}): K5 exact "
+            f"{r5['exact']:.6f}, K4 exact {r4m['exact']:.6f} (tolerance: "
+            f"bit for bit), max |d| {r5['max_abs_err']:.3g} / "
+            f"{r4m['max_abs_err']:.3g}")
         check(r5["nonfinite_mismatch"] == 0 and r5["exact"] == 1.0,
               f"K5 MIS disagrees with its plain version ({variant})")
+        check(r4m["nonfinite_mismatch"] == 0 and r4m["exact"] == 1.0,
+              f"K4 MIS disagrees with its plain version ({variant})")
         check(float(want5.abs().max()) > 0, f"K5 MIS {variant} is all zero")
 
     # --- 7. K5 and K4 DIFFUSE_ONLY against their plain versions -------------
@@ -486,12 +585,16 @@ def run():
                 k5_args["closest"] = args
                 return tk.trace_closest(*args)
 
+            allocated = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             with torch.no_grad():
                 pipeline.render_frame_constants(
                     app.scene, app.static, app.settings, sweep_constants,
                     exp.width, exp.height, dataclasses.replace(
                         pipeline.KERNELS, fused_resolved=record_k5,
                         trace_closest=record_k2))
+            torch.cuda.synchronize()
+            frame_peak = torch.cuda.max_memory_allocated()
             if t == 0:
                 # K2 on every primary ray of the cell's frame: exact, ties
                 # included, as on the bench frame.
@@ -505,30 +608,39 @@ def run():
                       f"K2 disagrees with its plain version ({cell})")
                 results["K2"]["max_abs_err"] = max(
                     results["K2"]["max_abs_err"], dt)
-            planes, noise, ls, st, s = k5_args["args"]
+            args = k5_args["args"]
+            planes, noise, ls, st, s = args
+            hits = float(planes[bench.HIT_PLANE].mean())
             idx = subset_indices(torch, SWEEP_SUBSET, planes.shape[1], device)
-            sub_planes = planes[:, idx].contiguous()
-            sub_noise = noise[:, :, idx].contiguous()
-            got5 = fused.fused_light_shading_resolved(sub_planes, sub_noise,
-                                                      ls, st, s)
+            sub = subset_args(args, idx)
+            got5 = fused.fused_light_shading_resolved(*sub)
             plain5_ms, want5 = cuda_once(
-                torch, lambda: fused.fused_light_shading_resolved_plain(
-                    sub_planes, sub_noise, ls, st, s))
+                torch, lambda: fused.fused_light_shading_resolved_plain(*sub))
             r5 = kernel_check.compare(got5.T, want5.T)
-            planes4 = torch.cat([sub_planes,
-                                 sub_noise.reshape(-1, idx.numel())])
-            got4 = fused.fused_light_shading(planes4, ls, st, s)
+            # K4 takes K5's arguments.
+            got4 = fused.fused_light_shading(*sub)
             plain4_ms, want4 = cuda_once(
-                torch, lambda: fused.fused_light_shading_plain(planes4, ls,
-                                                               st, s))
+                torch, lambda: fused.fused_light_shading_plain(*sub))
             r4 = kernel_check.compare(got4, want4)
             r45 = kernel_check.compare(kernel_check.k4_resolved(got4, st, s).T,
                                        got5.T)
             ms5 = bench.cuda_ms(
-                torch, lambda: fused.fused_light_shading_resolved(
-                    planes, noise, ls, st, s), 2)
+                torch, lambda: fused.fused_light_shading_resolved(*args), 2)
             ms4 = bench.cuda_ms(torch, lambda: fused.fused_light_shading(
-                planes4, ls, st, s), 3)
+                *sub), 3)
+            k5_ops = None
+            if tech.name in COUNTED_TECHNIQUES:
+                k5_ops_table, k5_ops = op_counts(
+                    torch, fused.fused_light_shading_resolved, args, kinds,
+                    stages)
+                k5_bytes = 4 * (planes.numel() + ls.numel()
+                                + 3 * planes.shape[1]) + noise_table_bytes(
+                    noise, fused.rays_per_light(s) * st.light_count)
+                k5_bound = bound_ms(k5_bytes, k5_ops)
+                log(f"{cell} {tech.value}: K5 float operations (counting "
+                    f"build, whole frame) {k5_ops}, by stage and kind "
+                    f"{json.dumps(k5_ops_table)}; bound {k5_bound[0]:.4f} ms "
+                    f"({k5_bound[1]}; bytes {k5_bytes})")
             # Tolerance: bit for bit where the plain version shares the
             # kernel's formula; the Arvo techniques select azimuth sectors
             # and may flip a boundary sample where an ulp differs, so up
@@ -536,7 +648,10 @@ def run():
             limit = 5e-3 if tech in arvo else 0.0
             row = dict(cell=cell, technique=tech.value,
                        pixels=planes.shape[1], lights=st.light_count,
-                       spp=s.sample_count, k5_ms=round(ms5, 4),
+                       spp=s.sample_count, hit_share=round(hits, 6),
+                       frame_allocated_gib=round(allocated / 2**30, 4),
+                       frame_peak_gib=round(frame_peak / 2**30, 4),
+                       k5_ms=round(ms5, 4),
                        k5_plain_ms_subset=round(plain5_ms, 4),
                        k4_ms_subset=round(ms4, 4),
                        k4_plain_ms_subset=round(plain4_ms, 4),
@@ -547,9 +662,14 @@ def run():
                        k4_outside=r4["outside"],
                        k4_max_abs_err=r4["max_abs_err"],
                        k4_resolved_vs_k5_exact=round(r45["exact"], 6))
+            if k5_ops is not None:
+                row.update(k5_ops=k5_ops, k5_bound_ms=round(k5_bound[0], 5),
+                           k5_bound_by=k5_bound[1])
             technique_rows.append(row)
             log(f"{cell} {tech.value}: K5 {ms5:.3f} ms ({planes.shape[1]} px "
-                f"x {st.light_count} lights x {s.sample_count} spp), plain "
+                f"x {st.light_count} lights x {s.sample_count} spp, hit share "
+                f"{hits:.4f}, frame peak {frame_peak / 2**30:.3f} GiB of "
+                f"which {allocated / 2**30:.3f} allocated before), plain "
                 f"{plain5_ms:.1f} ms on {idx.numel()} px; K5 vs plain exact "
                 f"{r5['exact']:.5f}, outside {r5['outside']:.2e} (tolerance: "
                 f"inexact <= {limit:g}), max |d| {r5['max_abs_err']:.3g}; K4 "
@@ -574,9 +694,8 @@ def run():
                 k5_main = (ms5, plain5_ms,
                            f"{planes.shape[1]} pixels x {st.light_count} "
                            f"lights x 1 spp (PSA)", f"{idx.numel()} pixels")
-                k5_bytes = 4 * (planes.numel() + noise.numel()
-                                + ls.numel() + 3 * planes.shape[1])
-            del app, planes, noise, k5_args
+                k5_main_bound = (k5_bound, k5_bytes, k5_ops, k5_ops_table)
+            del app, planes, noise, args, sub, k5_args
             torch.cuda.empty_cache()
     print(json.dumps({"techniques": technique_rows}), flush=True)
 
@@ -661,8 +780,10 @@ def run():
     # output byte written once; the tracers' operations are the least any
     # tree needs for their live rays (tracer_floor_ops), and what this
     # design's counted box and triangle tests take goes beside them as
-    # design_ops_ms. K3-K5 count bytes only (their operations are not
-    # counted here): a lower bound.
+    # design_ops_ms. K3's operations are K3_OPS_PER_HIT per hit; K4's and
+    # K5's what their counting builds counted on these inputs (each
+    # operation one issue at 33.5 T/s: the one FMA kind, counted as two
+    # flops at 67 TFLOP/s, is the same time).
     tables = 4 * (clusters.planes.numel() + clusters.subboxes.numel()
                   + clusters.bvh_nodes.numel())
     bounds, design_ops_ms = {}, {}
@@ -677,13 +798,20 @@ def run():
                                + c["triangles"] * tri_ops) \
             / FP32_OPS_PER_S * 1e3
     a_prim = a_args[1]
-    bounds["K3"] = bound_ms(a_prim.numel() * (28 + 18 * 4)
-                            + int((a_prim >= 0).sum()) * 25 * 4, 0)
-    f_planes, f_lights = f_args[0], f_args[1]
+    k3_hits = int((a_prim >= 0).sum())
+    k3_bytes = a_prim.numel() * (28 + 18 * 4) + k3_hits * 25 * 4
+    bounds["K3"] = bound_ms(k3_bytes, k3_hits * K3_OPS_PER_HIT)
+    f_planes, f_noise, f_lights = f_args[0], f_args[1], f_args[2]
     k4_out = 3 + 7 * static.light_count * fused.rays_per_light(settings)
-    bounds["K4"] = bound_ms(4 * (f_planes.numel() + f_lights.numel()
-                                 + k4_out * f_planes.shape[1]), 0)
-    bounds["K5"] = bound_ms(k5_bytes, 0)
+    k4_bytes = 4 * (f_planes.numel() + f_lights.numel()
+                    + k4_out * f_planes.shape[1]) + noise_table_bytes(
+        f_noise, fused.rays_per_light(settings) * static.light_count)
+    bounds["K4"] = bound_ms(k4_bytes, k4_ops)
+    k5_bound, k5_bytes, k5_ops, k5_ops_table = k5_main_bound
+    bounds["K5"] = k5_bound
+    bound_sides = {
+        "K3": (k3_bytes, k3_hits * K3_OPS_PER_HIT),
+        "K4": (k4_bytes, k4_ops), "K5": (k5_bytes, k5_ops)}
     kernels = []
     for name in ("K1", "K2", "K3", "K4", "K5"):
         ms, plain_ms, ms_sub, shape, plain_shape = timings[name]
@@ -697,6 +825,11 @@ def run():
         if name in test_counts:
             entry.update(tests=test_counts[name],
                          design_ops_ms=round(design_ops_ms[name], 5))
+        if name in bound_sides:
+            b, o = bound_sides[name]
+            entry.update(bytes=b, operations=o,
+                         bytes_ms=round(bound_ms(b, 0)[0], 5),
+                         operations_ms=round(bound_ms(0, o)[0], 5))
         if plain_shape and ms_sub is not None:
             entry.update(plain_shape=plain_shape,
                          ms_at_plain_shape=round(ms_sub, 4))

@@ -96,6 +96,8 @@ def test_closest_and_attrs_kernels_match_plain(city):
 @pytest.mark.parametrize("heuristic", ["balance", "power", "weighted",
                                        "optimal_clamped", "optimal"])
 def test_fused_kernel_matches_plain(city, heuristic):
+    """K4 under DIFFUSE_SPECULAR_MIS against its plain version: bit for
+    bit, miss pixels' dead slots included."""
     scene, camera = city
     # Shadows on: the frame exports K4's ray slots (with them off it
     # takes K5).
@@ -112,12 +114,8 @@ def test_fused_kernel_matches_plain(city, heuristic):
                           settings, 64, 32, kernels=kernels)
     got = fused.fused_light_shading(*captured["args"])
     want = fused.fused_light_shading_plain(*captured["args"])
-    fin = torch.isfinite(want)
-    assert torch.equal(torch.isfinite(got), fin)
-    scale = torch.where(fin, want.abs(), 0.0).amax(dim=1, keepdim=True)
-    diff = torch.where(fin, (got - want).abs(), 0.0)
-    assert float((diff > 1e-4 * scale + 1e-3 * want.abs()).float()
-                 .mean()) <= 1e-3
+    r = kernel_check.compare(got, want)
+    assert r["exact"] == 1.0 and r["nonfinite_mismatch"] == 0, r
 
 
 def test_frame_kernels_match_plain_versions(city):

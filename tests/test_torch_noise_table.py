@@ -138,3 +138,35 @@ def test_frame_builds_no_noise_image(cornell, monkeypatch, shadows):
     # The plain versions' image of that noise is the reference's.
     assert torch.equal(noise.image(), table_noise(noise))
     assert len(calls) == 1
+
+
+def test_ptxas_report_parses_into_registers_and_occupancy():
+    """kernels/build.py reads nvcc -Xptxas -v into the table that
+    chip_smoke.py prints for every K4 and K5 instantiation."""
+    from vulkan_renderer_tpu_torch.kernels import build
+    report = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_121fused_resolved_kernelILi4EEEvPKfi' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_1",
+        "    24 bytes stack frame, 8 bytes spill stores, 12 bytes spill "
+        "loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 15104 bytes "
+        "smem, 440 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'",
+        "ptxas info    : Used 32 registers, 380 bytes cmem[0]"])
+    rows = build.ptxas_table(report)
+    assert rows == [
+        {"function": "_ZN12_GLOBAL__N_121fused_resolved_kernelILi4EEEvPKfi",
+         "registers": 168, "stack": 24, "spill_stores": 8,
+         "spill_loads": 12, "smem": 15104},
+        {"function": "_Z5otherv", "registers": 32, "stack": 0,
+         "spill_stores": 0, "spill_loads": 0, "smem": 0}]
+    # 168 registers: 5,376 a warp, 3 blocks of 4 warps in 65,536.
+    assert build.resident_warps(168, 128, 15104) == 12
+    assert build.resident_warps(255, 128, 0) == 8
+    assert build.resident_warps(128, 256, 0) == 16
+    assert build.resident_warps(32, 128, 0) == 64
+    # Shared memory binds: 100 KB blocks, two on an SM.
+    assert build.resident_warps(32, 128, 100 * 1024) == 8

@@ -25,20 +25,22 @@
 // x = pixel % frame_width, y = pixel / frame_width. Technique, strategy and
 // heuristic are compile-time defines shared with K4 (techniques.cuh).
 //
-// What bounds it on the H100: arithmetic and registers, as for K4 (see
-// fused_shading.cu); the only memory traffic per pixel-light is one
-// 8-byte table read per noise pair. A pixel that hit nothing adds +0 and
-// skips its lights.
+// What bounds it on the H100: issued float operations and their latency,
+// as for K4 (see fused_shading.cu); the only memory traffic per
+// pixel-light is one 8-byte table read per noise pair. At the timing
+// sweep's shapes the counted operations bound it ~24x above its bytes,
+// and it runs at ~2.5-3x that bound for PSA and ~7-9x for Arvo PSA, whose
+// sector search spills (PERF.md section 6). The design does as K4 does:
+// 128 registers for 16 warps per SM, and a pixel that hit nothing adds +0
+// without shading its lights.
 
 #include "techniques.cuh"
 
 // Block size and the blocks per SM that __launch_bounds__ asks the
-// register allocator for (PERF.md: chosen by measurement).
-#ifndef VR_THREADS
-#define VR_THREADS 128
-#endif
-#ifndef VR_MIN_BLOCKS
-#define VR_MIN_BLOCKS 1
+// register allocator for: render/fused.py LAUNCH_BOUNDS, chosen by
+// measurement (PERF.md).
+#if !defined(VR_THREADS) || !defined(VR_MIN_BLOCKS)
+#error "VR_THREADS and VR_MIN_BLOCKS must be defined (render/fused.py LAUNCH_BOUNDS)"
 #endif
 
 namespace {
@@ -54,30 +56,23 @@ fused_resolved_kernel(const float* __restrict__ planes, int pixel_count,
                       int sample_count, bool first_group, float vis,
                       float* __restrict__ out,
                       unsigned long long* __restrict__ op_counts) {
-  __shared__ LightChunk chunk;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  // Threads past the last pixel stay for the block's light staging.
-  const bool live = p < pixel_count;
-  const int q = live ? p : 0;
+  if (p >= pixel_count) return;
   vrt::begin_op_count();
   const size_t P = (size_t)pixel_count;
-  const Pixel px = load_pixel(planes, P, q);
-  const int pixel = pixels != nullptr ? pixels[q] : q;
+  const Pixel px = load_pixel(planes, P, p);
+  const int pixel = pixels != nullptr ? pixels[p] : p;
   noise.x = pixel % frame_width;
   noise.y = pixel / frame_width;
   const int ppl = rays_per_light(sample_count);
-  // A pixel that hit nothing gates every slot and base term to +0, so its
-  // sum is +0 and it skips the light loop (bit for bit the same sum).
-  const bool shade = live && px.hit;
 
   f32 group[3] = {0.0f, 0.0f, 0.0f};
-  for (int start = 0; start < group_size; start += kLightChunk) {
-    const int count = min(kLightChunk, group_size - start);
-    stage_lights(chunk, lights, light_ids, start, count);
-    if (!shade) continue;
-    for (int li = 0; li < count; ++li) {
-      const int light = chunk.ids[li];
-      const float* ls = chunk.records + li * kLightScalars;
+  // A pixel that hit nothing gates every slot and base term to +0, so its
+  // sum is +0 and it skips the light loop (bit for bit the same sum).
+  if (px.hit) {
+    for (int li = 0; li < group_size; ++li) {
+      const int light = light_ids[li];
+      const float* ls = lights + (size_t)light * kLightScalars;
       f32 lbase[3];
       f32 bsum[3] = {0.0f, 0.0f, 0.0f};
       shade_light<NV>(px, ls, noise, light * ppl, sample_count, vis, lbase,
@@ -90,7 +85,6 @@ fused_resolved_kernel(const float* __restrict__ planes, int pixel_count,
       for (int c = 0; c < 3; ++c) group[c] = group[c] + (lbase[c] + bsum[c]);
     }
   }
-  if (!live) return;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float* o = out + (size_t)c * P + p;

@@ -33,23 +33,26 @@
 // and t_max -1, as the plain version writes them; the frame traces no ray
 // whose b is 0 (render/pipeline.py).
 //
-// What bounds it on the H100: arithmetic and registers. Each pixel-light
-// pair costs thousands of FP32 operations (clip, prepare with a sort,
-// Newton steps, tens of transcendentals) against 62 input floats and 7
-// output floats per slot, so it is far above the memory roofline. A
-// prepared polygon takes 50-200 live floats; past the 255-register budget
-// it spills to L1-resident local memory. __launch_bounds__(128) lets the
-// compiler use up to 255 registers a thread.
+// What bounds it on the H100: issued float operations, and the latency of
+// their long dependent chains (clip, sort, Newton steps, IEEE divisions)
+// at the occupancy the registers allow. The counting build
+// (-DVR_COUNT_OPS=1, chip_smoke.py) counts ~2,750 operations per hit
+// pixel-light under DIFFUSE_SPECULAR_MIS against 62 input floats and 7
+// output floats per slot, so at the bench frame the operation bound is
+// above the byte bound, and the kernel runs at ~7x it (PERF.md section 6).
+// What the design does about it: __launch_bounds__ caps a thread at 128
+// registers for 16 resident warps per SM (the rest of a prepared polygon
+// spills to L1-resident local memory), which measured faster than 8 warps
+// at 221 registers without spills; miss pixels skip their lights; and
+// two_product's error term is one exact FMA instead of Dekker's split.
 
 #include "techniques.cuh"
 
 // Block size and the blocks per SM that __launch_bounds__ asks the
-// register allocator for (PERF.md: chosen by measurement).
-#ifndef VR_THREADS
-#define VR_THREADS 128
-#endif
-#ifndef VR_MIN_BLOCKS
-#define VR_MIN_BLOCKS 1
+// register allocator for: render/fused.py LAUNCH_BOUNDS, chosen by
+// measurement (PERF.md).
+#if !defined(VR_THREADS) || !defined(VR_MIN_BLOCKS)
+#error "VR_THREADS and VR_MIN_BLOCKS must be defined (render/fused.py LAUNCH_BOUNDS)"
 #endif
 
 namespace {
@@ -65,53 +68,44 @@ fused_shading_kernel(const float* __restrict__ planes, int pixel_count,
                      int sample_count, bool first_group, float vis,
                      float* __restrict__ out,
                      unsigned long long* __restrict__ op_counts) {
-  __shared__ LightChunk chunk;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  // Threads past the last pixel stay for the block's light staging.
-  const bool live = p < pixel_count;
-  const int q = live ? p : 0;
+  if (p >= pixel_count) return;
   vrt::begin_op_count();
   const size_t P = (size_t)pixel_count;
-  const Pixel px = load_pixel(planes, P, q);
-  const int pixel = pixels != nullptr ? pixels[q] : q;
+  const Pixel px = load_pixel(planes, P, p);
+  const int pixel = pixels != nullptr ? pixels[p] : p;
   noise.x = pixel % frame_width;
   noise.y = pixel / frame_width;
   const int ppl = rays_per_light(sample_count);
 
   f32 base[3] = {0.0f, 0.0f, 0.0f};
-  for (int start = 0; start < group_size; start += kLightChunk) {
-    const int count = min(kLightChunk, group_size - start);
-    stage_lights(chunk, lights, light_ids, start, count);
-    if (!live) continue;
-    for (int li = 0; li < count; ++li) {
-      const int light = chunk.ids[li];
-      if (!px.hit) {
-        for (int slot = 0; slot < ppl; ++slot) {
-          float* o = out + (size_t)(3 + 7 * (light * ppl + slot)) * P + p;
+  for (int li = 0; li < group_size; ++li) {
+    const int light = light_ids[li];
+    if (!px.hit) {
+      for (int slot = 0; slot < ppl; ++slot) {
+        float* o = out + (size_t)(3 + 7 * (light * ppl + slot)) * P + p;
 #pragma unroll
-          for (int k = 0; k < 6; ++k) o[k * P] = 0.0f;
-          o[6 * P] = -1.0f;
-        }
-        continue;
+        for (int k = 0; k < 6; ++k) o[k * P] = 0.0f;
+        o[6 * P] = -1.0f;
       }
-      const float* ls = chunk.records + li * kLightScalars;
-      f32 lbase[3];
-      shade_light<NV>(px, ls, noise, light * ppl, sample_count, vis, lbase,
-                      [&](int slot, const f32* b, V3 d, f32 t_max) {
-                        float* o = out + (size_t)(3 + 7 * (light * ppl + slot)) * P + p;
-                        o[0] = raw(b[0]);
-                        o[P] = raw(b[1]);
-                        o[2 * P] = raw(b[2]);
-                        o[3 * P] = raw(d.x);
-                        o[4 * P] = raw(d.y);
-                        o[5 * P] = raw(d.z);
-                        o[6 * P] = raw(t_max);
-                      });
-#pragma unroll
-      for (int c = 0; c < 3; ++c) base[c] = base[c] + lbase[c];
+      continue;
     }
+    const float* ls = lights + (size_t)light * kLightScalars;
+    f32 lbase[3];
+    shade_light<NV>(px, ls, noise, light * ppl, sample_count, vis, lbase,
+                    [&](int slot, const f32* b, V3 d, f32 t_max) {
+                      float* o = out + (size_t)(3 + 7 * (light * ppl + slot)) * P + p;
+                      o[0] = raw(b[0]);
+                      o[P] = raw(b[1]);
+                      o[2 * P] = raw(b[2]);
+                      o[3 * P] = raw(d.x);
+                      o[4 * P] = raw(d.y);
+                      o[5 * P] = raw(d.z);
+                      o[6 * P] = raw(t_max);
+                    });
+#pragma unroll
+    for (int c = 0; c < 3; ++c) base[c] = base[c] + lbase[c];
   }
-  if (!live) return;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float* o = out + (size_t)c * P + p;

@@ -19,7 +19,10 @@
 //   VR_MIS        1 for DIFFUSE_SPECULAR_MIS (PSA pair only), 0 for
 //                 DIFFUSE_ONLY;
 //   VR_HEURISTIC  MIS heuristic (render/fused.py HEURISTIC_IDS), read only
-//                 under VR_MIS.
+//                 under VR_MIS;
+//   VR_COUNT_OPS  1 in the counting build, whose f32 counts every float
+//                 operation executed (count_ops.cuh); f32 is float
+//                 otherwise.
 #pragma once
 
 #include "common.cuh"
@@ -199,41 +202,17 @@ K_INLINE f32 acos_soa(f32 x) {
 
 // --- the pixel and the light -------------------------------------------------
 
-// First plane of each of the pixel's matrices (render/fused.py
-// BASE_PLANES): world->shading and world->cosine space (3x4, rows), shading
-// <-> cosine space (3x3).
-constexpr int kW2s = 20, kW2c = 32, kS2c = 44, kC2s = 53;
-
-// One of the pixel's matrices, read from its input planes through the
-// read-only path where an element is used: element k is plane first + k.
-struct Matrix {
-  const float* __restrict__ column;  // plane `first` at this pixel
-  size_t P;
-  K_INLINE f32 operator[](int k) const {
-    return __ldg(column + (size_t)k * P);
-  }
-};
-
-// The pixel's 20 scalars stay in registers through the light loop; its
-// four matrices (42 floats) are read where they are used, so that they
-// hold no registers across the light and sample loops.
 struct Pixel {
   V3 position, normal, outgoing, albedo, fresnel_0;
   f32 lambert_out, roughness, ltc_albedo, ltc_det;
   bool hit;
-  const float* __restrict__ column;  // plane 0 at this pixel
-  size_t P;
-  K_INLINE Matrix matrix(int first) const {
-    return {column + (size_t)first * P, P};
-  }
+  f32 w2s[12], w2c[12], s2c[9], c2s[9];
 };
 
 // The 62 base planes of pixel p (render/fused.py BASE_PLANES).
 K_INLINE Pixel load_pixel(const float* __restrict__ planes, size_t P, int p) {
   auto in = [&](int k) { return planes[(size_t)k * P + p]; };
   Pixel px;
-  px.column = planes + p;
-  px.P = P;
   px.position = {in(0), in(1), in(2)};
   px.normal = {in(3), in(4), in(5)};
   px.outgoing = {in(6), in(7), in(8)};
@@ -244,6 +223,14 @@ K_INLINE Pixel load_pixel(const float* __restrict__ planes, size_t P, int p) {
   px.hit = in(17) > 0.5f;
   px.ltc_albedo = in(18);
   px.ltc_det = in(19);
+#pragma unroll
+  for (int k = 0; k < 12; ++k) px.w2s[k] = in(20 + k);
+#pragma unroll
+  for (int k = 0; k < 12; ++k) px.w2c[k] = in(32 + k);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) px.s2c[k] = in(44 + k);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) px.c2s[k] = in(53 + k);
   return px;
 }
 
@@ -284,43 +271,28 @@ K_INLINE V3 light_rot_col(const float* ls, int k) {
 }
 
 // Rows of a 3x4 world->space matrix applied to a point, and the transposed
-// rotation applied to a direction (render/fused.py _affine, _rot_t_apply);
-// W is a Matrix or FlippedRows.
-template <class W>
-K_INLINE V3 affine(const W& w, V3 v) {
+// rotation applied to a direction (render/fused.py _affine, _rot_t_apply).
+K_INLINE V3 affine(const f32 (&w)[12], V3 v) {
   return {(w[0] * v.x + w[1] * v.y + w[2] * v.z) + w[3],
           (w[4] * v.x + w[5] * v.y + w[6] * v.z) + w[7],
           (w[8] * v.x + w[9] * v.y + w[10] * v.z) + w[11]};
 }
-template <class W>
-K_INLINE V3 rot_t_apply(const W& w, V3 d) {
+K_INLINE V3 rot_t_apply(const f32 (&w)[12], V3 d) {
   return {d.x * w[0] + d.y * w[4] + d.z * w[8],
           d.x * w[1] + d.y * w[5] + d.z * w[9],
           d.x * w[2] + d.y * w[6] + d.z * w[10]};
 }
 
-// The winding flip of the PSA samplers: row 1 of a 3x4 matrix negated when
-// the shading point is behind the light plane (glsl:444-452). The flipped
-// row is held; rows 0 and 2 are read from the planes.
-struct FlippedRows {
-  Matrix m;
-  f32 row1[4];
-  K_INLINE f32 operator[](int k) const {
-    return (k >= 4 && k < 8) ? row1[k - 4] : m[k];
-  }
-};
-
-K_INLINE FlippedRows flipped_rows(const Pixel& px, const float* ls,
-                                  int first) {
+// The winding flip of the PSA samplers: row 1 of the matrix negated when
+// the shading point is behind the light plane (glsl:444-452).
+K_INLINE void flipped_rows(const Pixel& px, const float* ls,
+                           const f32 (&w)[12], f32 (&out)[12]) {
   const f32 side = (px.position.x * ls[kLsPlane] +
                       px.position.y * ls[kLsPlane + 1] +
                       px.position.z * ls[kLsPlane + 2]) + ls[kLsPlane + 3];
   const f32 flip = side < 0.0f ? -1.0f : 1.0f;
-  FlippedRows rows;
-  rows.m = px.matrix(first);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) rows.row1[k] = flip * rows.m[4 + k];
-  return rows;
+  for (int k = 0; k < 12; ++k) out[k] = (k >= 4 && k < 8) ? flip * w[k] : w[k];
 }
 
 // --- clipping to z >= 0 (ops/soa.py clip_soa) ------------------------------
@@ -466,7 +438,8 @@ K_INLINE Radiance rad_brdf(const Pixel& px, const float* ls, V3 d) {
 
 // --- LTC density and MIS (ops/soa.py) ---------------------------------------
 
-K_INLINE f32 ltc_density(const Matrix& s2c, f32 det, V3 d, f32 rcp_psa) {
+K_INLINE f32 ltc_density(const f32 (&s2c)[9], f32 det, V3 d,
+                           f32 rcp_psa) {
   const f32 dx = s2c[0] * d.x + s2c[1] * d.y + s2c[2] * d.z;
   const f32 dy = s2c[3] * d.x + s2c[4] * d.y + s2c[5] * d.z;
   const f32 dz = s2c[6] * d.x + s2c[7] * d.y + s2c[8] * d.z;
@@ -1732,7 +1705,7 @@ struct ShadingSpace {
                                   V3 (&dirs)[M], int& count) {
     V3 vs[NV];
 #pragma unroll
-    for (int k = 0; k < NV; ++k) vs[k] = affine(px.matrix(kW2s), light_vert(ls, k));
+    for (int k = 0; k < NV; ++k) vs[k] = affine(px.w2s, light_vert(ls, k));
     bool clip_ok = true;
     if constexpr (kClip) {
       V3 clipped[M];
@@ -1766,7 +1739,7 @@ struct ClippedSolidAngleSampler {
   }
   K_INLINE bool sample(const Pixel& px, const float*, f32 r0, f32 r1,
                        V3& d, f32& dens) const {
-    d = rot_t_apply(px.matrix(kW2s), sample_sa<M>(fan, r0, r1));
+    d = rot_t_apply(px.w2s, sample_sa<M>(fan, r0, r1));
     dens = density;
     return true;
   }
@@ -1787,7 +1760,7 @@ struct HartBilinearSampler {
   }
   K_INLINE bool sample(const Pixel& px, const float*, f32 r0, f32 r1,
                        V3& d, f32& density) const {
-    d = rot_t_apply(px.matrix(kW2s), sample_hart_bilinear<M>(w, r0, r1, density));
+    d = rot_t_apply(px.w2s, sample_hart_bilinear<M>(w, r0, r1, density));
     return true;
   }
 };
@@ -1807,7 +1780,7 @@ struct HartBiquadraticSampler {
   }
   K_INLINE bool sample(const Pixel& px, const float*, f32 r0, f32 r1,
                        V3& d, f32& density) const {
-    d = rot_t_apply(px.matrix(kW2s), sample_hart_biquadratic<M>(w, r0, r1, density));
+    d = rot_t_apply(px.w2s, sample_hart_biquadratic<M>(w, r0, r1, density));
     return true;
   }
 };
@@ -1817,12 +1790,12 @@ struct HartBiquadraticSampler {
 template <int NV>
 struct PsaSampler {
   static constexpr int M = NV + 1;
-  FlippedRows rows;
+  f32 rows[12];
   PsaPoly<M> poly;
   f32 rcp_psa;
   bool ok;
   K_INLINE void prepare(const Pixel& px, const float* ls) {
-    rows = flipped_rows(px, ls, kW2s);
+    flipped_rows(px, ls, px.w2s, rows);
     V3 vs[NV], clipped[M];
 #pragma unroll
     for (int k = 0; k < NV; ++k) vs[k] = affine(rows, light_vert(ls, k));
@@ -1845,12 +1818,12 @@ struct PsaSampler {
 template <int NV>
 struct ArvoPsaSampler {
   static constexpr int M = NV + 1;
-  FlippedRows rows;
+  f32 rows[12];
   ArvoPoly<M> poly;
   f32 rcp_psa;
   bool ok;
   K_INLINE void prepare(const Pixel& px, const float* ls) {
-    rows = flipped_rows(px, ls, kW2s);
+    flipped_rows(px, ls, px.w2s, rows);
     V3 vs[NV], clipped[M];
 #pragma unroll
     for (int k = 0; k < NV; ++k) vs[k] = affine(rows, light_vert(ls, k));
@@ -1933,8 +1906,9 @@ K_INLINE void shade_light_mis(const Pixel& px, const float* ls,
   const f32 scale = inverse_count(n);
   const f32 rad[3] = {ls[kLsRadiance], ls[kLsRadiance + 1],
                         ls[kLsRadiance + 2]};
-  const FlippedRows w2s = flipped_rows(px, ls, kW2s);
-  const FlippedRows w2c = flipped_rows(px, ls, kW2c);
+  f32 w2s[12], w2c[12];
+  flipped_rows(px, ls, px.w2s, w2s);
+  flipped_rows(px, ls, px.w2c, w2c);
   V3 vs[NV], vc[NV];
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
@@ -1978,18 +1952,20 @@ K_INLINE void shade_light_mis(const Pixel& px, const float* ls,
     noise.pair(j0 + 2 * s + 1, r2, r3);
     const V3 d_diffuse = sample_psa<M>(poly_d, r0, r1);
     const V3 d_spec_c = sample_psa<M>(poly_s, r2, r3);
-    const Matrix c2s = px.matrix(kC2s);
     V3 d_specular = {
-        c2s[0] * d_spec_c.x + c2s[1] * d_spec_c.y + c2s[2] * d_spec_c.z,
-        c2s[3] * d_spec_c.x + c2s[4] * d_spec_c.y + c2s[5] * d_spec_c.z,
-        c2s[6] * d_spec_c.x + c2s[7] * d_spec_c.y + c2s[8] * d_spec_c.z};
+        px.c2s[0] * d_spec_c.x + px.c2s[1] * d_spec_c.y +
+            px.c2s[2] * d_spec_c.z,
+        px.c2s[3] * d_spec_c.x + px.c2s[4] * d_spec_c.y +
+            px.c2s[5] * d_spec_c.z,
+        px.c2s[6] * d_spec_c.x + px.c2s[7] * d_spec_c.y +
+            px.c2s[8] * d_spec_c.z};
     d_specular = normalize3(d_specular);
     for (int j = 0; j < 2; ++j) {
       const V3 d_sh = j == 0 ? d_diffuse : d_specular;
       const bool in_upper = d_sh.z > 0.0f;
       const f32 diffuse_density = d_sh.z * rcp_psa_d;
       const f32 specular_density =
-          ltc_density(px.matrix(kS2c), px.ltc_det, d_sh, rcp_psa_s);
+          ltc_density(px.s2c, px.ltc_det, d_sh, rcp_psa_s);
       const V3 d_world = rot_t_apply(w2s, d_sh);
       const Radiance r = rad_brdf(px, ls, d_world);
       const bool gate =
@@ -2038,37 +2014,6 @@ K_INLINE void shade_light(const Pixel& px, const float* ls,
 #pragma unroll
     for (int c = 0; c < 3; ++c) base_out[c] = 0.0f;
   }
-}
-
-// --- the group's light records, staged in shared memory --------------------
-//
-// A block copies its vertex-count group's light records (and ids) into
-// shared memory kLightChunk lights at a time, so that the light and sample
-// loops read them there (at most 14.8 KB a block).
-constexpr int kLightChunk = 64;
-
-struct LightChunk {
-  float records[kLightChunk * kLightScalars];
-  int ids[kLightChunk];
-};
-
-// Lights [start, start + count) of the group into `chunk`. Every thread of
-// the block calls it: it synchronises before (the previous chunk is read
-// no more) and after.
-K_INLINE void stage_lights(LightChunk& chunk, const float* __restrict__ lights,
-                           const int* __restrict__ light_ids, int start,
-                           int count) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < count * kLightScalars; i += blockDim.x) {
-    const int li = i / kLightScalars;
-    chunk.records[i] = __ldg(lights +
-                             (size_t)__ldg(light_ids + start + li) *
-                                 kLightScalars +
-                             (i - li * kLightScalars));
-  }
-  for (int i = threadIdx.x; i < count; i += blockDim.x)
-    chunk.ids[i] = __ldg(light_ids + start + i);
-  __syncthreads();
 }
 
 // Rays per light per pixel (render/fused.py rays_per_light).

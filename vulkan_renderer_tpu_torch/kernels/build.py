@@ -10,7 +10,8 @@ wrappers raise on a nonzero code. Nothing here runs at import time.
 All kernels are compiled with --fmad=false: nvcc would otherwise contract
 a*b+c into FMAs, and the kernels then stop matching their plain PyTorch
 versions (which round every product) on near-tie triangle edges and
-sector boundaries.
+sector boundaries. The one FMA they issue is written out
+(csrc/techniques.cuh two_product, whose result is exact either way).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -99,6 +101,52 @@ def register_report(report: str) -> list[str]:
     return [line.strip() for line in report.splitlines()
             if "Compiling entry" in line or "registers" in line
             or "spill" in line]
+
+
+def ptxas_table(report: str) -> list[dict]:
+    """One row per kernel of a build report (nvcc -Xptxas -v): the mangled
+    name, registers, stack frame, spill stores and loads, and static
+    shared memory in bytes."""
+    rows = []
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            rows.append({"function": entry.group(1), "registers": 0,
+                         "stack": 0, "spill_stores": 0, "spill_loads": 0,
+                         "smem": 0})
+            continue
+        if not rows:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if frame:
+            rows[-1].update(stack=int(frame.group(1)),
+                            spill_stores=int(frame.group(2)),
+                            spill_loads=int(frame.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            rows[-1]["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["smem"] = int(smem.group(1)) if smem else 0
+    return rows
+
+
+# Streaming multiprocessor limits of the H100 (sm_90).
+SM_REGISTERS, SM_WARPS, SM_BLOCKS = 65536, 64, 32
+SM_SHARED_BYTES, BLOCK_SHARED_RESERVED = 233472, 1024
+
+
+def resident_warps(registers: int, threads: int, smem: int) -> int:
+    """Theoretical warps resident on one SM for a kernel of this many
+    registers a thread, block size and static shared memory: registers are
+    allocated per warp in units of 256, shared memory per block with 1 KB
+    reserved."""
+    warps = -(-threads // 32)
+    per_warp = -(-max(registers, 1) * 32 // 256) * 256
+    blocks = min(SM_BLOCKS, SM_WARPS // warps,
+                 SM_REGISTERS // (per_warp * warps),
+                 SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVED))
+    return blocks * warps
 
 
 def load_library(name: str, functions: dict, defines: dict | None = None

@@ -44,9 +44,8 @@ def get_noise_image(table: torch.Tensor, width: int, height: int,
 
     Returns (2 * pair_count, height * width) float32 in [0, 1]: plane
     2 j + c holds component c of pair j (pairs in the order the shader
-    consumes them) for every pixel, pixels row-major. This is the layout of
-    K4's noise planes and, viewed as (lights, 2 * pairs per light, P), of
-    K5's light-major noise, so neither kernel's input needs a copy."""
+    consumes them) for every pixel, pixels row-major. The plain versions
+    of K4 and K5 read it; the kernels read the table (FrameNoise)."""
     th, tw = table.shape[1], table.shape[2]
     ys = torch.arange(height, device=table.device)
     xs = torch.arange(width, device=table.device)

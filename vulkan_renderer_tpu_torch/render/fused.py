@@ -598,9 +598,10 @@ _KERNELS = {"K4": ("fused_shading", "k4_fused_shading"),
             "K5": ("fused_resolved", "k5_fused_resolved")}
 # Threads per block and the blocks per SM that __launch_bounds__ asks the
 # register allocator for, per kernel: chosen by measurement over a few
-# candidates (tools/tune_shading.py, PERF.md section 6).
-LAUNCH_BOUNDS = {"K4": {"VR_THREADS": 128, "VR_MIN_BLOCKS": 1},
-                 "K5": {"VR_THREADS": 128, "VR_MIN_BLOCKS": 1}}
+# candidates (tools/tune_shading.py, PERF.md section 6). Both cap a thread
+# at 128 registers, 16 resident warps per SM.
+LAUNCH_BOUNDS = {"K4": {"VR_THREADS": 256, "VR_MIN_BLOCKS": 2},
+                 "K5": {"VR_THREADS": 128, "VR_MIN_BLOCKS": 4}}
 
 
 def library_defines(kernel: str, static, settings: RenderSettings) -> dict:

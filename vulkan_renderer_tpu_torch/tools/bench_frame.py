@@ -90,8 +90,12 @@ def light_layout():
                        light_vertex_counts=(4,) * 4)
 
 
-def kernel_defines(s, static):
+def kernel_defines(s, static, kernel="K4"):
+    """The defines of K4's or K5's library (trees that predate
+    fused.library_defines compose them as the wrappers did)."""
     from vulkan_renderer_tpu_torch.render import fused
+    if hasattr(fused, "library_defines"):
+        return fused.library_defines(kernel, static, s)
     return {**fused.kernel_defines(s),
             "VR_NV_MASK": fused.vertex_count_mask(static)}
 
@@ -197,71 +201,85 @@ def kernel_ms(torch, captured):
     }
 
 
+def sweep_experiments(data_dir, techniques):
+    """(cell, experiment) of the sweep cells for the techniques named
+    (PolygonSamplingTechnique names), screenshots under data_dir."""
+    from vulkan_renderer_tpu_torch.experiments import harness
+    experiments = harness.create_experiment_list()
+    out = []
+    for cell, first in SWEEP_CELLS:
+        for exp in experiments[first:first + 13]:
+            if exp.settings.polygon_sampling_technique.name in techniques:
+                out.append((cell, dataclasses.replace(
+                    exp, screenshot_path=os.path.join(
+                        data_dir, "bench_sweep",
+                        os.path.basename(exp.screenshot_path)))))
+    return out
+
+
+def capture_sweep(torch, data_dir, exp):
+    """Build the experiment's application and render its first frame once
+    with K5's arguments recorded: (a function rendering that frame again,
+    K5's arguments)."""
+    from vulkan_renderer_tpu_torch.assets.noise import \
+        advance_noise_random_numbers
+    from vulkan_renderer_tpu_torch.experiments import setups
+    from vulkan_renderer_tpu_torch.render import pipeline
+    app = setups.build_default_application(exp, data_dir, device="cuda")
+    _, randoms = advance_noise_random_numbers(app.noise_seed,
+                                              app.settings.animate_noise)
+    constants = pipeline.make_frame_constants(
+        app.scene_spec.camera, exp.width, exp.height, app.settings, randoms,
+        torch.device("cuda"))
+    captured = {}
+
+    def record(*args):
+        captured["args"] = args
+        return pipeline.KERNELS.fused_resolved(*args)
+
+    kernels = dataclasses.replace(pipeline.KERNELS, fused_resolved=record)
+
+    def frame():
+        with torch.no_grad():
+            return pipeline.render_frame_constants(
+                app.scene, app.static, app.settings, constants, exp.width,
+                exp.height, kernels)
+    frame()
+    torch.cuda.synchronize()
+    return frame, captured["args"]
+
+
 def sweep_measurements(torch, data_dir, techniques):
     """For each sweep cell and technique (PolygonSamplingTechnique names):
     the harness's median ms/frame, K5's ms on the frame's inputs, the
     device memory allocated before one frame and at its peak (GiB), and
     the hit share."""
-    from vulkan_renderer_tpu_torch.assets.noise import \
-        advance_noise_random_numbers
-    from vulkan_renderer_tpu_torch.experiments import harness, setups
+    from vulkan_renderer_tpu_torch.experiments import harness
     from vulkan_renderer_tpu_torch.render import pipeline
-    experiments = harness.create_experiment_list()
     rows = {}
-    for cell, first in SWEEP_CELLS:
-        for t, exp in enumerate(experiments[first:first + 13]):
-            tech = exp.settings.polygon_sampling_technique
-            if tech.name not in techniques:
-                continue
-            exp = dataclasses.replace(exp, screenshot_path=os.path.join(
-                data_dir, "bench_sweep",
-                os.path.basename(exp.screenshot_path)))
-            app = setups.build_default_application(exp, data_dir,
-                                                   device="cuda")
-            _, randoms = advance_noise_random_numbers(
-                app.noise_seed, app.settings.animate_noise)
-            constants = pipeline.make_frame_constants(
-                app.scene_spec.camera, exp.width, exp.height, app.settings,
-                randoms, torch.device("cuda"))
-            captured = {}
-
-            def record(*args):
-                captured["args"] = args
-                return pipeline.KERNELS.fused_resolved(*args)
-
-            kernels = dataclasses.replace(pipeline.KERNELS,
-                                          fused_resolved=record)
-
-            def frame():
-                with torch.no_grad():
-                    return pipeline.render_frame_constants(
-                        app.scene, app.static, app.settings, constants,
-                        exp.width, exp.height, kernels)
-            frame()
-            torch.cuda.synchronize()
-            before = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            frame()
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
-            args = captured["args"]
-            k5 = cuda_ms(torch, lambda: pipeline.KERNELS.fused_resolved(
-                *args), 3)
-            hit = float(args[0][HIT_PLANE].mean())
-            del app, captured, args, kernels
-            torch.cuda.empty_cache()
-            result = harness.run_experiments(
-                [exp], min_warmup_seconds=0.0,
-                min_warmup_frames=SWEEP_WARMUP,
-                measure_frames=SWEEP_MEASURED, data_directory=data_dir,
-                device="cuda")[0]
-            rows[f"{cell}/{tech.value}"] = {
-                "frame_ms": round(result.frame_time_ms, 4),
-                "k5_ms": round(k5, 4),
-                "allocated_gib": round(before / 2**30, 4),
-                "peak_gib": round(peak / 2**30, 4),
-                "hit_share": round(hit, 6)}
-            torch.cuda.empty_cache()
+    for cell, exp in sweep_experiments(data_dir, techniques):
+        frame, args = capture_sweep(torch, data_dir, exp)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        frame()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        k5 = cuda_ms(torch, lambda: pipeline.KERNELS.fused_resolved(*args), 3)
+        hit = float(args[0][HIT_PLANE].mean())
+        del frame, args
+        torch.cuda.empty_cache()
+        result = harness.run_experiments(
+            [exp], min_warmup_seconds=0.0, min_warmup_frames=SWEEP_WARMUP,
+            measure_frames=SWEEP_MEASURED, data_directory=data_dir,
+            device="cuda")[0]
+        tech = exp.settings.polygon_sampling_technique
+        rows[f"{cell}/{tech.value}"] = {
+            "frame_ms": round(result.frame_time_ms, 4),
+            "k5_ms": round(k5, 4),
+            "allocated_gib": round(before / 2**30, 4),
+            "peak_gib": round(peak / 2**30, 4),
+            "hit_share": round(hit, 6)}
+        torch.cuda.empty_cache()
     return rows
 
 
