@@ -371,7 +371,7 @@ def run():
     out_p = fused.fused_light_shading_plain(*f_args)
     r4 = kernel_check.compare(out_k, out_p)
     k4_err = r4["max_abs_err"]
-    k4_hits = float(planes[bench.HIT_PLANE].mean())
+    k4_hits = float(bench.hit_mask(planes).mean())
     log(f"K4 fused shading vs plain ({planes.shape[1]} pixels x "
         f"{static.light_count} lights, {out_p.shape[0]} planes, hit share "
         f"{k4_hits:.4f}): exact {r4['exact']:.6f} (tolerance: bit for "
@@ -416,7 +416,7 @@ def run():
     # --- 4c. K4's float operations on the bench frame ------------------------
     k4_ops_table, k4_ops = op_counts(torch, fused.fused_light_shading,
                                      f_args, kinds, stages)
-    k4_hit_lights = int(planes[bench.HIT_PLANE].sum()) * static.light_count
+    k4_hit_lights = int(bench.hit_mask(planes).sum()) * static.light_count
     log(f"K4 float operations (counting build, {planes.shape[1]} px x "
         f"{static.light_count} lights, {k4_hit_lights} hit pixel-lights): "
         f"{k4_ops} = {k4_ops / max(k4_hit_lights, 1):.1f} per hit "
@@ -545,7 +545,7 @@ def run():
                                            r4m["max_abs_err"])
         log(f"K5 and K4 MIS {variant} vs plain ({idx.numel()} of "
             f"{planes.shape[1]} px x {st.light_count} lights, hit share "
-            f"{float(sub[0][bench.HIT_PLANE].mean()):.4f}): K5 exact "
+            f"{float(bench.hit_mask(sub[0]).mean()):.4f}): K5 exact "
             f"{r5['exact']:.6f}, K4 exact {r4m['exact']:.6f} (tolerance: "
             f"bit for bit), max |d| {r5['max_abs_err']:.3g} / "
             f"{r4m['max_abs_err']:.3g}")
@@ -610,7 +610,7 @@ def run():
                     results["K2"]["max_abs_err"], dt)
             args = k5_args["args"]
             planes, noise, ls, st, s = args
-            hits = float(planes[bench.HIT_PLANE].mean())
+            hits = float(bench.hit_mask(planes).mean())
             idx = subset_indices(torch, SWEEP_SUBSET, planes.shape[1], device)
             sub = subset_args(args, idx)
             got5 = fused.fused_light_shading_resolved(*sub)

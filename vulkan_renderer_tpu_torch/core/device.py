@@ -39,3 +39,12 @@ def get_device(name: str | torch.device) -> torch.device:
         raise ValueError(f"unsupported device type {device.type!r}")
     set_precision_flags()
     return device
+
+
+def to_device_async(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """CPU tensor `t` on `device`, copied in stream order. A copy from
+    pageable memory makes the host wait for every kernel already queued;
+    one from pinned memory does not, so the host goes on queuing."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

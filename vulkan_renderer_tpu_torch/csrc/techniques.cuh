@@ -115,9 +115,10 @@ K_INLINE f32 clip01(f32 x) { return vrt::jclip(x, 0.0f, 1.0f); }
 // p = a * b rounded and its exact error e = a * b - p. The plain version
 // computes e with Dekker's split (17 operations); one fused multiply-add
 // rounds a * b - p once, and that difference is exactly representable, so
-// e is the same float (barring overflow of a * 4097 in Dekker's split, or
-// products in the subnormal range, which these inputs do not reach:
-// chip_smoke.py holds the kernels to their plain versions bit for bit).
+// e is the same float wherever Dekker's split is exact: |a|, |b| < 2^115,
+// |a * b| < 2^127, and a * b zero or at least 2^-102 in magnitude
+// (tests/test_torch_two_product.py pins that range; light vertices in the
+// shading frame lie far inside it).
 // The only FMA the kernels issue; --fmad=false keeps every other product
 // rounded on its own.
 K_INLINE void two_product(f32 a, f32 b, f32& p, f32& e) {

@@ -18,6 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.device import to_device_async
+
 
 def fetch_scalars(sample_index: int, texture_index_mask: int,
                   noise_random_numbers) -> tuple[int, int, int]:
@@ -122,8 +124,8 @@ def frame_noise(table: torch.Tensor, width: int, height: int,
         rows.append((off_x & (tw - 1), off_y & (th - 1), layer))
     fetches = torch.tensor(rows, dtype=torch.int32).reshape(-1, 3)
     return FrameNoise(
-        table=table, fetches=fetches.to(table.device), width=width,
-        height=height, pair_count=pair_count,
+        table=table, fetches=to_device_async(fetches, table.device),
+        width=width, height=height, pair_count=pair_count,
         texture_index_mask=texture_index_mask,
         random_numbers=tuple(int(v) for v in
                              np.asarray(noise_random_numbers, np.uint32)))

@@ -32,6 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..core.device import to_device_async
 from ..core.settings import (ErrorDisplay, MisHeuristic,
                              PolygonSamplingTechnique, RenderSettings,
                              SamplingStrategy)
@@ -649,11 +650,14 @@ def launch_kernel(kernel: str, lib, planes, noise: FrameNoise,
                   light_scalars, static, settings, out,
                   op_counts=None) -> None:
     """Launch K4 or K5 (`kernel`) from library `lib` over every vertex-count
-    group: the first launch writes `out`, the others add to it."""
+    group: the first launch writes `out`, the others add to it. Each
+    launch adds one to the kernel's wrapper's `launches`."""
     entry = getattr(lib, _KERNELS[kernel][1])
+    counter = _COUNTERS[kernel]
     table = noise.table
     for first, (nv, ids) in enumerate(vertex_groups(static)):
-        ids_t = torch.tensor(ids, dtype=torch.int32, device=planes.device)
+        ids_t = to_device_async(torch.tensor(ids, dtype=torch.int32),
+                                planes.device)
         with torch.cuda.device(planes.device):
             err = entry(
                 build.ptr(planes), planes.shape[1], build.ptr(table),
@@ -665,6 +669,7 @@ def launch_kernel(kernel: str, lib, planes, noise: FrameNoise,
                 None if op_counts is None else build.ptr(op_counts),
                 build.stream(planes.device))
         build.check_launch(err, _KERNELS[kernel][1])
+        counter.launches += 1
 
 
 def load_kernel(kernel: str, static, settings, extra_defines=None):
@@ -711,7 +716,6 @@ def fused_light_shading(planes: torch.Tensor, noise: FrameNoise,
     out = torch.empty((nout, p), dtype=torch.float32, device=planes.device)
     launch_kernel("K4", lib, planes, noise, light_scalars, static, settings,
                   out, op_counts)
-    fused_light_shading.launches += len(vertex_groups(static))
     return out
 
 
@@ -740,8 +744,9 @@ def fused_light_shading_resolved(planes: torch.Tensor, noise: FrameNoise,
     out = torch.empty((3, p), dtype=torch.float32, device=planes.device)
     launch_kernel("K5", lib, planes, noise, light_scalars, static, settings,
                   out, op_counts)
-    fused_light_shading_resolved.launches += len(vertex_groups(static))
     return out.T
 
 
 fused_light_shading_resolved.launches = 0
+# The launch counts that launch_kernel adds to, per kernel.
+_COUNTERS = {"K4": fused_light_shading, "K5": fused_light_shading_resolved}

@@ -47,8 +47,12 @@ WARMUP, FRAMES = 3, 15
 SWEEP_CELLS = (("central_4_128", 102), ("decentral_5_1x128spp", 193))
 SWEEP_WIDTH, SWEEP_HEIGHT = 1920, 1080
 SWEEP_WARMUP, SWEEP_MEASURED = 3, 7
-# BASE_PLANES row of the hit mask (render/fused.py).
-HIT_PLANE = 17
+
+
+def hit_mask(planes):
+    """The hit row (1 or 0 per pixel) of K4's or K5's (62, P) planes."""
+    from vulkan_renderer_tpu_torch.render import fused
+    return planes[fused.BASE_PLANES.index("hit")]
 
 
 def cuda_ms(torch, fn, reps):
@@ -265,7 +269,7 @@ def sweep_measurements(torch, data_dir, techniques):
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         k5 = cuda_ms(torch, lambda: pipeline.KERNELS.fused_resolved(*args), 3)
-        hit = float(args[0][HIT_PLANE].mean())
+        hit = float(hit_mask(args[0]).mean())
         del frame, args
         torch.cuda.empty_cache()
         result = harness.run_experiments(
@@ -318,7 +322,7 @@ def main(argv=None) -> int:
         "kernel_ms": {n: round(v, 4)
                       for n, v in kernel_ms(torch, captured).items()},
         "k4_hit_share": round(float(
-            captured["fused_shading"][0][HIT_PLANE].mean()), 6)}
+            hit_mask(captured["fused_shading"][0]).mean()), 6)}
     if args.sweep:
         del scene, captured
         torch.cuda.empty_cache()

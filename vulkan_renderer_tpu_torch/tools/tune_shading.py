@@ -12,7 +12,10 @@ each output equals the one of render/fused.py's LAUNCH_BOUNDS bit for bit,
 and prints one JSON line per kernel and candidate: registers, stack and
 spills (ptxas), theoretical resident warps per SM, and ms (CUDA events on
 the captured inputs, warm L2), beside the card's name and power limit.
-The wrappers use LAUNCH_BOUNDS only: this tool is how it was chosen.
+The wrappers use LAUNCH_BOUNDS only: this tool is how it was chosen, and
+is run again whenever the shared body csrc/techniques.cuh changes what a
+thread keeps live, or on another card. Its launches go through
+fused.launch_kernel, so they add to the wrappers' launch counts.
 """
 
 import argparse
