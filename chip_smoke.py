@@ -49,7 +49,22 @@ It
    (3 warm-up and 7 measured frames each; the harness's defaults of
    110/100 stay for real sweeps) with every launch counter reset before
    and read after: K5 must run, K4 must not; each frame is checked and each
-   cell's median ms printed beside the card.
+   cell's median ms printed beside the card;
+9. renders the bench frame on the per-pixel shading path (SceneStatic
+   fused="off": K1-K3 and plain PyTorch shading) with every launch counter
+   reset before and read after (K1, K2 and K3 must run, K4 and K5 must
+   not), holds it against the kernel frame with shadows on (K4) and off
+   (K5) at the CPU parity tests' frame tolerance (mean |sRGB difference|
+   <= 1e-3, >= 99% of pixels within 1e-2), and times both paths;
+10. runs the nine experiments that only the per-pixel path renders (error
+   displays 6-8, the IES light 46, GGX MIS 315, the linear lights 324-327)
+   through the harness at their full sizes (1 warm-up and 2 measured
+   frames), counters reset before and read after, and prints each one's
+   ms/frame, peak device memory and share of NaN/Inf (pink) pixels;
+11. renders one configuration of each per-pixel class (tools/
+   per_pixel_check.py: separately, random, GGX MIS, an error display,
+   IES, a textured area light, a linear light) at 64x32 on the card and
+   on the CPU and holds the frames together.
 
 The line before the last is a JSON object listing the kernels, each with
 its launches on the main path, time, plain version's time and bound
@@ -232,7 +247,7 @@ def run():
         SamplingStrategy)
     from vulkan_renderer_tpu_torch.render.shading import SceneStatic
     from vulkan_renderer_tpu_torch.tools import bench_frame as bench
-    from vulkan_renderer_tpu_torch.tools import kernel_check
+    from vulkan_renderer_tpu_torch.tools import kernel_check, per_pixel_check
 
     WIDTH, HEIGHT = bench.WIDTH, bench.HEIGHT
     SWEEP_WIDTH, SWEEP_HEIGHT = bench.SWEEP_WIDTH, bench.SWEEP_HEIGHT
@@ -755,6 +770,106 @@ def run():
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    # --- 9. the bench frame on the per-pixel path: counted run --------------
+    pp_static = dataclasses.replace(static, fused="off")
+    for fn in counters.values():
+        fn.launches = 0
+    with torch.no_grad():
+        pp_image = bench.render(scene, pp_static, settings)
+    torch.cuda.synchronize()
+    pp_launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"per-pixel bench frame launches: {pp_launches}")
+    for name in ("K1", "K2", "K3"):
+        check(pp_launches[name] > 0,
+              f"{name} was not launched by the per-pixel bench frame")
+    check(pp_launches["K4"] == pp_launches["K5"] == 0,
+          "the per-pixel bench frame launched K4 or K5")
+    no_shadows = dataclasses.replace(settings, trace_shadow_rays=False)
+    with torch.no_grad():
+        pp_image_k5 = bench.render(scene, pp_static, no_shadows)
+        k5_image = bench.render(scene, static, no_shadows)
+    for name, got, want in (("K4", image, pp_image),
+                            ("K5", k5_image, pp_image_k5)):
+        ok, stats = per_pixel_check.frames_agree(got.cpu().numpy(),
+                                                 want.cpu().numpy())
+        log(f"bench frame, {name} path vs per-pixel path: {stats} "
+            "(tolerance: mean <= 1e-3, >= 99% within 1e-2)")
+        check(ok, f"the {name} bench frame differs from the per-pixel one")
+    path_ms = {}
+    with torch.no_grad():
+        for label, st, s in (("per-pixel, shadows", pp_static, settings),
+                             ("per-pixel, no shadows", pp_static,
+                              no_shadows),
+                             ("K5, no shadows", static, no_shadows)):
+            path_ms[label] = float(np.median(bench.frame_ms(torch, scene,
+                                                            st, s)))
+    path_ms["K4, shadows"] = frame_median
+    for label, ms in path_ms.items():
+        log(f"bench frame ms, {label}: median {ms:.3f} ({bench.FRAMES} "
+            f"frames after {bench.WARMUP} warm-up) [{card}]")
+    print(json.dumps({"bench_frame_ms": {k: round(v, 4)
+                                         for k, v in path_ms.items()},
+                      "per_pixel_launches": pp_launches, "card": card}),
+          flush=True)
+    del pp_image, pp_image_k5, k5_image
+    torch.cuda.empty_cache()
+
+    # --- 10. the experiments only the per-pixel path renders ----------------
+    for fn in counters.values():
+        fn.launches = 0
+    experiment_rows = {}
+    for index in (6, 7, 8, 46, 315, 324, 325, 326, 327):
+        exp = experiments[index]
+        exp = dataclasses.replace(exp, screenshot_path=os.path.join(
+            data_dir, "smoke", os.path.basename(exp.screenshot_path)))
+        torch.cuda.reset_peak_memory_stats()
+        result = harness.run_experiments(
+            [exp], build_app, min_warmup_seconds=0.0, min_warmup_frames=1,
+            measure_frames=2, data_directory=data_dir, device="cuda")[0]
+        frame = last.pop("image")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(tuple(frame.shape) == (exp.height, exp.width, 3),
+              f"experiment {index} frame shape {tuple(frame.shape)}")
+        check(bool(torch.isfinite(frame).all()),
+              f"experiment {index} frame is not finite")
+        check(float(frame.mean()) > 0.0, f"experiment {index} is black")
+        pink_share = float((frame == pink).all(dim=-1).float().mean())
+        experiment_rows[index] = dict(
+            ms=round(result.frame_time_ms, 3), peak_gib=round(peak, 3),
+            pink_share=pink_share, width=exp.width, height=exp.height)
+        log(f"experiment {index:03d} {exp.width}x{exp.height}: "
+            f"{result.frame_time_ms:.3f} ms/frame (1 warm-up, 2 measured), "
+            f"peak device memory {peak:.3f} GiB, NaN/Inf (pink) pixels "
+            f"{pink_share:.6f} [{card}]")
+        check(peak < 40.0, f"experiment {index} took {peak:.1f} GiB")
+        del frame
+        torch.cuda.empty_cache()
+    exp_launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"per-pixel experiments launches: {exp_launches}")
+    for name in ("K1", "K2", "K3"):
+        check(exp_launches[name] > 0,
+              f"{name} was not launched by the per-pixel experiments")
+    check(exp_launches["K4"] == exp_launches["K5"] == 0,
+          "a per-pixel experiment launched K4 or K5")
+    print(json.dumps({"per_pixel_experiments": experiment_rows,
+                      "card": card}), flush=True)
+
+    # --- 11. the per-pixel classes, card against CPU -------------------------
+    files = per_pixel_check.write_scene_files(
+        os.path.join(data_dir, "per_pixel"))
+    scenes_card = per_pixel_check.load_scenes(files, "cuda")
+    scenes_cpu = per_pixel_check.load_scenes(files, "cpu")
+    for name in per_pixel_check.CLASSES:
+        with torch.no_grad():
+            got = per_pixel_check.render_class(scenes_card, name)
+            want = per_pixel_check.render_class(scenes_cpu, name)
+        ok, stats = per_pixel_check.compare_class(name, got.cpu().numpy(),
+                                                  want.numpy())
+        log(f"per-pixel class {name}, card vs CPU at "
+            f"{per_pixel_check.WIDTH}x{per_pixel_check.HEIGHT}: {stats}")
+        check(ok, f"per-pixel class {name}: the card's frame differs from "
+              "the CPU's")
+
     sources = {
         "K1": ("vulkan_renderer_tpu_torch/csrc/anyhit.cu",
                "vulkan_renderer_tpu/render/trace_kernel.py:637"),
@@ -821,7 +936,8 @@ def run():
                  "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
                  "bound_ms": round(bounds[name][0], 5),
                  "bound_by": bounds[name][1], "library_ms": None,
-                 "shape": shape}
+                 "shape": shape,
+                 "per_pixel_frame_launches": pp_launches[name]}
         if name in test_counts:
             entry.update(tests=test_counts[name],
                          design_ops_ms=round(design_ops_ms[name], 5))

@@ -185,15 +185,144 @@ def port_inputs(data, ltc, hit, specs):
     return planes, light_scalars, static
 
 
-def agreement(got, want, name):
+def agreement(got, want, name, exact_finite_pattern=True):
     """Fraction of finite reference values within 1e-4 of their array's
-    scale + 1e-3 relative; the finite pattern must match exactly."""
+    scale + 1e-3 relative. The finite pattern must match exactly, or,
+    with exact_finite_pattern False, a value finite in one array only
+    counts as a disagreement."""
     assert got.shape == want.shape, name
     fin = np.isfinite(want)
-    np.testing.assert_array_equal(np.isfinite(got), fin, err_msg=name)
+    if exact_finite_pattern:
+        np.testing.assert_array_equal(np.isfinite(got), fin, err_msg=name)
     if not fin.any():
         return 1.0
     scale = np.abs(want[fin]).max()
+    if not exact_finite_pattern:
+        either = fin | np.isfinite(got)
+        both = fin & np.isfinite(got)
+        close = np.zeros_like(both)
+        close[both] = np.abs(got[both] - want[both]) <= 1e-4 * scale \
+            + 1e-3 * np.abs(want[both])
+        return float(close[either].mean())
     ok = np.abs(got[fin] - want[fin]) <= 1e-4 * scale + 1e-3 * np.abs(
         want[fin])
     return float(ok.mean())
+
+
+# ---------------------------------------------------------------------------
+# The per-pixel path (render/shading.py, render/line_shading.py)
+# ---------------------------------------------------------------------------
+
+
+def per_pixel_scenes(specs, light_textures=None, linear_specs=()):
+    """(JAX scene, port scene) namespaces holding what the per-pixel
+    shading reads: the stacked lights, a float32 light atlas of
+    `light_textures` (default: one white texture; specs name theirs by
+    texture_index) and the linear lights."""
+    import types
+
+    from vulkan_renderer_tpu.render import texture as j_texture
+    from vulkan_renderer_tpu.scene import linear_lights as j_linear
+    from vulkan_renderer_tpu_torch.render import texture as t_texture
+    from vulkan_renderer_tpu_torch.scene import linear_lights as t_linear
+    textures = light_textures or [[np.ones((4, 4, 4), np.float32)]]
+    jscene = types.SimpleNamespace(
+        lights=stack_lights([update_polygonal_light(s) for s in specs]),
+        light_atlas=j_texture.build_texture_atlas(textures),
+        linear_lights=j_linear.stack_linear_lights(list(linear_specs)))
+    port_linear = [t_linear.LinearLightSpec(**dataclasses.asdict(s))
+                   for s in linear_specs]
+    scene = types.SimpleNamespace(
+        lights=lights_from_specs(to_port(specs), "cpu"),
+        light_atlas=t_texture.atlas_from_numpy(
+            t_texture.build_texture_atlas_np(textures, channels=4,
+                                             unorm16=False), "cpu"),
+        linear_lights=t_linear.stack_linear_lights(port_linear, "cpu"))
+    return jscene, scene
+
+
+def quantized_noise(shape, seed):
+    """Noise pairs as the UNORM16 tables hold them: k / 65535, 0 and 1
+    included."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 65536, size=shape) / 65535.0).astype(np.float32)
+
+
+def jax_frame_constants(settings):
+    """The JAX FrameConstants fields the per-pixel shading reads."""
+    from vulkan_renderer_tpu.render.shading import FrameConstants
+    return FrameConstants(
+        camera_position=jnp.zeros(3), pixel_to_ray=jnp.eye(3),
+        exposure_factor=jnp.float32(settings.exposure_factor),
+        roughness_factor=jnp.float32(settings.roughness_factor),
+        mis_visibility_estimate=jnp.float32(settings.mis_visibility_estimate),
+        error_factor=jnp.float32(10.0 ** (-settings.error_min_exponent)),
+        noise_random_numbers=jnp.zeros(4, jnp.uint32))
+
+
+def port_frame_constants(settings):
+    from vulkan_renderer_tpu_torch.render.shading import FrameConstants
+    return FrameConstants(
+        camera_position=torch.zeros(3), pixel_to_ray=torch.eye(3),
+        exposure_factor=float(settings.exposure_factor),
+        roughness_factor=float(settings.roughness_factor),
+        noise_random_numbers=(0, 0, 0, 0))
+
+
+def per_pixel_inputs(data, ltc):
+    """(JAX ShadingData, JAX LtcCoefficients, port ShadingData, port
+    LtcCoefficients) of shading_inputs' dictionaries."""
+    from vulkan_renderer_tpu.ops.ltc import LtcCoefficients as JLtc
+    return (JShadingData(**{k: jnp.asarray(v) for k, v in data.items()}),
+            JLtc(**{k: jnp.asarray(v) for k, v in ltc.items()}),
+            ShadingData(**{k: torch.from_numpy(v) for k, v in data.items()}),
+            LtcCoefficients(**{k: torch.from_numpy(v)
+                               for k, v in ltc.items()}))
+
+
+def compare_light_shading(settings, specs, seed, light_textures=None,
+                          p=480, threshold=0.99, report=None,
+                          exact_finite_pattern=True):
+    """Shade every light of specs at p seeded pixels with the JAX
+    package's evaluate_polygonal_light_shading (vmapped) and the port's;
+    every output (base, b, ray_dirs, t_max) must agree at `threshold`
+    (agreement above). Returns the port's results."""
+    from vulkan_renderer_tpu.render import shading as j_shading
+    from vulkan_renderer_tpu_torch.render import shading
+    data, ltc, _ = shading_inputs(seed, p)
+    jdata, jltc, tdata, tltc = per_pixel_inputs(data, ltc)
+    jscene, scene = per_pixel_scenes(specs, light_textures)
+    texturing = tuple(s.texturing_technique for s in specs)
+    counts = tuple(s.vertex_count for s in specs)
+    jstatic = j_shading.SceneStatic(light_count=len(specs),
+                                    light_texturing=texturing,
+                                    light_vertex_counts=counts)
+    static = shading.SceneStatic(light_count=len(specs),
+                                 light_texturing=texturing,
+                                 light_vertex_counts=counts)
+    ppl = j_shading.pairs_per_light(settings)
+    port_settings = to_port(settings)
+    assert shading.pairs_per_light(port_settings) == ppl
+    assert shading.rays_per_light(port_settings) \
+        == j_shading.rays_per_light(settings)
+    jconst = jax_frame_constants(settings)
+    const = port_frame_constants(settings)
+    results = []
+    for i in range(len(specs)):
+        noise = quantized_noise((p, ppl, 2), seed + 10 * i + 1)
+        want = jax.vmap(lambda d, l, nz: j_shading
+                        .evaluate_polygonal_light_shading(
+                            jscene, jstatic, settings, jconst, i, d, l,
+                            nz))(jdata, jltc, noise)
+        got = shading.evaluate_polygonal_light_shading(
+            scene, static, port_settings, const, i, tdata, tltc,
+            torch.from_numpy(noise))
+        for name in ("base", "b", "ray_dirs", "t_max"):
+            g = getattr(got, name).numpy()
+            w = np.asarray(getattr(want, name))
+            ok = agreement(g, w, f"light {i} {name}", exact_finite_pattern)
+            if report is not None:
+                report.append((name, i, ok))
+            assert ok >= threshold, (name, i, ok)
+        results.append(got)
+    return results

@@ -152,23 +152,29 @@ def test_fused_plain_matches_reference(inputs, heuristic, biased):
 
 
 def test_unsupported_settings_raise():
+    """K4/K5 cover what fused_supported accepts; check_supported (their
+    wrappers' guard) raises ValueError for the rest, which the frame
+    renders on the per-pixel path instead."""
     for kwargs in (dict(sampling_strategy=(
                        SamplingStrategy.DIFFUSE_SPECULAR_SEPARATELY)),
                    dict(sampling_strategy=SamplingStrategy.DIFFUSE_GGX_MIS,
                         mis_heuristic=MisHeuristic.BALANCE,
                         polygon_sampling_technique=(
                             PolygonSamplingTechnique.SOLID_ANGLE))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fused.check_supported(STATIC, to_port(RenderSettings(**kwargs)))
+        settings = to_port(RenderSettings(**kwargs))
+        assert not fused.fused_supported(STATIC, settings)
+        with pytest.raises(ValueError, match="per-pixel path"):
+            fused.check_supported(STATIC, settings)
     # Every technique is fused under DIFFUSE_ONLY.
     for tech in PolygonSamplingTechnique:
         fused.check_supported(STATIC, to_port(RenderSettings(
             sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
             polygon_sampling_technique=tech)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused.check_supported(
-            dataclasses.replace(STATIC, light_texturing=(1, 0)),
-            to_port(RenderSettings()))
+    for static in (dataclasses.replace(STATIC, light_texturing=(1, 0)),
+                   dataclasses.replace(STATIC, linear_light_count=1)):
+        assert not fused.fused_supported(static, to_port(RenderSettings()))
+        with pytest.raises(ValueError, match="per-pixel path"):
+            fused.check_supported(static, to_port(RenderSettings()))
     fused.check_supported(STATIC, to_port(RenderSettings()))
     # The JAX package's settings class is refused, not misread.
     with pytest.raises(TypeError, match="port's RenderSettings"):

@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (K1-K5 and a whole frame), on a tiny city and the roughness-planes
-stand-in. Marked gpu: they skip where
+stand-in; the per-pixel shading path on the card against the same frame
+on the CPU, one configuration of each class (tools/per_pixel_check.py,
+which states that tolerance); and the shading-path dispatch by the launch
+counters. Marked gpu: they skip where
 torch.cuda.is_available() is False. This file imports only the port (no
 JAX, nothing of the JAX package), so on a machine with a card and no JAX
 it runs without the repository's conftest:
@@ -32,7 +35,7 @@ from vulkan_renderer_tpu_torch.render.shading import SceneStatic
 from vulkan_renderer_tpu_torch.scene.camera import FirstPersonCamera
 from vulkan_renderer_tpu_torch.scene.lights import PolygonalLightSpec
 from vulkan_renderer_tpu_torch.scene.scene import load_scene
-from vulkan_renderer_tpu_torch.tools import kernel_check
+from vulkan_renderer_tpu_torch.tools import kernel_check, per_pixel_check
 from vulkan_renderer_tpu_torch.tools.city import write_city_scene
 from vulkan_renderer_tpu_torch.tools.export_scene import write_test_scene
 
@@ -220,3 +223,73 @@ def test_resolved_mis_kernel_matches_plain(planes_scene, tech, heuristic):
     r = kernel_check.compare(got.T, want.T)
     assert r["exact"] == 1.0 and r["nonfinite_mismatch"] == 0, r
     assert float(want.abs().max()) > 0
+
+
+# --- the per-pixel path ------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def per_pixel_scenes(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    files = per_pixel_check.write_scene_files(
+        str(tmp_path_factory.mktemp("per_pixel")))
+    return (per_pixel_check.load_scenes(files, "cuda"),
+            per_pixel_check.load_scenes(files, "cpu"))
+
+
+@pytest.mark.parametrize("name", list(per_pixel_check.CLASSES))
+def test_per_pixel_frame_matches_cpu(per_pixel_scenes, name):
+    card, cpu = per_pixel_scenes
+    got = per_pixel_check.render_class(card, name).cpu().numpy()
+    want = per_pixel_check.render_class(cpu, name).numpy()
+    ok, stats = per_pixel_check.compare_class(name, got, want)
+    assert ok, stats
+
+
+def _launches(scene, static, settings, camera, w=32, h=16):
+    counters = {"K1": tk.trace_anyhit, "K2": tk.trace_closest,
+                "K3": tk.closest_attrs, "K4": fused.fused_light_shading,
+                "K5": fused.fused_light_shading_resolved}
+    for fn in counters.values():
+        fn.launches = 0
+    pipeline.render_frame(scene, static, camera, settings, w, h)
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+@pytest.mark.parametrize("shadows", [False, True])
+def test_dispatch_launches_fused_kernels_where_supported(planes_scene,
+                                                         shadows):
+    """fused "auto" on CUDA tensors launches K5 (no shadows) or K4
+    (shadows) for every configuration fused_supported accepts (all 13
+    techniques under DIFFUSE_ONLY, the PSA pair under
+    DIFFUSE_SPECULAR_MIS), and neither for a per-pixel configuration or
+    under "off", where K2 and K3 (and K1 with shadows) still run; "on"
+    raises where the kernels do not cover the settings."""
+    scene, camera = planes_scene
+    supported = [RenderSettings(
+        sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
+        polygon_sampling_technique=tech, trace_shadow_rays=shadows)
+        for tech in Tech] + [RenderSettings(
+            polygon_sampling_technique=tech, trace_shadow_rays=shadows)
+        for tech in (Tech.PROJECTED_SOLID_ANGLE,
+                     Tech.PROJECTED_SOLID_ANGLE_BIASED)]
+    fused_kernel, other = ("K4", "K5") if shadows else ("K5", "K4")
+    for settings in supported:
+        static = SceneStatic.for_scene(scene)
+        assert fused.fused_supported(static, settings)
+        n = _launches(scene, static, settings, camera)
+        assert n[fused_kernel] > 0 and n[other] == 0, (settings, n)
+        n = _launches(scene, SceneStatic.for_scene(scene, fused="off"),
+                      settings, camera)
+        assert n["K4"] == n["K5"] == 0 and n["K2"] == 1 and n["K3"] == 1
+        assert (n["K1"] > 0) == shadows, n
+    per_pixel = RenderSettings(
+        sampling_strategy=SamplingStrategy.DIFFUSE_SPECULAR_SEPARATELY,
+        trace_shadow_rays=shadows)
+    n = _launches(scene, SceneStatic.for_scene(scene), per_pixel, camera)
+    assert n["K4"] == n["K5"] == 0 and (n["K1"] > 0) == shadows, n
+    with pytest.raises(ValueError, match="fused='on'"):
+        _launches(scene, SceneStatic.for_scene(scene, fused="on"),
+                  per_pixel, camera)

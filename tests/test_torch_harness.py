@@ -85,15 +85,81 @@ def test_layouts_match_reference(layout):
 
 
 def test_unported_experiments_are_named(tmp_path, capsys):
-    """Error displays, IES lights, DIFFUSE_GGX_MIS and linear lights raise
-    NotImplementedError naming the ROADMAP item; the CLI reports each."""
-    exps = harness.create_experiment_list()
-    for i in (6, 46, 315, 324):  # error display, IES, GGX MIS, linear
+    """The HDR capture (--hdr, frame_bits; ROADMAP Queue 1 item 13) raises
+    NotImplementedError naming the ROADMAP item; the CLI reports it."""
+    exps = harness.create_experiment_list(take_hdr_screenshots=True)
+    for i in (6, 46, 315, 324):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             harness.check_experiment(exps[i])
-    rc = harness.main(["-e", "6", "--device", "cpu", "--results-csv",
-                       str(tmp_path / "r.csv")])
+    rc = harness.main(["-e", "6", "--hdr", "--device", "cpu",
+                       "--results-csv", str(tmp_path / "r.csv")])
     assert rc == 3 and "006: not ported" in capsys.readouterr().out
+
+
+def test_ies_and_linear_layouts_match_reference(tmp_path):
+    """The IES-profile light (its stand-in profile texture byte for byte)
+    and the linear-light layout of the HPG figures."""
+    exp = j_harness.Experiment(1, 1, "attic", RenderSettings(), "x",
+                               light_layout="ies_profile")
+    port_exp = harness.Experiment(1, 1, "attic", to_port(RenderSettings()),
+                                  "x", light_layout="ies_profile")
+    (tmp_path / "jax").mkdir()
+    ours = setups.experiment_lights(port_exp, str(tmp_path / "port"))
+    ref = j_setups.experiment_lights(exp, str(tmp_path / "jax"))
+    assert len(ours) == len(ref) == 1
+    assert filecmp.cmp(ours[0].texture_file_path, ref[0].texture_file_path,
+                       shallow=False)
+    for f in dataclasses.fields(ours[0]):
+        if f.name != "texture_file_path":
+            np.testing.assert_array_equal(np.asarray(getattr(ours[0],
+                                                             f.name)),
+                                          np.asarray(getattr(ref[0],
+                                                             f.name)))
+    linear = dataclasses.replace(exp, light_layout="linear")
+    port_linear = dataclasses.replace(port_exp, light_layout="linear")
+    assert setups.experiment_lights(port_linear) == []
+    ours = setups.experiment_linear_lights(port_linear)
+    ref = j_setups.experiment_linear_lights(linear)
+    assert len(ours) == len(ref) == 1
+    for f in dataclasses.fields(ours[0]):
+        np.testing.assert_array_equal(getattr(ours[0], f.name),
+                                      getattr(ref[0], f.name))
+
+
+def test_every_experiment_passes_check(tmp_path):
+    """All 328 experiments render: K4/K5 where fused_supported holds, the
+    per-pixel path for the rest (error displays 6-8, the IES light 46,
+    GGX MIS 315, the linear lights 324-327 among them)."""
+    from vulkan_renderer_tpu_torch.render.fused import fused_supported
+    from vulkan_renderer_tpu_torch.render.shading import SceneStatic
+    exps = harness.create_experiment_list()
+    assert len(exps) == 328
+    per_pixel = []
+    for i, e in enumerate(exps):
+        harness.check_experiment(e)
+        lights = setups.experiment_lights(e, str(tmp_path))
+        static = SceneStatic(
+            light_count=len(lights),
+            light_texturing=tuple(s.texturing_technique for s in lights),
+            light_vertex_counts=tuple(s.vertex_count for s in lights),
+            linear_light_count=len(setups.experiment_linear_lights(e)))
+        if not fused_supported(static, e.settings):
+            per_pixel.append(i)
+    assert per_pixel == [6, 7, 8, 46, 315, 324, 325, 326, 327]
+
+
+@pytest.mark.parametrize("index", [6, 46, 315, 324])
+def test_per_pixel_experiment_runs_on_cpu(tmp_path, index):
+    """An error display, the IES light, GGX MIS and a linear light through
+    the CLI at 32x16."""
+    rc = harness.main([
+        "-e", str(index), "--device", "cpu", "--width", "32", "--height",
+        "16", "--warmup-frames", "1", "--measure-frames", "2",
+        "--output-dir", str(tmp_path / "out"),
+        "--data-directory", str(tmp_path / "data"),
+        "--results-csv", str(tmp_path / "r.csv")])
+    assert rc == 0
+    assert len(os.listdir(tmp_path / "out")) == 1
 
 
 def test_timing_experiment_runs_on_cpu(tmp_path):

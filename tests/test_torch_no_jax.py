@@ -3,8 +3,9 @@ a fresh interpreter, import every module of vulkan_renderer_tpu_torch (the
 experiment harness, setups, registry, Application and the technique
 modules among them), write and load a tiny scene with the port's own
 tools, render a shadowed frame and a no-shadow DIFFUSE_ONLY frame (the K5
-path) on the CPU, run a timing-sweep experiment through the harness, and
-check that sys.modules holds no jax and no module of vulkan_renderer_tpu
+path), a per-pixel frame (DIFFUSE_SPECULAR_SEPARATELY with shadows) and a
+linear-light frame on the CPU, run a timing-sweep experiment through the
+harness, and check that sys.modules holds no jax and no module of vulkan_renderer_tpu
 (data files of the JAX package are read by path, not by import)."""
 
 import os
@@ -51,6 +52,22 @@ img = render_frame(scene, SceneStatic.for_scene(scene), camera,
                            PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE_ARVO)),
                    32, 16)
 assert bool(img.isfinite().all())
+img = render_frame(scene, SceneStatic.for_scene(scene, fused="off"), camera,
+                   RenderSettings(
+                       sampling_strategy=(
+                           SamplingStrategy.DIFFUSE_SPECULAR_SEPARATELY),
+                       trace_shadow_rays=True), 32, 16)
+assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
+from vulkan_renderer_tpu_torch.scene.linear_lights import LinearLightSpec
+tube = LinearLightSpec(start=np.array([0.2, 1.0, 1.9], np.float32),
+                       end=np.array([1.8, 1.0, 1.9], np.float32),
+                       radiant_flux=np.array([40.0, 36.0, 30.0], np.float32))
+linear = load_scene(vks, d + "/cornell_box_textures", [], "cpu",
+                    noise=white_noise_table(32, 32, 4),
+                    linear_light_specs=[tube])
+img = render_frame(linear, SceneStatic.for_scene(linear), camera,
+                   RenderSettings(), 32, 16)
+assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
 from vulkan_renderer_tpu_torch.experiments import harness
 assert harness.main(["-e", "193", "--device", "cpu", "--width", "16",
                      "--height", "8", "--warmup-frames", "1",

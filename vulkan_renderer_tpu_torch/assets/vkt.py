@@ -25,10 +25,22 @@ MARKER = 0xBC1BC1
 EOF_MARKER = 0xE0FE0F
 VERSION = 1
 
+VK_FORMAT_R16G16B16_SFLOAT = 90
 VK_FORMAT_R16G16B16A16_SFLOAT = 97
+VK_FORMAT_R32G32B32_SFLOAT = 106
+VK_FORMAT_R32G32B32A32_SFLOAT = 109
 VK_FORMAT_BC1_RGB_UNORM_BLOCK = 131
 VK_FORMAT_BC1_RGB_SRGB_BLOCK = 132
 VK_FORMAT_BC5_UNORM_BLOCK = 141
+
+
+# The float formats decode_to_float reads: (element type, channels).
+_FLOAT_FORMATS = {
+    VK_FORMAT_R16G16B16_SFLOAT: (np.float16, 3),
+    VK_FORMAT_R16G16B16A16_SFLOAT: (np.float16, 4),
+    VK_FORMAT_R32G32B32_SFLOAT: (np.float32, 3),
+    VK_FORMAT_R32G32B32A32_SFLOAT: (np.float32, 4),
+}
 
 
 @dataclasses.dataclass
@@ -55,12 +67,14 @@ class Texture2d:
                     img = srgb_to_linear_np(img)
             elif self.format == VK_FORMAT_BC5_UNORM_BLOCK:
                 img = decode_bc5(raw, w, h)
+            elif self.format in _FLOAT_FORMATS:
+                # Light textures (probes, IES profiles) in half or single
+                # precision, 3 or 4 channels.
+                dtype, channels = _FLOAT_FORMATS[self.format]
+                img = raw.view(dtype).reshape(h, w, channels) \
+                    .astype(np.float32)
             else:
-                # Float formats only carry light textures, which the port
-                # does not render yet (ROADMAP Queue 1, item 11).
-                raise NotImplementedError(
-                    f"decoding VkFormat {self.format}: the port decodes "
-                    "the BC1/BC5 material formats only")
+                raise ValueError(f"unsupported VkFormat {self.format}")
             out.append(img)
         return out
 

@@ -52,7 +52,9 @@ class ApplicationUpdates:
 
 @dataclasses.dataclass
 class SceneSpecification:
-    """scene_specification_t: file paths, camera and lights."""
+    """scene_specification_t: file paths, camera, polygonal lights and
+    linear (line segment) lights, the HPG 2021 branch's light type
+    (line_sampling.glsl), rendered beside the polygonal ones."""
     name: str = "cornell_box"
     vks_path: str = ""
     texture_dir: str = ""
@@ -72,9 +74,6 @@ class Application:
                  width: int = 1920, height: int = 1080,
                  frames_in_flight: int = 3, data_directory: str = "data",
                  device: str | torch.device = "cuda"):
-        if scene_spec.linear_lights:
-            raise NotImplementedError(
-                "linear lights are not ported (ROADMAP Queue 1, item 11)")
         self.scene_spec = scene_spec
         self.settings = settings or RenderSettings()
         self.width = width
@@ -123,7 +122,8 @@ class Application:
             self.scene_spec.vks_path, self.scene_spec.texture_dir,
             self.scene_spec.lights, self.device,
             noise_type=self.settings.noise_type,
-            data_directory=self.data_directory)
+            data_directory=self.data_directory,
+            linear_light_specs=self.scene_spec.linear_lights)
         self.static = SceneStatic.for_scene(self.scene)
 
     def _rebuild_scene_noise(self) -> None:

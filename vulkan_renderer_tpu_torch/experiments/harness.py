@@ -12,10 +12,12 @@ for index, so `-e N` names the same experiment in both packages.
 
 Quicksaves load verbatim when the reference's .save files are present;
 otherwise experiments/setups.py rebuilds the documented layout and the
-output name carries `standin`. A CPU run carries `_cpu`. Experiments that
-need what the port lacks (error displays, IES/textured and linear lights,
-the per-pixel strategies such as DIFFUSE_GGX_MIS) raise
-NotImplementedError naming their ROADMAP item; the CLI reports them.
+output name carries `standin`. A CPU run carries `_cpu`. Every experiment
+renders: the fused kernels K4/K5 where they cover the settings, the
+per-pixel path (error displays, IES/textured and linear lights, the other
+strategies) elsewhere. Only the HDR capture (--hdr) is not ported: those
+runs raise NotImplementedError naming their ROADMAP item, and the CLI
+reports them.
 
 Run on the card (the timing sweep is experiments 50-309: 13 techniques
 per cell, cells in the order vertex count 3-7 x central/decentral x
@@ -43,9 +45,7 @@ from ..core.settings import (ErrorDisplay, MisHeuristic,
                              PolygonSamplingTechnique as Tech, RenderSettings,
                              SamplingStrategy as Strat)
 from ..core.timer import WarmupProtocol
-from ..render.fused import check_supported
 from ..render.screenshot import take_screenshot
-from ..render.shading import SceneStatic
 
 ALL_TECHNIQUES = list(Tech)
 # Diffuse techniques used by the bistro small/tiny sweeps: everything but
@@ -327,14 +327,14 @@ class ExperimentResult:
 
 def check_experiment(experiment) -> None:
     """Raise NotImplementedError (naming the ROADMAP item) for experiments
-    that need what the port lacks, before any scene is built."""
-    from .setups import experiment_lights
-    lights = experiment_lights(experiment)
-    check_supported(SceneStatic(
-        light_count=len(lights),
-        light_texturing=tuple(s.texturing_technique for s in lights),
-        light_vertex_counts=tuple(s.vertex_count for s in lights)),
-        experiment.settings)
+    that need what the port lacks, before any scene is built: the HDR
+    capture (--hdr, frame_bits; Queue 1 item 13). Every other experiment
+    renders, on K4/K5 where render/fused.py fused_supported holds and on
+    the per-pixel path elsewhere."""
+    if experiment.hdr or experiment.settings.frame_bits != 0:
+        raise NotImplementedError(
+            "HDR frame_bits capture is not ported (ROADMAP Queue 1, "
+            "item 13)")
 
 
 def card_description(device) -> str:

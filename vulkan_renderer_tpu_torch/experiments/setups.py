@@ -9,11 +9,9 @@ Those .save files ship with the reference's data download:
   (assets/quicksave.py reads the reference format);
 - otherwise the layout is rebuilt from the experiment's `light_layout`
   descriptor (the timing sweep's regular n-gons in the paper's central and
-  decentral placements; a plausible light for the figure groups), and the
+  decentral placements; a plausible light for the figure groups, an
+  IES-profile downlight, a linear light under the attic ridge), and the
   harness tags the output `standin`.
-
-Layouts the port cannot render yet (the IES-profile light and linear
-lights) raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,7 +23,9 @@ import numpy as np
 
 from ..core.app import Application, ApplicationUpdates, SceneSpecification
 from ..scene.camera import FirstPersonCamera
-from ..scene.lights import PolygonalLightSpec
+from ..assets import vkt
+from ..scene.lights import PolygonalLightSpec, PolygonTexturing
+from ..scene.linear_lights import LinearLightSpec
 from .registry import resolve_scene
 
 
@@ -103,17 +103,33 @@ def _scene_default_camera(scene_key: str) -> FirstPersonCamera:
         rotation_x=0.38 * np.pi, rotation_z=np.pi)
 
 
-def experiment_lights(experiment) -> list[PolygonalLightSpec]:
+def _ies_profile_texture(data_directory: str) -> str:
+    """An IES-like luminous intensity profile (a downlight with a hot core
+    and a soft cutoff) as a BC1 .vkt, written once into data_directory:
+    the stand-in for the reference's attic_ies_profile.save profile
+    texture (polygon_texturing_ies_profile, polygonal_light_utility.glsl).
+    The same file as the JAX package's setups._ies_profile_texture."""
+    path = os.path.join(data_directory, "ies_profile_standin.vkt")
+    if os.path.exists(path):
+        return path
+    r = 64
+    theta = (np.arange(r) + 0.5) / r * np.pi  # polar angle rows
+    profile = np.clip(np.cos(theta) ** 3, 0.0, 1.0) \
+        + 0.35 * np.exp(-((theta - 0.5) / 0.25) ** 2)
+    img = np.tile(profile[:, None, None].astype(np.float32), (1, r, 3))
+    os.makedirs(data_directory or ".", exist_ok=True)
+    vkt.save_vkt(path, vkt.encode_texture(
+        img, vkt.VK_FORMAT_BC1_RGB_UNORM_BLOCK))
+    return path
+
+
+def experiment_lights(experiment, data_directory: str = "data"
+                      ) -> list[PolygonalLightSpec]:
     """Lights for an experiment whose quicksave is missing, from its
     light_layout descriptor."""
     layout = getattr(experiment, "light_layout", None) or "default"
     if layout == "linear":
-        raise NotImplementedError(
-            "linear lights are not ported (ROADMAP Queue 1, item 11)")
-    if layout == "ies_profile":
-        raise NotImplementedError(
-            "textured / IES lights are not ported (ROADMAP Queue 1, "
-            "item 11)")
+        return []  # a pure linear-light figure (HPG branch)
     if layout.startswith("timing:"):
         _, vc, case, lc = layout.split(":")
         return timing_lights(int(vc), case == "central", int(lc))
@@ -125,11 +141,28 @@ def experiment_lights(experiment) -> list[PolygonalLightSpec]:
             scaling_x=scale, scaling_y=scale,
             radiant_flux=np.array([4000.0, 3800.0, 3400.0], np.float32)
             * scale * scale)]
+    if layout == "ies_profile":
+        light = _scene_default_lights(experiment.scene)[0]
+        return [dataclasses.replace(
+            light, texturing_technique=PolygonTexturing.IES_PROFILE,
+            texture_file_path=_ies_profile_texture(data_directory))]
     if layout == "heptagon":
         base = _scene_default_lights(experiment.scene)[0]
         return [dataclasses.replace(
             base, vertices_plane_space=_regular_polygon(7))]
     return _scene_default_lights(experiment.scene)
+
+
+def experiment_linear_lights(experiment) -> list[LinearLightSpec]:
+    """Linear lights of the HPG-branch figure group (layout "linear"): a
+    bright tube under the attic ridge, the workload shape of the branch's
+    line_sampling.glsl."""
+    if (getattr(experiment, "light_layout", None) or "") != "linear":
+        return []
+    return [LinearLightSpec(
+        start=np.array([0.2, 1.0, 1.9], np.float32),
+        end=np.array([1.8, 1.0, 1.9], np.float32),
+        radiant_flux=np.array([40.0, 36.0, 30.0], np.float32))]
 
 
 def build_default_application(experiment, data_directory: str = "data",
@@ -139,13 +172,14 @@ def build_default_application(experiment, data_directory: str = "data",
     scene (materializing tagged stand-ins when assets are missing), loads
     the experiment's quicksave when present, rebuilds the layout
     otherwise."""
-    lights = experiment_lights(experiment)
+    lights = experiment_lights(experiment, data_directory)
     entry = resolve_scene(experiment.scene, data_directory)
     spec = SceneSpecification(
         name=experiment.scene, vks_path=entry.vks_path,
         texture_dir=entry.texture_dir,
         quicksave_path=experiment.quicksave_path or "",
-        camera=_scene_default_camera(experiment.scene), lights=lights)
+        camera=_scene_default_camera(experiment.scene), lights=lights,
+        linear_lights=experiment_linear_lights(experiment))
     app = Application(spec, settings=experiment.settings,
                       width=experiment.width, height=experiment.height,
                       frames_in_flight=frames_in_flight,

@@ -115,3 +115,19 @@ def get_ltc_coefficients(ltc: LtcTable, fresnel_luminance, roughness,
         albedo=d1y,
         shading_to_cosine_space_determinant=determinant,
     )
+
+
+def evaluate_ltc_density(ltc: LtcCoefficients, dir_shading_space,
+                         rcp_projected_solid_angle):
+    """LTC density with respect to solid angle (ltc_utility.glsl:103-108)
+    of (P, 3) shading-space directions: the JAX package's
+    evaluate_ltc_density, batched."""
+    m = ltc.shading_to_cosine_space
+    d = dir_shading_space
+    dir_cos = [m[:, i, 0] * d[:, 0] + m[:, i, 1] * d[:, 1]
+               + m[:, i, 2] * d[:, 2] for i in range(3)]
+    len_sq = dir_cos[0] * dir_cos[0] + dir_cos[1] * dir_cos[1] \
+        + dir_cos[2] * dir_cos[2]
+    density = torch.clamp(dir_cos[2], min=0.0) \
+        * ltc.shading_to_cosine_space_determinant / (len_sq * len_sq)
+    return density * rcp_projected_solid_angle

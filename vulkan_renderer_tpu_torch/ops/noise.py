@@ -129,3 +129,26 @@ def frame_noise(table: torch.Tensor, width: int, height: int,
         texture_index_mask=texture_index_mask,
         random_numbers=tuple(int(v) for v in
                              np.asarray(noise_random_numbers, np.uint32)))
+
+
+def noise_pairs(noise: FrameNoise, start: int, stop: int) -> torch.Tensor:
+    """(stop - start, pair_count, 2) float32: the noise pairs of frame
+    pixels start..stop-1 (row-major), the per-pixel shading path's noise.
+    Pair j component c equals plane 2 j + c of get_noise_image at those
+    pixels, bit for bit; only these pixels' texels are gathered."""
+    if noise.pixels is not None:
+        raise ValueError("noise_pairs reads whole-frame FrameNoise")
+    table = noise.table
+    th, tw = table.shape[1], table.shape[2]
+    idx = torch.arange(start, stop, device=table.device)
+    ys, xs = idx // noise.width, idx % noise.width
+    values = torch.empty((stop - start, 2 * noise.pair_count),
+                         dtype=torch.float32, device=table.device)
+    for i in range((noise.pair_count + 1) // 2):
+        off_x, off_y, layer = fetch_scalars(i, noise.texture_index_mask,
+                                            noise.random_numbers)
+        channels = min(4, 2 * noise.pair_count - 4 * i)
+        values[:, 4 * i:4 * i + channels] = table[
+            layer, (ys + off_y) & (th - 1), (xs + off_x) & (tw - 1),
+            :channels].to(torch.float32) * (1.0 / 65535.0)
+    return values.reshape(stop - start, noise.pair_count, 2)

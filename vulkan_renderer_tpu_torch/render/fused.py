@@ -42,6 +42,7 @@ from ..ops import soa_techniques as st
 from ..ops.noise import FrameNoise
 from ..ops.soa import vadd, vdot, vscale, vwh
 from ..ops.soa_arvo_psa import prepare_arvo_psa_soa, sample_arvo_psa_soa
+from .shading import rays_per_light
 
 Tech = PolygonSamplingTechnique
 
@@ -77,46 +78,52 @@ TECHNIQUE_IDS = {t: i for i, t in enumerate(PolygonSamplingTechnique)}
 _PSA_PAIR = (Tech.PROJECTED_SOLID_ANGLE, Tech.PROJECTED_SOLID_ANGLE_BIASED)
 
 
-def check_supported(static, settings: RenderSettings) -> None:
-    """Raise for what K4 and K5 do not cover: the JAX package's
-    fused_supported predicate (fused.py:63-94) as errors. All 13
-    techniques with DIFFUSE_ONLY, the PSA pair also with
-    DIFFUSE_SPECULAR_MIS; untextured lights, no error display. Settings
-    of another class (the JAX package's RenderSettings) raise TypeError:
-    their enum members compare unequal to the port's, so every branch on
-    them would go the wrong way."""
+def check_settings_class(settings) -> None:
+    """Raise TypeError for settings of another class (the JAX package's
+    RenderSettings): their enum members compare unequal to the port's, so
+    every branch on them would go the wrong way."""
     if not isinstance(settings, RenderSettings):
         raise TypeError(
             f"expected the port's RenderSettings "
             f"(vulkan_renderer_tpu_torch.core.settings), got "
             f"{type(settings).__module__}.{type(settings).__qualname__}")
+
+
+def fused_supported(static, settings: RenderSettings) -> bool:
+    """Whether K4 and K5 cover (static, settings): the JAX package's
+    fused_supported (fused.py:63-94). All 13 techniques with DIFFUSE_ONLY,
+    the PSA pair also with DIFFUSE_SPECULAR_MIS; untextured polygonal
+    lights of 3-8 vertices, no linear lights, no error display. The
+    frame takes the per-pixel path (render/shading.py) for the rest."""
+    check_settings_class(settings)
     if settings.error_display != ErrorDisplay.NONE:
-        raise NotImplementedError(
-            "error displays are not ported (ROADMAP Queue 1, item 11)")
+        return False
     allowed = (SamplingStrategy.DIFFUSE_ONLY,)
     if settings.polygon_sampling_technique in _PSA_PAIR:
         allowed += (SamplingStrategy.DIFFUSE_SPECULAR_MIS,)
     if settings.sampling_strategy not in allowed:
-        raise NotImplementedError(
-            f"strategy {settings.sampling_strategy.value} with technique "
-            f"{settings.polygon_sampling_technique.value}: the fused kernels "
-            "cover DIFFUSE_ONLY for every technique and DIFFUSE_SPECULAR_MIS "
-            "for the PSA pair (the per-pixel strategies: ROADMAP Queue 1, "
-            "item 11)")
+        return False
+    if static.linear_light_count:
+        return False
     if any(t != 0 for t in static.light_texturing):
-        raise NotImplementedError(
-            "textured / IES lights are not ported (ROADMAP Queue 1, "
-            "item 11)")
-    if any(nv < 3 or nv > 8 for nv in static.light_vertex_counts):
-        raise ValueError(f"light vertex counts {static.light_vertex_counts} "
-                         "outside the 3-8 of the light record")
+        return False
+    if len(static.light_vertex_counts) != static.light_count:
+        return False
+    return all(3 <= nv <= 8 for nv in static.light_vertex_counts)
 
 
-def rays_per_light(settings: RenderSettings) -> int:
-    n = settings.sample_count
-    if settings.sampling_strategy == SamplingStrategy.DIFFUSE_ONLY:
-        return n
-    return 2 * n
+def check_supported(static, settings: RenderSettings) -> None:
+    """Raise ValueError where K4 and K5 do not cover (static, settings)
+    (fused_supported), TypeError for settings of another class."""
+    if not fused_supported(static, settings):
+        raise ValueError(
+            f"kernels K4/K5 do not cover strategy "
+            f"{settings.sampling_strategy.value} with technique "
+            f"{settings.polygon_sampling_technique.value}, error display "
+            f"{settings.error_display.value}, light texturing "
+            f"{static.light_texturing}, {static.linear_light_count} linear "
+            "lights (render/fused.py fused_supported); the frame renders "
+            "them on the per-pixel path")
 
 
 def kernel_defines(settings: RenderSettings) -> dict:

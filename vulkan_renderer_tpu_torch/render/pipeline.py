@@ -1,18 +1,21 @@
 """The frame: render(scene, camera, settings) -> image.
 
 Counterpart of vulkan_renderer_tpu/render/pipeline.py::_render_frame_body
-on its accelerator path (Pallas tracers + fused shader), stage by stage:
+with the Pallas tracers, stage by stage:
 
 1. camera rays, pixels row-major (:372-373);
 2. primary closest hit (K2) and attribute fetch (K3);
 3. the frame's noise fetches (ops/noise.py frame_noise: three scalars per
-   fetch; the shading kernels read the noise table themselves, so no
-   noise image is built);
+   fetch);
 4. the per-pixel preamble: texture fetch and material decode, light
    display, LTC coefficients (:78-120);
-5. fused light shading: with shadow rays, K4 exports every ray slot;
-   without them, K5 accumulates each pixel's color with visibility 1
-   (:503-514);
+5. light shading, by SceneStatic.fused (_use_fused :160):
+   - fused: with shadow rays, K4 exports every ray slot; without them,
+     K5 accumulates each pixel's color with visibility 1 (:485-522; the
+     kernels read the noise table themselves);
+   - per-pixel (render/shading.py, render/line_shading.py; _shade_pixel
+     :123): every other configuration, in plain PyTorch over chunks of
+     PIXEL_CHUNK pixels, each chunk reading its own noise pairs;
 6. the sample-major shadow megabatch; a ray whose weight is zero gets
    t_max = -1 and is dead (:537-552);
 7. shadow any-hit (K1);
@@ -33,16 +36,20 @@ import torch
 from ..core.settings import RenderSettings
 from ..ops.intersect import polygonal_light_ray_intersection
 from ..ops.ltc import get_ltc_coefficients
-from ..ops.noise import frame_noise
+from ..ops.math_utils import normalize
+from ..ops.noise import frame_noise, noise_pairs
 from ..ops.srgb import linear_to_srgb
 from ..scene.camera import (FirstPersonCamera,
                             get_pixel_to_ray_direction_world_space)
-from .fused import (check_supported, fused_light_shading,
+from .fused import (check_settings_class, fused_light_shading,
                     fused_light_shading_plain, fused_light_shading_resolved,
-                    fused_light_shading_resolved_plain,
-                    pack_light_scalars, pack_planes, rays_per_light)
-from .shading import (FrameConstants, SceneStatic, finish_shading_data,
-                      get_polygon_radiance, pairs_per_light)
+                    fused_light_shading_resolved_plain, fused_supported,
+                    pack_light_scalars, pack_planes)
+from .line_shading import (evaluate_linear_light_shading,
+                           linear_pairs_per_light, linear_rays_per_light)
+from .shading import (FrameConstants, SceneStatic,
+                      evaluate_polygonal_light_shading, finish_shading_data,
+                      get_polygon_radiance, pairs_per_light, rays_per_light)
 from .trace_kernel import (closest_attrs, closest_attrs_plain, trace_anyhit,
                            trace_anyhit_plain, trace_closest,
                            trace_closest_plain)
@@ -66,6 +73,17 @@ KERNELS = FrameKernels(trace_closest, closest_attrs, fused_light_shading,
 PLAIN_VERSIONS = FrameKernels(trace_closest_plain, closest_attrs_plain,
                               fused_light_shading_plain, trace_anyhit_plain,
                               fused_light_shading_resolved_plain)
+
+# Pixels the per-pixel path shades at once. It changes no result (frames
+# are bit-equal at every size) and bounds the path's device memory. Each
+# chunk launches the path's kernels again (~29,500 for the bench frame's
+# four lights), so fewer chunks are faster: 2^21 holds a 1920x1080 frame
+# in one chunk. There the linear-light reference, the per-pixel
+# experiment with the most slots (327: 64 samples of 2 rays), peaks at
+# 24.7 GiB against 16.2 at 2^20 and takes 1.7 s against 2.8 s a frame
+# under the profiler (tools/profile_frame.py --experiment 327
+# --pixel-chunks, one H100).
+PIXEL_CHUNK = 1 << 21
 
 
 def make_frame_constants(camera: FirstPersonCamera, width: int, height: int,
@@ -105,6 +123,9 @@ def pixel_preamble(scene, static: SceneStatic, settings: RenderSettings,
     data = finish_shading_data(scene, constants, attrs, position)
     base = torch.zeros_like(ray_dirs)
     if settings.show_polygonal_lights:
+        # Textured lights look their radiance up along the view ray.
+        view_dir = normalize(ray_dirs) if any(static.light_texturing) \
+            else None
         # Display the light sources themselves (glsl:841-850).
         ones = torch.ones_like(ray_dirs[:, :1])
         ray_end = torch.where(hit[:, None],
@@ -116,8 +137,9 @@ def pixel_preamble(scene, static: SceneStatic, settings: RenderSettings,
                 lights.plane[i], lights.vertices_world_space[i],
                 static.light_vertex_counts[i], constants.camera_position,
                 ray_end)
-            radiance = get_polygon_radiance(scene, i,
-                                            static.light_texturing[i])
+            radiance = get_polygon_radiance(
+                scene, i, static.light_texturing[i], view_dir,
+                constants.camera_position)
             base = base + torch.where(light_hit[:, None], radiance, 0.0)
     f0 = data.fresnel_0
     fresnel_luminance = f0[:, 0] * 0.2126 + f0[:, 1] * 0.7152 \
@@ -127,17 +149,33 @@ def pixel_preamble(scene, static: SceneStatic, settings: RenderSettings,
     return data, ltc, base
 
 
+def use_fused(static: SceneStatic, settings: RenderSettings) -> bool:
+    """The shading path (pipeline.py _use_fused :160): K4/K5 wherever
+    fused_supported holds under static.fused "auto", on any device (on
+    the CPU the kernels' plain versions run); the per-pixel path under
+    "off" and where it does not hold. "on" raises there instead."""
+    if static.fused == "off":
+        return False
+    supported = fused_supported(static, settings)
+    if static.fused == "on" and not supported:
+        raise ValueError(
+            "static.fused='on' but kernels K4/K5 do not cover this "
+            "configuration (render/fused.py fused_supported)")
+    return supported
+
+
 def render_frame_constants(scene, static: SceneStatic,
                            settings: RenderSettings,
                            constants: FrameConstants, width: int,
                            height: int,
                            kernels: FrameKernels = KERNELS) -> torch.Tensor:
     """One frame: (height, width, 3) float32 in output color space."""
-    check_supported(static, settings)
+    check_settings_class(settings)
     if settings.frame_bits != 0:
         raise NotImplementedError(
             "HDR frame_bits capture is not ported (ROADMAP Queue 1, "
             "item 13)")
+    fused = use_fused(static, settings)
     cam = constants.camera_position
     ray_dirs = camera_rays(constants, width, height)
     p = ray_dirs.shape[0]
@@ -150,14 +188,16 @@ def render_frame_constants(scene, static: SceneStatic,
     hit = prim != -1
     t_safe = torch.where(hit & torch.isfinite(t_hit), t_hit, 0.0)
     position = cam + t_safe[:, None] * ray_dirs
+    data, ltc, base0 = pixel_preamble(scene, static, settings, constants,
+                                      hit, ray_dirs, attrs, position)
+    if not fused:
+        return _render_per_pixel(scene, static, settings, constants, width,
+                                 height, kernels, hit, data, ltc, base0)
 
     noise = frame_noise(
         scene.noise_table, width, height,
         max(pairs_per_light(settings) * static.light_count, 1),
         scene.noise_texture_index_mask, constants.noise_random_numbers)
-
-    data, ltc, base0 = pixel_preamble(scene, static, settings, constants,
-                                      hit, ray_dirs, attrs, position)
     light_scalars = pack_light_scalars(scene.lights, static.light_count)
     planes = pack_planes(data, ltc, hit)
     if not settings.trace_shadow_rays:
@@ -170,10 +210,21 @@ def render_frame_constants(scene, static: SceneStatic,
     out = kernels.fused_shading(planes, noise, light_scalars, static,
                                 settings)
     slots = static.light_count * rays_per_light(settings)
+    colors = _shadow_resolve(scene, kernels, out, slots, hit, data.position,
+                             cam, base0)
+    return _resolve(colors, constants, settings, width, height)
+
+
+def _shadow_resolve(scene, kernels: FrameKernels, out, slots: int, hit,
+                    position, cam, base0):
+    """Trace the shadow megabatch of out (3 + 7 slots, P) (base RGB, then
+    per ray slot b RGB, direction, t_max) with K1 and return
+    base0 + base + sum_slot b V as (P, 3)."""
+    p = out.shape[1]
     rest = out[3:].reshape(slots, 7, p)     # slot-major: (S, 7, P)
     b = rest[:, 0:3]                        # (S, 3, P)
     # Sample-major megabatch: every pixel's ray of slot 0, then slot 1...
-    shade_origins = torch.where(hit[:, None], data.position, cam)
+    shade_origins = torch.where(hit[:, None], position, cam)
     flat_origins = shade_origins.repeat(slots, 1)
     flat_dirs = rest[:, 3:6].permute(0, 2, 1).reshape(-1, 3).contiguous()
     live = torch.any(b != 0.0, dim=1).reshape(-1)
@@ -181,7 +232,89 @@ def render_frame_constants(scene, static: SceneStatic,
     occluded = kernels.trace_anyhit(scene.clusters, flat_origins, flat_dirs,
                                     flat_tmax.contiguous())
     visibility = torch.where(occluded, 0.0, 1.0).reshape(slots, 1, p)
-    colors = base0 + out[0:3].T + torch.sum(b * visibility, dim=0).T
+    return base0 + out[0:3].T + torch.sum(b * visibility, dim=0).T
+
+
+def _rows(fields, start: int, stop: int):
+    """A ShadingData / LtcCoefficients with pixels start..stop-1."""
+    return dataclasses.replace(fields, **{
+        f.name: getattr(fields, f.name)[start:stop]
+        for f in dataclasses.fields(fields)})
+
+
+def shade_pixels(scene, static: SceneStatic, settings: RenderSettings,
+                 constants: FrameConstants, hit, data, ltc, pairs):
+    """Per-pixel shading except shadow visibility (pipeline.py
+    _shade_pixel :123), batched: pairs (P, total pairs, 2), polygonal
+    lights' pairs first, then the linear lights'. Returns (base (P, 3),
+    b (P, S, 3), ray_dirs (P, S, 3), t_max (P, S)) with base and b zero
+    where hit is false; the color is base0 + base + sum_slot b V."""
+    base = torch.zeros_like(data.position)
+    b_all, dir_all, tmax_all = [], [], []
+
+    def add(light_base, b, dirs, t_max):
+        nonlocal base
+        base = base + torch.where(hit[:, None], light_base, 0.0)
+        b_all.append(torch.where(hit[:, None, None], b, 0.0))
+        dir_all.append(dirs)
+        tmax_all.append(t_max)
+
+    ppl = pairs_per_light(settings)
+    for i in range(static.light_count):
+        r = evaluate_polygonal_light_shading(
+            scene, static, settings, constants, i, data, ltc,
+            pairs[:, i * ppl:(i + 1) * ppl])
+        add(r.base, r.b, r.ray_dirs, r.t_max)
+    lppl = linear_pairs_per_light(settings)
+    offset = static.light_count * ppl
+    for i in range(static.linear_light_count):
+        add(*evaluate_linear_light_shading(
+            scene, settings, i, data, ltc,
+            pairs[:, offset + i * lppl:offset + (i + 1) * lppl]))
+    if not b_all:
+        p = base.shape[0]
+        return base, base.new_zeros((p, 0, 3)), base.new_zeros((p, 0, 3)), \
+            base.new_zeros((p, 0))
+    return (base, torch.cat(b_all, dim=1), torch.cat(dir_all, dim=1),
+            torch.cat(tmax_all, dim=1))
+
+
+def _render_per_pixel(scene, static: SceneStatic, settings: RenderSettings,
+                      constants: FrameConstants, width: int, height: int,
+                      kernels: FrameKernels, hit, data, ltc, base0):
+    """Stages 5-8 on the per-pixel path, PIXEL_CHUNK pixels at a time.
+    With shadow rays each chunk's slots are packed as K4 exports them, and
+    the frame's slots go through the one megabatch K1 call."""
+    total_pairs = max(pairs_per_light(settings) * static.light_count
+                      + linear_pairs_per_light(settings)
+                      * static.linear_light_count, 1)
+    noise = frame_noise(scene.noise_table, width, height, total_pairs,
+                        scene.noise_texture_index_mask,
+                        constants.noise_random_numbers)
+    slots = rays_per_light(settings) * static.light_count \
+        + linear_rays_per_light(settings) * static.linear_light_count
+    shadows = settings.trace_shadow_rays and slots > 0
+    p = hit.shape[0]
+    chunks = []
+    for start in range(0, p, PIXEL_CHUNK):
+        stop = min(p, start + PIXEL_CHUNK)
+        base, b, dirs, t_max = shade_pixels(
+            scene, static, settings, constants, hit[start:stop],
+            _rows(data, start, stop), _rows(ltc, start, stop),
+            noise_pairs(noise, start, stop))
+        if shadows:
+            # The (3 + 7 S, P) layout of K4's output.
+            slot_planes = torch.cat([b, dirs, t_max[..., None]], dim=2)
+            chunks.append(torch.cat([base.T, slot_planes.permute(1, 2, 0)
+                                     .reshape(7 * slots, -1)], dim=0))
+        else:
+            chunks.append(base + torch.sum(b, dim=1))
+    if not shadows:
+        colors = base0 + torch.cat(chunks, dim=0)
+        return _resolve(colors, constants, settings, width, height)
+    colors = _shadow_resolve(scene, kernels, torch.cat(chunks, dim=1), slots,
+                             hit, data.position, constants.camera_position,
+                             base0)
     return _resolve(colors, constants, settings, width, height)
 
 

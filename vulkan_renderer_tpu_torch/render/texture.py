@@ -1,10 +1,12 @@
-"""Material texture fetch without texture units.
+"""Texture fetch without texture units: material and light textures.
 
 Counterpart of vulkan_renderer_tpu/render/texture.py: all mips of all
 textures are flattened into one texel array (the atlas) and filtered by
 explicit gathers — isotropic trilinear with the footprint LOD of the
-Vulkan spec (textureGrad, shading_pass.frag.glsl:754-766) and repeat
-addressing like the reference's material sampler (scene.c:546-557). The
+Vulkan spec for materials (textureGrad, shading_pass.frag.glsl:754-766),
+bilinear at mip 0 for light textures (textureLod(.., 0)), both with repeat
+addressing like the reference's samplers (scene.c:546-557). Material
+atlases hold UNORM16 texels, light atlases float32 ones (HDR probes). The
 TPU build's corner-quad view is not carried over: a GPU gathers the four
 bilinear corners directly.
 """
@@ -19,20 +21,23 @@ import torch
 
 @dataclasses.dataclass
 class TextureAtlas:
-    texels: torch.Tensor      # (N, 8) int32 holding UNORM16 values
+    texels: torch.Tensor      # (N, C) int32 holding UNORM16 values, or
+    #                           float32
     mip_offset: torch.Tensor  # (T, L) int64 first texel of mip l of texture t
     mip_width: torch.Tensor   # (T, L) int64
     mip_height: torch.Tensor  # (T, L) int64
     mip_count: torch.Tensor   # (T,) int64
 
 
-def build_texture_atlas_np(textures: "list[list[np.ndarray]]") -> dict:
-    """textures: per material, list of (H, W, 8) float32 mips -> numpy
+def build_texture_atlas_np(textures: "list[list[np.ndarray]]",
+                           channels: int = 8, unorm16: bool = True) -> dict:
+    """textures: per texture, list of (H, W, C) float32 mips -> numpy
     atlas arrays {texels, mip_offset, mip_width, mip_height, mip_count},
-    laid out exactly as the JAX package's build_texture_atlas(channels=8,
-    dtype=np.uint16): texels are round(clip(v, 0, 1) * 65535), lossless
-    for BC-decoded material data."""
-    channels = 8
+    laid out exactly as the JAX package's build_texture_atlas. The
+    material atlas (channels 8, unorm16) stores round(clip(v, 0, 1) *
+    65535) as uint16, lossless for BC-decoded material data; the light
+    atlas (channels 4, unorm16 False) float32 texels, alpha 1 where a
+    texture has fewer than 4 channels."""
     texel_list = []
     offsets, widths, heights, counts = [], [], [], []
     max_levels = max(len(mips) for mips in textures)
@@ -44,6 +49,8 @@ def build_texture_atlas_np(textures: "list[list[np.ndarray]]") -> dict:
             flat = np.zeros((h * w, channels), np.float32)
             c = min(channels, m.shape[-1])
             flat[:, :c] = m.reshape(h * w, -1)[:, :c]
+            if channels == 4 and m.shape[-1] < 4:
+                flat[:, 3] = 1.0
             texel_list.append(flat)
             off.append(cursor)
             ws.append(w)
@@ -57,8 +64,10 @@ def build_texture_atlas_np(textures: "list[list[np.ndarray]]") -> dict:
         widths.append(ws)
         heights.append(hs)
         counts.append(len(mips))
-    texels = np.round(np.clip(np.concatenate(texel_list, axis=0), 0.0, 1.0)
-                      * 65535.0).astype(np.uint16)
+    texels = np.concatenate(texel_list, axis=0)
+    if unorm16:
+        texels = np.round(np.clip(texels, 0.0, 1.0)
+                          * 65535.0).astype(np.uint16)
     return dict(texels=texels,
                 mip_offset=np.array(offsets, np.int32),
                 mip_width=np.array(widths, np.int32),
@@ -67,12 +76,16 @@ def build_texture_atlas_np(textures: "list[list[np.ndarray]]") -> dict:
 
 
 def atlas_from_numpy(arrays: dict, device) -> TextureAtlas:
+    """Atlas arrays (build_texture_atlas_np's, or a JAX TextureAtlas's)
+    on `device`: UNORM16 texels as int32, float32 texels as they are."""
     texels = np.asarray(arrays["texels"])
-    if texels.dtype != np.uint16:
-        raise TypeError(f"material atlas texels must be UNORM16, got "
+    if texels.dtype not in (np.uint16, np.float32):
+        raise TypeError(f"atlas texels must be UNORM16 or float32, got "
                         f"{texels.dtype}")
     return TextureAtlas(
-        texels=torch.from_numpy(texels.astype(np.int32)).to(device),
+        texels=torch.from_numpy(texels.astype(
+            np.int32 if texels.dtype == np.uint16 else np.float32))
+        .to(device),
         **{k: torch.from_numpy(np.array(arrays[k], np.int64))
            .to(device)
            for k in ("mip_offset", "mip_width", "mip_height", "mip_count")})
@@ -96,6 +109,8 @@ def _bilinear_wrap(atlas: TextureAtlas, tex_index, level, uv):
     def fetch(xi, yi):
         texel = atlas.texels[offset + torch.remainder(yi, h) * w
                              + torch.remainder(xi, w)]
+        if texel.dtype == torch.float32:
+            return texel
         return texel.to(torch.float32) * (1.0 / 65535.0)
 
     t00 = fetch(x0i, y0i)
@@ -131,3 +146,13 @@ def sample_texture_grad(atlas: TextureAtlas, tex_index, uv, duv_dx, duv_dy):
     max_level = (atlas.mip_count[tex_index] - 1).to(torch.float32)
     lod = torch.minimum(torch.clamp(torch.log2(rho_max), min=0.0), max_level)
     return _trilinear(atlas, tex_index, uv, lod)
+
+
+def sample_texture_lod0(atlas: TextureAtlas, tex_index, uv):
+    """textureLod(.., 0): bilinear at mip 0 with repeat addressing (light
+    textures, shading_pass.frag.glsl:170-184). tex_index: (P,) int64 or an
+    int; uv: (P, 2). Returns (P, C) float32."""
+    if isinstance(tex_index, int):
+        tex_index = torch.full(uv.shape[:1], tex_index, dtype=torch.int64,
+                               device=uv.device)
+    return _bilinear_wrap(atlas, tex_index, torch.zeros_like(tex_index), uv)

@@ -19,6 +19,14 @@ from .. import MAX_POLYGONAL_LIGHT_VERTEX_COUNT
 M_PI = float(np.pi)
 
 
+class PolygonTexturing:
+    """polygon_texturing_* of polygonal_light_utility.glsl."""
+    NONE = 0
+    AREA = 1
+    PORTAL = 2
+    IES_PROFILE = 3
+
+
 class PolygonalLight(NamedTuple):
     """Derived light record (polygonal_light_utility.glsl:26-83); vertex
     lanes beyond vertex_count repeat the first vertex (the reference's

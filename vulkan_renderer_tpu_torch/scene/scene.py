@@ -2,8 +2,8 @@
 
 Counterpart of vulkan_renderer_tpu/scene/scene.py::build_scene/load_scene
 (reference scene.c:409-559) for what the frame uses: the cluster tables,
-the u16 material atlas, the polygonal lights, the LTC table and the noise
-table. The JAX Scene's shading_rows and BVH have no use here and are not
+the u16 material atlas, the polygonal lights and their float32 texture
+atlas, the linear lights, the LTC table and the noise table. The JAX Scene's shading_rows and BVH have no use here and are not
 built. scene_from_numpy carries a JAX Scene's arrays over unchanged, so
 tests can feed both packages identical data.
 """
@@ -30,13 +30,17 @@ from ..render.clusters import Clusters, build_clusters_np, \
 from ..render.texture import TextureAtlas, atlas_from_numpy, \
     build_texture_atlas_np
 from .lights import PolygonalLightSpec, update_polygonal_light
+from .linear_lights import (LinearLights, LinearLightSpec,
+                            linear_lights_from_numpy, stack_linear_lights)
 
 MATERIAL_TEXTURE_SUFFIXES = ("BaseColor", "Specular", "Normal")
 
 # PolygonalLight fields the frame reads (scene/lights.py).
 LIGHT_FIELDS = ("plane", "vertices_world_space", "vertex_count",
                 "surface_radiance", "rotation", "translation", "scaling_x",
-                "scaling_y", "area", "fan_areas", "texturing_technique")
+                "scaling_y", "inv_scaling_x", "inv_scaling_y", "area",
+                "fan_areas", "texturing_technique", "texture_index")
+_INT_LIGHT_FIELDS = ("vertex_count", "texturing_technique", "texture_index")
 
 
 @dataclasses.dataclass
@@ -51,9 +55,12 @@ class Lights:
     translation: torch.Tensor           # (L, 3)
     scaling_x: torch.Tensor             # (L,)
     scaling_y: torch.Tensor             # (L,)
+    inv_scaling_x: torch.Tensor         # (L,)
+    inv_scaling_y: torch.Tensor         # (L,)
     area: torch.Tensor                  # (L,)
     fan_areas: torch.Tensor             # (L, MAXL-2, 2)
-    texturing_technique: torch.Tensor   # (L,) int64
+    texturing_technique: torch.Tensor   # (L,) int64 PolygonTexturing
+    texture_index: torch.Tensor         # (L,) int64 into the light atlas
 
     @property
     def count(self) -> int:
@@ -65,6 +72,8 @@ class Scene:
     triangle_positions: torch.Tensor   # (T, 3, 3) float32
     material_atlas: TextureAtlas        # 8 channels, UNORM16
     lights: Lights
+    light_atlas: TextureAtlas           # 4 channels, float32
+    linear_lights: LinearLights
     ltc: LtcTable
     clusters: Clusters
     noise_table: torch.Tensor          # (layers, H, W, 4) int32 UNORM16
@@ -78,22 +87,27 @@ class Scene:
 def _lights_from_numpy(fields: Mapping[str, np.ndarray], device) -> Lights:
     def t(name):
         a = np.asarray(fields[name])
-        dtype = np.int64 if name in ("vertex_count",
-                                     "texturing_technique") else np.float32
+        dtype = np.int64 if name in _INT_LIGHT_FIELDS else np.float32
         return torch.from_numpy(np.array(a, dtype)).to(device)
     return Lights(**{name: t(name) for name in LIGHT_FIELDS})
 
 
 def lights_from_specs(specs: list[PolygonalLightSpec], device) -> Lights:
-    """Derive and stack light records (polygonal_light.c:46-107)."""
+    """Derive and stack light records (polygonal_light.c:46-107). Every
+    texturing technique (scene/lights.py PolygonTexturing) is taken; a
+    textured light's texture_index names its texture in the scene's
+    light atlas (decode_light_textures)."""
     for spec in specs:
-        if spec.texturing_technique != 0:
-            raise NotImplementedError(
-                "textured / IES polygonal lights are not ported yet "
-                "(ROADMAP Queue 1, item 11)")
-    records = [update_polygonal_light(spec) for spec in specs]
+        if spec.texturing_technique not in (0, 1, 2, 3):
+            raise ValueError(f"texturing technique "
+                             f"{spec.texturing_technique} is none of 0-3")
+    # No polygonal lights (a linear-light scene): empty records of the
+    # right shapes, stacked from a default light.
+    records = [update_polygonal_light(spec)
+               for spec in specs or [PolygonalLightSpec()]]
     return _lights_from_numpy(
-        {name: np.stack([np.asarray(getattr(r, name)) for r in records])
+        {name: np.stack([np.asarray(getattr(r, name))
+                         for r in records])[:len(specs)]
          for name in LIGHT_FIELDS}, device)
 
 
@@ -141,6 +155,24 @@ def decode_material_textures(texture_dir: str, material_names: list[str]
     return textures
 
 
+def decode_light_textures(paths: list[str]
+                          ) -> tuple[list[list[np.ndarray]], dict[str, int]]:
+    """The light atlas's textures and {path: texture index}: index 0 is
+    white, each distinct existing path is decoded once, and a missing or
+    empty path gives white (main.c:371-391)."""
+    unique: dict[str, int] = {}
+    textures: list[list[np.ndarray]] = [[np.ones((4, 4, 4), np.float32)]]
+    for p in paths:
+        if not p or p in unique:
+            continue
+        if os.path.exists(p):
+            unique[p] = len(textures)
+            textures.append(vkt.load_vkt(p).decode_to_float())
+        else:
+            unique[p] = 0
+    return textures, unique
+
+
 def mesh_triangles(mesh: SceneMesh):
     """Dequantized (T, 3, 3) positions, (T, 3, 3) normals, (T, 3, 2) uvs."""
     positions = decode_position_64bit_np(
@@ -160,11 +192,15 @@ def build_scene(mesh: SceneMesh, texture_dir: str,
                 noise: NoiseTable | None = None,
                 data_directory: str = "data",
                 cluster_size: int = 64,
-                noise_type: str = "ahmed_2d") -> Scene:
-    """Scene on `device` from a parsed mesh, its textures and light specs.
-    The noise table is `noise` if given, else the table of `noise_type`
-    (RenderSettings.noise_type; a name that is no noise type takes white
-    noise, as the JAX package's Application does)."""
+                noise_type: str = "ahmed_2d",
+                linear_light_specs: list[LinearLightSpec] | None = None
+                ) -> Scene:
+    """Scene on `device` from a parsed mesh, its textures, light specs and
+    linear light specs. The noise table is `noise` if given, else the
+    table of `noise_type` (RenderSettings.noise_type; a name that is no
+    noise type takes white noise, as the JAX package's Application
+    does). Each light's texture_index is set from its
+    texture_file_path."""
     device = get_device(device)
     positions, normals, uvs = mesh_triangles(mesh)
     atlas = build_texture_atlas_np(
@@ -174,10 +210,18 @@ def build_scene(mesh: SceneMesh, texture_dir: str,
     if noise is None:
         noise = noise_table_for_settings(noise_type, data_directory)
     ltc_table, ltc_constants = default_ltc_table()
+    light_textures, path_to_index = decode_light_textures(
+        [spec.texture_file_path for spec in light_specs])
+    light_specs = [dataclasses.replace(
+        spec, texture_index=path_to_index.get(spec.texture_file_path, 0))
+        for spec in light_specs]
     return Scene(
         triangle_positions=torch.from_numpy(positions).to(device),
         material_atlas=atlas_from_numpy(atlas, device),
         lights=lights_from_specs(light_specs, device),
+        light_atlas=atlas_from_numpy(build_texture_atlas_np(
+            light_textures, channels=4, unorm16=False), device),
+        linear_lights=stack_linear_lights(linear_light_specs or [], device),
         ltc=LtcTable(torch.from_numpy(ltc_table).to(device),
                      torch.from_numpy(ltc_constants).to(device)),
         clusters=clusters_from_numpy(clusters, device),
@@ -215,8 +259,9 @@ def scene_from_numpy(leaves: Mapping[str, np.ndarray], device) -> Scene:
     """The port's Scene from a JAX Scene's arrays, keyed by their dotted
     field paths ("triangle_positions", "material_atlas.texels",
     "lights.plane", "ltc.table", "ltc.constants.roughness_factor",
-    "clusters.planes", "noise_table", "noise_texture_index_mask", ...).
-    The arrays are carried over as they are."""
+    "clusters.planes", "noise_table", "noise_texture_index_mask",
+    "light_atlas.texels", "linear_lights.start", ...). The arrays are
+    carried over as they are."""
     device = get_device(device)
 
     def sub(prefix):
@@ -230,6 +275,10 @@ def scene_from_numpy(leaves: Mapping[str, np.ndarray], device) -> Scene:
             leaves["triangle_positions"], np.float32)).to(device),
         material_atlas=atlas_from_numpy(sub("material_atlas"), device),
         lights=_lights_from_numpy(sub("lights"), device),
+        light_atlas=atlas_from_numpy(sub("light_atlas"), device),
+        linear_lights=linear_lights_from_numpy(
+            leaves["linear_lights.start"], leaves["linear_lights.end"],
+            leaves["linear_lights.linear_radiance"], device),
         ltc=LtcTable(torch.from_numpy(np.array(
             leaves["ltc.table"], np.float32)).to(device),
             torch.from_numpy(ltc_constants).to(device)),
