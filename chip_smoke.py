@@ -65,6 +65,35 @@ It
    per_pixel_check.py: separately, random, GGX MIS, an error display,
    IES, a textured area light, a linear light) at 64x32 on the card and
    on the CPU and holds the frames together.
+12. dispatches the bench frame (K4 + K1) and the central_4_128 PSA sweep
+   frame (K5, experiment 113) twice each through their Application under
+   torch.cuda.set_sync_debug_mode("error"): no call may make the host
+   wait for the card (tools/host_waits.py); and counts the synchronizing
+   calls of one per-pixel dispatch (the bench frame with fused="off",
+   experiment 46);
+13. renders the two-frame HDR capture (frame_bits 1 and 2, then the
+   direct linear frame, noise frozen) of the bench frame (960x540, K4 +
+   K1), of experiment 113 (1920x1080, K5) and of experiment 46
+   (1280x1024, per-pixel): the recombined frame must equal the direct one
+   rounded to float16 bit for bit;
+14. runs experiment 113 through the harness with --hdr (1 warm-up, 2
+   measured frames) and reads the .hdr back: within RGBE quantization of
+   the frame;
+15. renders the bench frame as 4 bands of 135 rows on cuda:0
+   (parallel/tiles.py), counters reset before: bit-equal to the whole
+   frame, K1-K4 launched once per band;
+16. the RMSE table's configurations 1-3 (tools/rmse_table.py) at full
+   size, cut to 8 spp against a 64-spp reference: each RMSE and ms per
+   frame;
+17. the default LTC fit (8 x 32 x 32 texels, 512 samples, 600 steps,
+   tools/fit_ltc.py) on the card, timed: finite, m00 and m11 > 0, albedo
+   in [0, 1], and the files it writes load with assets/ltc_table.py.
+   16 texels are fitted on the CPU too, and card and CPU records are read
+   after 1, 50 and 600 Adam steps: after 1 step they agree tightly; the
+   steps that follow amplify the last-bit differences of the two
+   devices' float32 arithmetic, so after 600 what is held is each
+   texel's fit loss (tools/fit_ltc.py records_loss, both records
+   evaluated on the CPU), relatively.
 
 The line before the last is a JSON object listing the kernels, each with
 its launches on the main path, time, plain version's time and bound
@@ -108,6 +137,20 @@ SWEEP_SUBSET = 4096
 # The techniques whose K5 operations are counted over the whole sweep
 # frame (the PSA row of the kernels line, and the slowest technique).
 COUNTED_TECHNIQUES = ("PROJECTED_SOLID_ANGLE", "PROJECTED_SOLID_ANGLE_ARVO")
+# The central 4-gon 128-light PSA sweep experiment (K5), phases 12-14.
+PSA_SWEEP_EXPERIMENT = 113
+BANDS = 4
+# Phase 16's cut of the RMSE table's spp (the table: 128 against 1,024).
+RMSE_SPP, RMSE_REF_SPP = 8, 64
+# Phase 17: texels of the card's LTC fit refitted on the CPU; the Adam
+# step counts at which card and CPU records are read; the tolerance of
+# the records after one step and of each texel's loss after the full fit.
+# On an H100 (PyTorch 2.11, CUDA 12.8) the records differed by at most
+# 7e-7 after 1 step, m20 by 0.0097 after 50 and 0.0108 after 600, and a
+# texel's loss by at most 1.85% relative after 600.
+LTC_CPU_TEXELS, LTC_READ_STEPS = 16, (1, 50, 600)
+LTC_STEP1_ATOL, LTC_STEP1_RTOL = 2e-6, 1e-5
+LTC_LOSS_RTOL = 0.03
 
 
 class SmokeFailure(RuntimeError):
@@ -214,6 +257,211 @@ def op_counts(torch, fn, args, kinds, stages):
                      for k, kind in enumerate(kinds)}
              for i, stage in enumerate(stages)}
     return table, sum(values)
+
+
+def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
+                     static, settings, counters, build_app, last):
+    """Phases 12-17: the modules ported last, at full size."""
+    from vulkan_renderer_tpu_torch.experiments import harness, setups
+    from vulkan_renderer_tpu_torch.parallel.tiles import render_frame_bands
+    from vulkan_renderer_tpu_torch.render.screenshot import (
+        combine_ldr_screenshots_into_hdr, read_hdr)
+    from vulkan_renderer_tpu_torch.assets.ltc_table import (
+        load_ltc_table_files, save_ltc_table_files)
+    from vulkan_renderer_tpu_torch.tools import bench_frame as bench
+    from vulkan_renderer_tpu_torch.tools import (fit_ltc, hdr_capture,
+                                                 host_waits, rmse_table)
+    sweep_psa = experiments[PSA_SWEEP_EXPERIMENT]
+    check(sweep_psa.settings.polygon_sampling_technique.name
+          == "PROJECTED_SOLID_ANGLE", "experiment 113 is not the PSA cell")
+
+    # --- 12. no host wait in a frame's dispatch -----------------------------
+    bench_app = bench.application(data_dir, "cuda")
+    for label, app in (("bench frame (K4 + K1)", bench_app),
+                       ("central_4_128 PSA (K5)",
+                        setups.build_default_application(
+                            sweep_psa, data_dir, device="cuda"))):
+        try:
+            host_waits.dispatch_without_host_wait(app, 2)
+        except RuntimeError as exc:
+            raise SmokeFailure(f"{label}: a synchronizing call in the "
+                               f"dispatch: {exc}") from exc
+        log(f"no host wait: 2 dispatches of the {label} under "
+            "set_sync_debug_mode('error') made no synchronizing call")
+        del app
+    bench_app.static = dataclasses.replace(bench_app.static, fused="off")
+    waits = {"per-pixel bench frame": host_waits.count_host_waits(
+        bench_app)}
+    del bench_app
+    waits["experiment 46 (per-pixel, IES)"] = host_waits.count_host_waits(
+        setups.build_default_application(experiments[46], data_dir,
+                                         device="cuda"))
+    log(f"host waits per dispatch on the per-pixel path (sync debug mode "
+        f"'warn'): {waits}")
+    torch.cuda.empty_cache()
+
+    # --- 13. two-frame HDR capture at full size -----------------------------
+    def app_render(exp):
+        app = setups.build_default_application(exp, data_dir, device="cuda")
+
+        def render(bits):
+            app.settings = dataclasses.replace(
+                exp.settings, frame_bits=bits, animate_noise=False,
+                output_linear_rgb=True)
+            return app.render_frame_sync()
+        return render
+
+    def bench_render(bits):
+        return bench.render(scene, static, dataclasses.replace(
+            settings, frame_bits=bits, output_linear_rgb=True))
+
+    hdr_rows = {}
+    for label, render in (
+            (f"bench frame {bench.WIDTH}x{bench.HEIGHT} (K4 + K1)",
+             bench_render),
+            (f"central_4_128 PSA {sweep_psa.width}x{sweep_psa.height} (K5)",
+             app_render(sweep_psa)),
+            (f"experiment 46 {experiments[46].width}x"
+             f"{experiments[46].height} (per-pixel)",
+             app_render(experiments[46]))):
+        start = time.perf_counter()
+        with torch.no_grad():
+            low, high, direct = hdr_capture.bit_frames(render)
+        seconds = time.perf_counter() - start
+        combined = combine_ldr_screenshots_into_hdr(low, high)
+        wrong = hdr_capture.half_mismatches(combined, direct)
+        hdr_rows[label] = dict(mismatches=wrong, seconds=round(seconds, 3),
+                               mean=float(direct.mean()))
+        log(f"two-frame HDR, {label}: float16 bit mismatches {wrong} of "
+            f"{direct.size} (tolerance 0), max relative error "
+            f"{hdr_capture.max_relative_error(combined, direct):.3e}, "
+            f"3 frames in {seconds:.3f} s [{card}]")
+        check(wrong == 0, f"two-frame HDR differs from float16(direct): "
+              f"{label}")
+        check(np.isfinite(direct).all() and direct.mean() > 0,
+              f"two-frame HDR direct frame implausible: {label}")
+        torch.cuda.empty_cache()
+
+    # --- 14. the harness with --hdr -----------------------------------------
+    hdr_exp = harness.create_experiment_list(
+        take_hdr_screenshots=True)[PSA_SWEEP_EXPERIMENT]
+    hdr_exp = dataclasses.replace(hdr_exp, screenshot_path=os.path.join(
+        data_dir, "smoke", os.path.basename(hdr_exp.screenshot_path)))
+    result = harness.run_experiments(
+        [hdr_exp], build_app, min_warmup_seconds=0.0, min_warmup_frames=1,
+        measure_frames=2, data_directory=data_dir, device="cuda")[0]
+    frame = last.pop("image").cpu().numpy()
+    written = read_hdr(result.screenshot_path)
+    _, exponent = np.frexp(frame.max(axis=-1, keepdims=True))
+    rgbe_bad = int(np.count_nonzero(
+        np.abs(written - frame) > np.ldexp(1.0, exponent - 8)))
+    log(f"harness --hdr, experiment {PSA_SWEEP_EXPERIMENT}: "
+        f"{result.frame_time_ms:.3f} ms/frame (1 warm-up, 2 measured), "
+        f"wrote {os.path.basename(result.screenshot_path)}; read back: "
+        f"{rgbe_bad} values off by more than RGBE quantization "
+        f"(tolerance 0) [{card}]")
+    check(result.screenshot_path.endswith(".hdr") and rgbe_bad == 0
+          and written.shape == frame.shape,
+          "the harness's .hdr does not read back as the frame")
+
+    # --- 15. image-row bands: the bench frame as 4 bands on one card --------
+    whole = bench.render(scene, static, settings)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    banded = render_frame_bands(["cuda:0"] * BANDS, scene, static,
+                                bench.camera(), settings, bench.WIDTH,
+                                bench.HEIGHT, bench.noise_numbers())
+    torch.cuda.synchronize()
+    band_ms = (time.perf_counter() - start) * 1e3
+    band_launches = {name: fn.launches for name, fn in counters.items()}
+    equal = bool(torch.equal(banded, whole))
+    log(f"bench frame as {BANDS} bands of {bench.HEIGHT // BANDS} rows on "
+        f"cuda:0: bit-equal to the whole frame {equal}, launches "
+        f"{band_launches}, {band_ms:.3f} ms (one frame, host clock) "
+        f"[{card}]")
+    check(equal, "the banded bench frame differs from the whole frame")
+    for name in ("K1", "K2", "K3", "K4"):
+        check(band_launches[name] == BANDS,
+              f"{name} launched {band_launches[name]} times for "
+              f"{BANDS} bands")
+    del whole, banded
+
+    # --- 16. RMSE table, configurations 1-3 at full size --------------------
+    # Cut: RMSE_SPP / RMSE_REF_SPP in place of the table's 128 / 1,024.
+    rmse_rows = {}
+    for config in (1, 2, 3):
+        r = rmse_table.run_config(config, RMSE_SPP, RMSE_REF_SPP, data_dir,
+                                  csv_path=None, device="cuda")
+        rmse_rows[config] = dict(rmse=r.rmse, ms_per_frame=r.ms_per_frame,
+                                 width=r.row["width"],
+                                 height=r.row["height"])
+        log(f"RMSE config {config} ({r.row['tag']}) at {r.row['width']}x"
+            f"{r.row['height']}: {r.rmse:.3e} ({RMSE_SPP} spp vs "
+            f"{RMSE_REF_SPP} spp; cut from 128 vs 1,024), "
+            f"{r.ms_per_frame:.3f} ms per frame [{card}]")
+        check(0.0 < r.rmse < 0.05, f"RMSE config {config} is implausible")
+        torch.cuda.empty_cache()
+
+    # --- 17. LTC fit, the default table on the card -------------------------
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    records = fit_ltc.fit_ltc_tables(device="cuda")
+    fit_s = time.perf_counter() - start
+    check(records.shape == (8, 32, 32, 5), f"fit shape {records.shape}")
+    check(bool(np.isfinite(records).all()), "the LTC fit is not finite")
+    check(bool((records[..., 0] > 0).all() and (records[..., 2] > 0).all()),
+          "the LTC fit has m00 or m11 <= 0")
+    check(bool(((records[..., 4] >= 0) & (records[..., 4] <= 1)).all()),
+          "the LTC fit's albedo leaves [0, 1]")
+    fits = os.path.join(data_dir, "smoke", "ltc_fits")
+    save_ltc_table_files(fits, records)
+    table, _ = load_ltc_table_files(fits, records.shape[0])
+    check(table.shape == (8, 32, 32, 6) and np.isfinite(table).all(),
+          "the fit files do not load")
+    log(f"LTC fit, 8 x 32 x 32 texels, 512 samples, 600 steps: {fit_s:.3f} "
+        f"s on the card [{card}]; loaded back {tuple(table.shape)}")
+    grids = fit_ltc.texel_parameters()
+    flat = np.arange(records[..., 0].size)
+    pick = flat[np.linspace(0, flat.size - 1, LTC_CPU_TEXELS).astype(int)]
+    texels = [torch.from_numpy(g.reshape(-1)[pick]) for g in grids]
+    ltc_read = {}
+    for steps in LTC_READ_STEPS:
+        card_records = records if steps == 600 else fit_ltc.fit_ltc_tables(
+            steps=steps, device="cuda")
+        card_records = torch.from_numpy(card_records.reshape(-1, 5)[pick])
+        cpu = fit_ltc.fit_texels(*texels, steps=steps)
+        with torch.no_grad():
+            loss_card = fit_ltc.records_loss(card_records, *texels)
+            loss_cpu = fit_ltc.records_loss(cpu, *texels)
+        d = (card_records - cpu).abs()
+        ltc_read[steps] = {
+            "max_abs": [float(x) for x in d.max(0).values],
+            "max_rel": [float(x) for x in (d / cpu.abs().clamp(
+                min=1e-6)).max(0).values],
+            "loss_rel": float(((loss_card - loss_cpu).abs()
+                               / loss_cpu).max())}
+        log(f"LTC fit, {LTC_CPU_TEXELS} texels, card vs CPU after {steps} "
+            f"Adam steps: max |d| (m00, m02, m11, m20, albedo) "
+            f"{[f'{x:.3g}' for x in ltc_read[steps]['max_abs']]}, max "
+            f"relative {[f'{x:.3g}' for x in ltc_read[steps]['max_rel']]}, "
+            f"largest relative difference of a texel's fit loss "
+            f"{ltc_read[steps]['loss_rel']:.3g}")
+        if steps == 1:
+            step1_ok = bool((d <= LTC_STEP1_ATOL
+                             + LTC_STEP1_RTOL * cpu.abs()).all())
+    check(step1_ok, f"after one Adam step the card's LTC records differ "
+          f"from the CPU's by more than {LTC_STEP1_ATOL:g} + "
+          f"{LTC_STEP1_RTOL:g} relative")
+    check(ltc_read[600]["loss_rel"] <= LTC_LOSS_RTOL,
+          f"a texel's LTC fit loss on the card differs from the CPU's by "
+          f"more than {LTC_LOSS_RTOL:g} relative")
+    print(json.dumps({"host_waits_per_pixel": waits, "hdr": hdr_rows,
+                      "bands_ms": round(band_ms, 3),
+                      "rmse": rmse_rows, "ltc_fit_s": round(fit_s, 3),
+                      "ltc_card_vs_cpu": ltc_read, "card": card}),
+          flush=True)
 
 
 def run():
@@ -869,6 +1117,9 @@ def run():
             f"{per_pixel_check.WIDTH}x{per_pixel_check.HEIGHT}: {stats}")
         check(ok, f"per-pixel class {name}: the card's frame differs from "
               "the CPU's")
+
+    run_later_phases(torch, np, device, data_dir, card, experiments,
+                     scene, static, settings, counters, build_app, last)
 
     sources = {
         "K1": ("vulkan_renderer_tpu_torch/csrc/anyhit.cu",

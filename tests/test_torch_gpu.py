@@ -293,3 +293,78 @@ def test_dispatch_launches_fused_kernels_where_supported(planes_scene,
     with pytest.raises(ValueError, match="fused='on'"):
         _launches(scene, SceneStatic.for_scene(scene, fused="on"),
                   per_pixel, camera)
+
+
+def _sweep_application(tmp_path, shadows):
+    """The central 4-gon 128-light PSA sweep experiment (113) at 64x32 on
+    the card, with shadows on (K4 + K1) or off (K5)."""
+    from vulkan_renderer_tpu_torch.experiments import harness, setups
+    exp = harness.create_experiment_list()[113]
+    assert exp.settings.polygon_sampling_technique == \
+        Tech.PROJECTED_SOLID_ANGLE
+    exp = dataclasses.replace(exp, width=64, height=32, settings=(
+        dataclasses.replace(exp.settings, trace_shadow_rays=shadows)))
+    return setups.build_default_application(exp, str(tmp_path), device="cuda")
+
+
+@pytest.mark.parametrize("shadows", [False, True])
+def test_dispatch_has_no_host_wait(tmp_path, shadows):
+    """Two dispatches of a K5 frame and of a K4 + K1 frame make no
+    synchronizing call (sync debug mode "error"), so frames in flight
+    overlap; the kernels did run."""
+    from vulkan_renderer_tpu_torch.tools import host_waits
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    app = _sweep_application(tmp_path, shadows)
+    kernel = fused.fused_light_shading if shadows \
+        else fused.fused_light_shading_resolved
+    kernel.launches = 0
+    host_waits.dispatch_without_host_wait(app, 2)
+    assert kernel.launches >= 3
+
+
+@pytest.mark.parametrize("case", ["k4", "k5", "per_pixel"])
+def test_frame_bits_recombine_on_card(planes_scene, case):
+    """frame_bits 1 and 2 recombine to the direct linear frame rounded to
+    float16, bit for bit, on each shading path."""
+    from vulkan_renderer_tpu_torch.render.screenshot import \
+        combine_ldr_screenshots_into_hdr
+    from vulkan_renderer_tpu_torch.tools import hdr_capture
+    scene, camera = planes_scene
+    settings = RenderSettings(
+        sampling_strategy=SamplingStrategy.DIFFUSE_SPECULAR_SEPARATELY
+        if case == "per_pixel" else SamplingStrategy.DIFFUSE_SPECULAR_MIS,
+        trace_shadow_rays=case != "k5", output_linear_rgb=True)
+    static = SceneStatic.for_scene(scene)
+
+    def render(bits):
+        return pipeline.render_frame(
+            scene, static, camera,
+            dataclasses.replace(settings, frame_bits=bits), 64, 32)
+
+    low, high, direct = hdr_capture.bit_frames(render)
+    combined = combine_ldr_screenshots_into_hdr(low, high)
+    assert hdr_capture.half_mismatches(combined, direct) == 0
+    assert float(direct.max()) > 0.0
+
+
+def test_bands_on_card(planes_scene):
+    """The frame as 4 bands of 8 rows on one card equals the whole frame
+    bit for bit; each band launches K1, K2 and K3 once and K4 once per
+    vertex-count group."""
+    from vulkan_renderer_tpu_torch.parallel.tiles import render_frame_bands
+    scene, camera = planes_scene
+    settings = RenderSettings(trace_shadow_rays=True)
+    static = SceneStatic.for_scene(scene)
+    whole = pipeline.render_frame(scene, static, camera, settings, 64, 32)
+    counters = {"K1": tk.trace_anyhit, "K2": tk.trace_closest,
+                "K3": tk.closest_attrs, "K4": fused.fused_light_shading}
+    for fn in counters.values():
+        fn.launches = 0
+    banded = render_frame_bands(["cuda:0"] * 4, scene, static, camera,
+                                settings, 64, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(banded, whole)
+    groups = len(fused.vertex_groups(static))
+    assert {n: fn.launches for n, fn in counters.items()} == \
+        {"K1": 4, "K2": 4, "K3": 4, "K4": 4 * groups}

@@ -5,8 +5,11 @@ modules among them), write and load a tiny scene with the port's own
 tools, render a shadowed frame and a no-shadow DIFFUSE_ONLY frame (the K5
 path), a per-pixel frame (DIFFUSE_SPECULAR_SEPARATELY with shadows) and a
 linear-light frame on the CPU, run a timing-sweep experiment through the
-harness, and check that sys.modules holds no jax and no module of vulkan_renderer_tpu
-(data files of the JAX package are read by path, not by import)."""
+harness, run the modules ported last (the two-frame HDR capture, image-row
+bands, the RMSE table, the report, texture conversion, an LTC fit and the
+viewer's headless orbit) at tiny sizes, and check that sys.modules holds
+no jax and no module of vulkan_renderer_tpu (data files of the JAX
+package are read by path, not by import)."""
 
 import os
 import subprocess
@@ -74,6 +77,30 @@ assert harness.main(["-e", "193", "--device", "cpu", "--width", "16",
                      "--measure-frames", "2",
                      "--output-dir", d + "/out", "--data-directory",
                      d + "/data", "--results-csv", d + "/r.csv"]) == 0
+from vulkan_renderer_tpu_torch.parallel.tiles import render_frame_bands
+bands = render_frame_bands(["cpu", "cpu"], scene, SceneStatic.for_scene(scene),
+                           camera, RenderSettings(), 32, 16)
+assert bool((bands == render_frame(scene, SceneStatic.for_scene(scene), camera,
+                                   RenderSettings(), 32, 16)).all())
+from vulkan_renderer_tpu_torch.tools import (experiment_report, fit_ltc,
+                                             hdr_capture, rmse_table,
+                                             texture_conversion, viewer)
+_, _, mismatches = hdr_capture.capture("cornell_box", 16, 16, d + "/hdr",
+                                       "cpu", d + "/data")
+assert mismatches == 0
+assert rmse_table.run_config(1, 1, 2, d + "/data", d + "/rmse.csv", "cpu",
+                             16, 16).rmse > 0.0
+assert experiment_report.write_report(d + "/r.csv", d + "/R.md",
+                                      d + "/rmse.csv") == 1
+from vulkan_renderer_tpu_torch.render.screenshot import write_png
+write_png(d + "/t.png", np.zeros((4, 4, 3), np.uint8))
+texture_conversion.convert(132, d + "/t.png", d + "/t.vkt")
+fit_ltc.main(["--output", d + "/fits", "--resolution", "2",
+              "--fresnel-count", "1", "--samples", "4", "--steps", "1",
+              "--device", "cpu"])
+assert viewer.main(["--orbit", "--device", "cpu", "--width", "8",
+                    "--height", "8", "--data-directory", d + "/data",
+                    "--output-dir", d + "/orbit"]) == 0
 print("JAX_IMPORTED", "jax" in sys.modules)
 used = {m for m in sys.modules if m.split(".")[0] == "vulkan_renderer_tpu"}
 print("REFERENCE_MODULES", sorted(used))

@@ -12,9 +12,12 @@ of K4's plain version (rsqrt-based normalization, one-hot lane selection)
 and XLA contracts multiply-adds into FMAs, so a sample near a sector
 boundary or an ill-conditioned ellipse may land elsewhere. Arvo's PSA
 sampler is held at 98%, a value finite in one package only counting as a
-disagreement: its sector choice, its z > 1e-5 horizon gate and its
-degenerate (NaN) Newton steps flip for about 1.5% of these samples
-between the two formulations (ROADMAP Queue 3)."""
+disagreement: where a sector starts on the horizon its Newton step's
+derivative cancels to 0 or +-1e-7 by rounding, and the horizon gate
+(z > 1e-5) then drops the sample in one formulation only. The port and
+the JAX reference part on up to 1.46% of these values, the JAX
+package's own SoA and vmapped formulations on up to 1.04%
+(test_torch_arvo_psa_gap.py)."""
 
 import pytest
 

@@ -15,9 +15,12 @@ each counterpart is easy to find:
   scene/      camera, polygonal lights, the device-resident Scene
   render/     clusters and their BVH, texture fetch, tracers (K1-K3), fused
               shading (K4) and its no-shadow resolved form (K5), the frame
-              pipeline, screenshot writers
+              pipeline, screenshot writers and readers
   kernels/    nvcc build + ctypes loading of csrc/*.cu
-  tools/      procedural scene and noise writers, the bench-frame timer
+  parallel/   a frame as bands of image rows over devices
+  tools/      procedural scene and noise writers, the bench-frame timer,
+              HDR capture, RMSE table, report, texture conversion, LTC
+              fitting, the viewer
   experiments/ the experiment list, scene setups and the timing harness
 
 Every kernel wrapper takes its plain PyTorch twin for CPU tensors and

@@ -77,6 +77,18 @@ def load_ltc_table_files(directory: str, fresnel_count: int = 51):
             ltc_constants(fresnel_count, resolution, resolution))
 
 
+def save_ltc_table_files(directory: str, records: np.ndarray) -> None:
+    """Write fit<i>.dat files; records: (F, res, res, 5) float32 of
+    (m00, m02, m11, m20, albedo) per texel (ltc_table.c:31-47 reads
+    them: a u64 resolution, then the records)."""
+    os.makedirs(directory, exist_ok=True)
+    fresnel_count, res = records.shape[0], records.shape[1]
+    for i in range(fresnel_count):
+        with open(os.path.join(directory, f"fit{i}.dat"), "wb") as f:
+            f.write(np.uint64(res).tobytes())
+            f.write(np.ascontiguousarray(records[i], np.float32).tobytes())
+
+
 def default_ltc_table(directory: str = BUILTIN_LTC_DIRECTORY):
     """The packaged fits: every fit<i>.dat present in `directory`."""
     available = 0

@@ -10,6 +10,8 @@ pipeline.py:218-223), and TF32 would round the per-pixel frame transforms.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -48,3 +50,12 @@ def to_device_async(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """The float32 tensor of `values` (nested tuples) on `device`, copied
+    there once and then reused, so that frames read it with no copy. The
+    caller must not write to it."""
+    return to_device_async(torch.tensor(values, dtype=torch.float32),
+                           torch.device(device))

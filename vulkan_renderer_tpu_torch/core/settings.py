@@ -169,3 +169,33 @@ def settings_violations(s: RenderSettings) -> list:
                 "Arvo PSA exposes only diffuse backward errors "
                 "(user_interface.cpp:197)")
     return v
+
+
+def legalize_settings(settings: RenderSettings | None = None,
+                      **kwargs) -> RenderSettings:
+    """Build RenderSettings from field values, coercing illegal
+    combinations the way the reference GUI does (downgrade the heuristic
+    to power, force PSA for specular strategies, disable an unsupported
+    error display) instead of raising. Accepts a base settings object
+    and/or field overrides — the GUI-equivalent entry point, since
+    RenderSettings itself rejects illegal combinations at construction."""
+    f = {fld.name: getattr(settings, fld.name) if settings is not None
+         else fld.default for fld in dataclasses.fields(RenderSettings)}
+    f.update(kwargs)
+    tech = f["polygon_sampling_technique"]
+    strat = f["sampling_strategy"]
+    if strat in _SPECULAR_STRATEGIES and tech not in _PSA_OURS:
+        tech = PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE
+    if strat == SamplingStrategy.DIFFUSE_GGX_MIS and tech in GGX_MIS_DENYLIST:
+        tech = PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE
+    heuristic = f["mis_heuristic"]
+    if heuristic in _OUR_HEURISTICS \
+            and (strat != SamplingStrategy.DIFFUSE_SPECULAR_MIS
+                 or tech not in _PSA_OURS):
+        heuristic = MisHeuristic.POWER
+    f.update(polygon_sampling_technique=tech, mis_heuristic=heuristic)
+    try:
+        return RenderSettings(**f)
+    except ValueError:
+        f["error_display"] = ErrorDisplay.NONE
+        return RenderSettings(**f)

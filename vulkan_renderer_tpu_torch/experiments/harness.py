@@ -15,9 +15,9 @@ otherwise experiments/setups.py rebuilds the documented layout and the
 output name carries `standin`. A CPU run carries `_cpu`. Every experiment
 renders: the fused kernels K4/K5 where they cover the settings, the
 per-pixel path (error displays, IES/textured and linear lights, the other
-strategies) elsewhere. Only the HDR capture (--hdr) is not ported: those
-runs raise NotImplementedError naming their ROADMAP item, and the CLI
-reports them.
+strategies) elsewhere. With --hdr each experiment's measured frame is
+written as a Radiance .hdr instead of a .png, as the JAX harness does
+(tools/hdr_capture.py renders the reference's two-frame capture).
 
 Run on the card (the timing sweep is experiments 50-309: 13 techniques
 per cell, cells in the order vertex count 3-7 x central/decentral x
@@ -325,18 +325,6 @@ class ExperimentResult:
     shadow_overflow: int = 0
 
 
-def check_experiment(experiment) -> None:
-    """Raise NotImplementedError (naming the ROADMAP item) for experiments
-    that need what the port lacks, before any scene is built: the HDR
-    capture (--hdr, frame_bits; Queue 1 item 13). Every other experiment
-    renders, on K4/K5 where render/fused.py fused_supported holds and on
-    the per-pixel path elsewhere."""
-    if experiment.hdr or experiment.settings.frame_bits != 0:
-        raise NotImplementedError(
-            "HDR frame_bits capture is not ported (ROADMAP Queue 1, "
-            "item 13)")
-
-
 def card_description(device) -> str:
     """The card's name and power limit as nvidia-smi reports them, or
     "cpu"."""
@@ -368,7 +356,6 @@ def run_experiments(experiments, build_application=None, *,
             device=device)
     results = []
     for experiment in experiments:
-        check_experiment(experiment)
         app = build_application(experiment)
         warmup = WarmupProtocol(min_warmup_seconds, min_warmup_frames)
         while not warmup.ready:
@@ -438,8 +425,7 @@ def append_csv_row(csv_path: str, row: list) -> None:
 def main(argv=None) -> int:
     """`-e N [N2 ...]` runs the given experiment indices (reference: -e N,
     main.c:2277-2284), `-e all` runs every one, `--list` prints indices and
-    output paths. Exit code 0 when every picked experiment ran, 3 when some
-    are not ported yet (each is reported).
+    output paths. Exit code 0 when every picked experiment ran.
 
     Experiments run one after another in this process, each measured once:
     the JAX harness's one-subprocess-per-experiment isolation and its
@@ -498,14 +484,8 @@ def main(argv=None) -> int:
         measure_frames=args.measure_frames,
         data_directory=args.data_directory, device=args.device)
     os.makedirs(os.path.dirname(args.results_csv) or ".", exist_ok=True)
-    rc = 0
     for i, e in picked:
-        try:
-            result = run([e])[0]
-        except NotImplementedError as exc:
-            print(f"{i:03d}: not ported: {exc}")
-            rc = 3
-            continue
+        result = run([e])[0]
         tag = " [STAND-IN]" if result.stand_in else ""
         print(f"{i:03d}: {result.frame_time_ms:.3f} ms -> "
               f"{result.screenshot_path}{tag} [{card}]")
@@ -516,7 +496,7 @@ def main(argv=None) -> int:
             f"{result.frame_time_ms:.3f}", backend, card,
             int(result.stand_in), result.primary_uncertain,
             result.shadow_overflow, result.screenshot_path])
-    return rc
+    return 0
 
 
 if __name__ == "__main__":

@@ -88,6 +88,10 @@ def resolve_scene(key: str, data_directory: str = "data") -> SceneEntry:
             # Copy to the registry's stem when the generator's differs.
             src = os.path.join(data_directory, f"{entry.procedural}.vks")
             if src != vks and os.path.exists(src):
+                # The generator's own file is a stand-in too (for the
+                # scene of that name, resolved later).
+                with open(src + ".standin", "w") as f:
+                    f.write(f"procedural stand-in '{entry.procedural}'\n")
                 shutil.copyfile(src, vks)
                 tex_src = os.path.join(data_directory,
                                        f"{entry.procedural}_textures")

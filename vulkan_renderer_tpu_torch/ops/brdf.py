@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.device import device_constant
 from .math_utils import M_PI, cross, dot, normalize
 
 M_INV_PI = 1.0 / M_PI
@@ -72,7 +73,8 @@ def sample_ggx_visible_normal(outgoing_shading_space, roughness_xy,
                           axis_z[..., 0] * inv_len,
                           torch.zeros_like(inv_len)], dim=-1)
     axis_x = torch.where((length_sq <= 0.0)[..., None],
-                         axis_x.new_tensor([1.0, 0.0, 0.0]), axis_x)
+                         device_constant((1.0, 0.0, 0.0), axis_x.device),
+                         axis_x)
     axis_y = cross(axis_z, axis_x)
 
     radius = torch.sqrt(random_numbers[..., 0])

@@ -19,8 +19,11 @@ with the Pallas tracers, stage by stage:
 6. the sample-major shadow megabatch; a ray whose weight is zero gets
    t_max = -1 and is dead (:537-552);
 7. shadow any-hit (K1);
-8. the resolve: base + sum_slot b * V, NaN/Inf -> pink, exposure, sRGB
-   (:587-594).
+8. the resolve: base + sum_slot b * V, NaN/Inf -> pink, exposure, then
+   sRGB, or one byte of the float16 bits for the two-frame HDR capture
+   (frame_bits, :587-594 and _postprocess :181-199).
+
+A frame may be one band of image rows (row_offset; parallel/tiles.py).
 
 Everything between the kernels is plain PyTorch on the scene's device.
 """
@@ -33,6 +36,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core.device import device_constant, to_device_async
 from ..core.settings import RenderSettings
 from ..ops.intersect import polygonal_light_ray_intersection
 from ..ops.ltc import get_ltc_coefficients
@@ -84,18 +88,23 @@ PLAIN_VERSIONS = FrameKernels(trace_closest_plain, closest_attrs_plain,
 # under the profiler (tools/profile_frame.py --experiment 327
 # --pixel-chunks, one H100).
 PIXEL_CHUNK = 1 << 21
+# The NaN/Inf sentinel color (glsl:861-864), linear, before exposure.
+PINK = (1.0, 0.0, 0.8)
 
 
 def make_frame_constants(camera: FirstPersonCamera, width: int, height: int,
                          settings: RenderSettings, noise_random_numbers,
                          device) -> FrameConstants:
+    """The frame's constants on `device`. The two small tensors go there in
+    stream order (to_device_async): a pageable copy would make the host
+    wait for the frames already queued."""
+    device = torch.device(device)
     return FrameConstants(
-        camera_position=torch.as_tensor(
-            np.asarray(camera.position_world_space, np.float32),
-            device=device),
-        pixel_to_ray=torch.as_tensor(
+        camera_position=to_device_async(torch.from_numpy(np.array(
+            camera.position_world_space, np.float32)), device),
+        pixel_to_ray=to_device_async(torch.from_numpy(np.array(
             get_pixel_to_ray_direction_world_space(camera, width, height),
-            device=device),
+            np.float32)), device),
         exposure_factor=float(settings.exposure_factor),
         roughness_factor=float(settings.roughness_factor),
         noise_random_numbers=tuple(
@@ -103,11 +112,15 @@ def make_frame_constants(camera: FirstPersonCamera, width: int, height: int,
     )
 
 
-def camera_rays(constants: FrameConstants, width: int, height: int):
-    """Row-major (P, 3) ray directions: pixel_to_ray @ (x, y, 1)."""
+def camera_rays(constants: FrameConstants, width: int, height: int,
+                row_offset: int = 0):
+    """Row-major (P, 3) ray directions: pixel_to_ray @ (x, y, 1), for the
+    rows row_offset..row_offset+height-1 of the frame (pipeline.py
+    :335-342)."""
     device = constants.pixel_to_ray.device
     ys, xs = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=device),
+        torch.arange(row_offset, row_offset + height, dtype=torch.float32,
+                     device=device),
         torch.arange(width, dtype=torch.float32, device=device),
         indexing="ij")
     x, y = xs.reshape(-1, 1), ys.reshape(-1, 1)
@@ -168,16 +181,18 @@ def render_frame_constants(scene, static: SceneStatic,
                            settings: RenderSettings,
                            constants: FrameConstants, width: int,
                            height: int,
-                           kernels: FrameKernels = KERNELS) -> torch.Tensor:
-    """One frame: (height, width, 3) float32 in output color space."""
+                           kernels: FrameKernels = KERNELS,
+                           row_offset: int = 0) -> torch.Tensor:
+    """One frame: (height, width, 3) float32 in output color space.
+
+    With row_offset, the image is the band of rows row_offset..row_offset
+    +height-1 of a frame whose constants were made for its full height:
+    rays and noise read global pixel rows, so the bands of a frame
+    concatenate to the whole frame bit for bit (parallel/tiles.py)."""
     check_settings_class(settings)
-    if settings.frame_bits != 0:
-        raise NotImplementedError(
-            "HDR frame_bits capture is not ported (ROADMAP Queue 1, "
-            "item 13)")
     fused = use_fused(static, settings)
     cam = constants.camera_position
-    ray_dirs = camera_rays(constants, width, height)
+    ray_dirs = camera_rays(constants, width, height, row_offset)
     p = ray_dirs.shape[0]
     origins = cam.expand(p, 3).contiguous()
     prim, t_hit = kernels.trace_closest(
@@ -192,12 +207,19 @@ def render_frame_constants(scene, static: SceneStatic,
                                       hit, ray_dirs, attrs, position)
     if not fused:
         return _render_per_pixel(scene, static, settings, constants, width,
-                                 height, kernels, hit, data, ltc, base0)
+                                 height, kernels, hit, data, ltc, base0,
+                                 row_offset)
 
     noise = frame_noise(
-        scene.noise_table, width, height,
+        scene.noise_table, width, row_offset + height,
         max(pairs_per_light(settings) * static.light_count, 1),
         scene.noise_texture_index_mask, constants.noise_random_numbers)
+    if row_offset:
+        # The band's frame pixels (FrameNoise.pixels): K4 and K5 read the
+        # noise at these, as their plain versions do.
+        noise = noise.subset(torch.arange(
+            row_offset * width, (row_offset + height) * width,
+            device=ray_dirs.device))
     light_scalars = pack_light_scalars(scene.lights, static.light_count)
     planes = pack_planes(data, ltc, hit)
     if not settings.trace_shadow_rays:
@@ -281,16 +303,19 @@ def shade_pixels(scene, static: SceneStatic, settings: RenderSettings,
 
 def _render_per_pixel(scene, static: SceneStatic, settings: RenderSettings,
                       constants: FrameConstants, width: int, height: int,
-                      kernels: FrameKernels, hit, data, ltc, base0):
+                      kernels: FrameKernels, hit, data, ltc, base0,
+                      row_offset: int = 0):
     """Stages 5-8 on the per-pixel path, PIXEL_CHUNK pixels at a time.
     With shadow rays each chunk's slots are packed as K4 exports them, and
-    the frame's slots go through the one megabatch K1 call."""
+    the frame's slots go through the one megabatch K1 call. A band's
+    noise pairs are those of its global frame pixels."""
     total_pairs = max(pairs_per_light(settings) * static.light_count
                       + linear_pairs_per_light(settings)
                       * static.linear_light_count, 1)
-    noise = frame_noise(scene.noise_table, width, height, total_pairs,
-                        scene.noise_texture_index_mask,
+    noise = frame_noise(scene.noise_table, width, row_offset + height,
+                        total_pairs, scene.noise_texture_index_mask,
                         constants.noise_random_numbers)
+    first = row_offset * width
     slots = rays_per_light(settings) * static.light_count \
         + linear_rays_per_light(settings) * static.linear_light_count
     shadows = settings.trace_shadow_rays and slots > 0
@@ -301,7 +326,7 @@ def _render_per_pixel(scene, static: SceneStatic, settings: RenderSettings,
         base, b, dirs, t_max = shade_pixels(
             scene, static, settings, constants, hit[start:stop],
             _rows(data, start, stop), _rows(ltc, start, stop),
-            noise_pairs(noise, start, stop))
+            noise_pairs(noise, first + start, first + stop))
         if shadows:
             # The (3 + 7 S, P) layout of K4's output.
             slot_planes = torch.cat([b, dirs, t_max[..., None]], dim=2)
@@ -320,16 +345,31 @@ def _render_per_pixel(scene, static: SceneStatic, settings: RenderSettings,
 
 def _resolve(colors, constants: FrameConstants, settings: RenderSettings,
              width: int, height: int) -> torch.Tensor:
-    """(P, 3) linear color -> (height, width, 3) output image."""
+    """(P, 3) linear color -> (height, width, 3) output image
+    (pipeline.py:587-594 and _postprocess :181-199)."""
     # NaN/Inf -> pink (glsl:861-864), then exposure.
     bad = torch.any(torch.isnan(colors) | torch.isinf(colors), dim=-1,
                     keepdim=True)
-    pink = torch.tensor([1.0, 0.0, 0.8], device=colors.device) \
-        / constants.exposure_factor
+    pink = device_constant(PINK, colors.device) / constants.exposure_factor
     colors = torch.where(bad, pink, colors) * constants.exposure_factor
-    if not settings.output_linear_rgb:
+    if settings.frame_bits > 0:
+        colors = half_float_byte(colors, settings.frame_bits)
+    elif not settings.output_linear_rgb:
         colors = linear_to_srgb(colors)
     return colors.reshape(height, width, 3)
+
+
+def half_float_byte(colors: torch.Tensor, frame_bits: int) -> torch.Tensor:
+    """The low (frame_bits 1) or high (2) byte of each value's float16
+    bits, over 255: one half of the two-frame HDR capture, with no sRGB
+    step (main.c:1700-1763; render/screenshot.py
+    combine_ldr_screenshots_into_hdr puts the halves back together).
+    Values past float16's range give the bits of inf, as a cast does."""
+    # view(int16) is signed: widen and mask before taking the high byte.
+    bits = colors.to(torch.float16).view(torch.int16).to(torch.int32) \
+        & 0xFFFF
+    byte = bits & 0xFF if frame_bits == 1 else bits >> 8
+    return byte.to(torch.float32) / 255.0
 
 
 def render_frame(scene, static: SceneStatic, camera: FirstPersonCamera,

@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.device import device_constant
 from ..core.settings import (ErrorDisplay, MisHeuristic,
                              PolygonSamplingTechnique, RenderSettings,
                              SamplingStrategy)
@@ -184,6 +185,7 @@ _TAB20B = np.array([
     [0.19807, 0.05286, 0.17144], [0.37626, 0.08228, 0.29614],
     [0.61721, 0.15293, 0.50888], [0.73046, 0.34191, 0.67244],
 ], np.float32)
+_TAB20B_ROWS = tuple(tuple(row) for row in _TAB20B.tolist())
 # 20 colors over the five decades [1, 1e5), in float32 as the reference.
 _ERROR_INDEX_SCALE = float(np.float32(20.0) / (np.float32(5.0)
                                                * np.log2(np.float32(10.0))))
@@ -200,7 +202,7 @@ def error_to_color(error, factor: float):
     e = torch.clamp(torch.abs(factor * error), 1.0, _ERROR_MAX)
     color_index = torch.log2(e) * _ERROR_INDEX_SCALE
     idx = torch.clamp(color_index.to(torch.int64), 0, 19)
-    return torch.from_numpy(_TAB20B).to(error.device)[idx]
+    return device_constant(_TAB20B_ROWS, error.device)[idx]
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +315,8 @@ def _no_ray(a_color, ray_count: int):
     p = a_color.shape[0]
     return LightShadingResult(
         a_color, a_color.new_zeros((p, ray_count, 3)),
-        a_color.new_tensor([0.0, 0.0, 1.0]).expand(p, ray_count, 3),
+        device_constant((0.0, 0.0, 1.0), a_color.device).expand(
+            p, ray_count, 3),
         a_color.new_zeros((p, ray_count)))
 
 
@@ -426,7 +429,7 @@ def evaluate_polygonal_light_shading(scene, static: SceneStatic,
         pad = total_rays - b.shape[1]
         if pad > 0:
             b = torch.cat([b, b.new_zeros((p, pad, 3))], dim=1)
-            d = torch.cat([d, d.new_tensor([0.0, 0.0, 1.0])
+            d = torch.cat([d, device_constant((0.0, 0.0, 1.0), d.device)
                            .expand(p, pad, 3)], dim=1)
             t = torch.cat([t, t.new_zeros((p, pad))], dim=1)
         scale = float(np.float32(1.0 / n))
@@ -772,8 +775,8 @@ def _psa_light_shading(scene, static, settings, light_index, data, ltc,
                                         over_samples)]
 
         else:  # DIFFUSE_SPECULAR_RANDOM
-            lum = data.diffuse_albedo.new_tensor(
-                [0.21263901, 0.71516868, 0.07219232])
+            lum = device_constant((0.21263901, 0.71516868, 0.07219232),
+                                  data.diffuse_albedo.device)
             diffuse_albedo = torch.clamp(dot(data.diffuse_albedo, lum),
                                          min=0.01)
             diffuse_weight = diffuse_albedo * psa_d

@@ -150,9 +150,13 @@ def sample_texture_grad(atlas: TextureAtlas, tex_index, uv, duv_dx, duv_dy):
 
 def sample_texture_lod0(atlas: TextureAtlas, tex_index, uv):
     """textureLod(.., 0): bilinear at mip 0 with repeat addressing (light
-    textures, shading_pass.frag.glsl:170-184). tex_index: (P,) int64 or an
-    int; uv: (P, 2). Returns (P, C) float32."""
+    textures, shading_pass.frag.glsl:170-184). tex_index: (P,) int64, a
+    0-d int64 tensor or an int; uv: (P, 2). Returns (P, C) float32."""
     if isinstance(tex_index, int):
         tex_index = torch.full(uv.shape[:1], tex_index, dtype=torch.int64,
                                device=uv.device)
+    else:
+        # A 0-d index tensor would be read back to the host (a wait for
+        # the card) at each use; as (P,) it stays a device gather.
+        tex_index = tex_index.expand(uv.shape[:1])
     return _bilinear_wrap(atlas, tex_index, torch.zeros_like(tex_index), uv)

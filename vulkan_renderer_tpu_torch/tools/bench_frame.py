@@ -22,11 +22,18 @@ card (nvidia-smi name and power limit), the median and all ms/frame of
 FRAMES frames after WARMUP warm-up frames (host clock around each frame
 and a synchronize), each kernel's ms at the frame's shapes (CUDA events,
 warm L2), the share of hit pixels K4 shades, and the register report of
-every library built. With --sweep it adds, for PSA and Arvo PSA in both
-sweep cells: the harness's median ms/frame (SWEEP_WARMUP warm-up and
-SWEEP_MEASURED measured frames, pipelined), K5's ms on the frame's
-inputs, the device memory allocated before a frame and at its peak
-(torch.cuda.max_memory_allocated), and the hit share. It uses only the
+every library built, and the window ms/frame: WINDOW_FRAMES frames
+dispatched through core/app.py's Application with its frames in flight,
+the host clock from the first dispatch until the last frame retires,
+divided by WINDOW_FRAMES (after WARMUP frames rendered one at a time).
+With --sweep it adds, for PSA and Arvo PSA in both sweep cells
+(--sweep-techniques all: for all 13 techniques, as chip_smoke.py phase 8
+runs them; their K5 libraries are built first, in parallel): the window
+ms/frame as above, the harness's median ms/frame (SWEEP_WARMUP warm-up
+and SWEEP_MEASURED measured frames, pipelined; the median of a few
+timer-stamp deltas, which bunch when frames overlap), K5's ms on the
+frame's inputs, the device memory allocated before a frame and at its
+peak (torch.cuda.max_memory_allocated), and the hit share. It uses only the
 entry points that every tree of the port has had since the timing sweep
 was first ported, and imports no JAX.
 """
@@ -47,6 +54,7 @@ WARMUP, FRAMES = 3, 15
 SWEEP_CELLS = (("central_4_128", 102), ("decentral_5_1x128spp", 193))
 SWEEP_WIDTH, SWEEP_HEIGHT = 1920, 1080
 SWEEP_WARMUP, SWEEP_MEASURED = 3, 7
+WINDOW_FRAMES = 40
 
 
 def hit_mask(planes):
@@ -110,27 +118,50 @@ def kernel_jobs(s):
             ("fused_shading", kernel_defines(s, light_layout()))]
 
 
-def load_city(data_dir, device):
-    """Write (once) and load the bench city with its four lights: (scene,
-    its SceneStatic)."""
-    import numpy as np
-
-    from vulkan_renderer_tpu_torch.render.shading import SceneStatic
-    from vulkan_renderer_tpu_torch.scene import scene as scene_module
+def city_files(data_dir):
+    """Write (once) the bench city: (its .vks path, its texture
+    directory)."""
     from vulkan_renderer_tpu_torch.tools.city import write_city_scene
     vks = os.path.join(data_dir, f"{CITY}.vks")
     if not os.path.exists(vks):
         vks = write_city_scene(data_dir, CITY, n_buildings=300, detail=10)
-    specs = [scene_module.PolygonalLightSpec(
+    return vks, os.path.join(data_dir, f"{CITY}_textures")
+
+
+def lights():
+    """The bench frame's four quad street lights."""
+    import numpy as np
+
+    from vulkan_renderer_tpu_torch.scene.lights import PolygonalLightSpec
+    return [PolygonalLightSpec(
         translation=np.array([-30.0 + 20.0 * i, 0.0, 8.0], np.float32),
         rotation_angles=np.array([np.pi, 0.0, 0.0], np.float32),
         scaling_x=1.5, scaling_y=1.5,
         radiant_flux=np.array([400.0, 380.0, 340.0], np.float32))
         for i in range(4)]
-    scene = scene_module.load_scene(
-        vks, os.path.join(data_dir, f"{CITY}_textures"), specs, device,
-        data_directory=data_dir)
+
+
+def load_city(data_dir, device):
+    """Write (once) and load the bench city with its four lights: (scene,
+    its SceneStatic)."""
+    from vulkan_renderer_tpu_torch.render.shading import SceneStatic
+    from vulkan_renderer_tpu_torch.scene import scene as scene_module
+    vks, textures = city_files(data_dir)
+    scene = scene_module.load_scene(vks, textures, lights(), device,
+                                    data_directory=data_dir)
     return scene, SceneStatic.for_scene(scene)
+
+
+def application(data_dir, device):
+    """The bench frame as an Application (core/app.py): its scene, camera,
+    settings and size, three frames in flight."""
+    from vulkan_renderer_tpu_torch.core.app import (Application,
+                                                    SceneSpecification)
+    vks, textures = city_files(data_dir)
+    return Application(
+        SceneSpecification(name=CITY, vks_path=vks, texture_dir=textures,
+                           camera=camera(), lights=lights()),
+        settings(), WIDTH, HEIGHT, data_directory=data_dir, device=device)
 
 
 def camera():
@@ -189,6 +220,21 @@ def frame_ms(torch, scene, static, s):
     return times
 
 
+def window_ms(torch, app, warmup):
+    """ms a frame of `app` (core/app.py Application) over WINDOW_FRAMES
+    frames with its frames in flight: the host clock from the first
+    dispatch until the last frame retires, over WINDOW_FRAMES, after
+    `warmup` frames rendered one at a time."""
+    for _ in range(warmup):
+        app.render_frame_sync()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(WINDOW_FRAMES):
+        app.render_frame_async()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3 / WINDOW_FRAMES
+
+
 def kernel_ms(torch, captured):
     """K1-K4 ms at the frame's shapes (CUDA events, warm L2)."""
     from vulkan_renderer_tpu_torch.render import pipeline
@@ -203,6 +249,23 @@ def kernel_ms(torch, captured):
         "K4": cuda_ms(torch, lambda: k.fused_shading(
             *captured["fused_shading"]), 5),
     }
+
+
+def sweep_jobs(techniques):
+    """build.build_many jobs of K5 for the sweep cells' techniques (named)
+    at their vertex counts (4 and 5)."""
+    from vulkan_renderer_tpu_torch.render import fused
+    from vulkan_renderer_tpu_torch.render.shading import SceneStatic
+    jobs = []
+    for name in techniques:
+        s = fused.RenderSettings(
+            sampling_strategy=fused.SamplingStrategy.DIFFUSE_ONLY,
+            polygon_sampling_technique=fused.PolygonSamplingTechnique[name])
+        for nv in (4, 5):
+            static = SceneStatic(light_count=1, light_texturing=(0,),
+                                 light_vertex_counts=(nv,))
+            jobs.append(("fused_resolved", kernel_defines(s, static, "K5")))
+    return jobs
 
 
 def sweep_experiments(data_dir, techniques):
@@ -255,10 +318,10 @@ def capture_sweep(torch, data_dir, exp):
 
 def sweep_measurements(torch, data_dir, techniques):
     """For each sweep cell and technique (PolygonSamplingTechnique names):
-    the harness's median ms/frame, K5's ms on the frame's inputs, the
-    device memory allocated before one frame and at its peak (GiB), and
-    the hit share."""
-    from vulkan_renderer_tpu_torch.experiments import harness
+    the window ms/frame, the harness's median ms/frame, K5's ms on the
+    frame's inputs, the device memory allocated before one frame and at
+    its peak (GiB), and the hit share."""
+    from vulkan_renderer_tpu_torch.experiments import harness, setups
     from vulkan_renderer_tpu_torch.render import pipeline
     rows = {}
     for cell, exp in sweep_experiments(data_dir, techniques):
@@ -276,8 +339,11 @@ def sweep_measurements(torch, data_dir, techniques):
             [exp], min_warmup_seconds=0.0, min_warmup_frames=SWEEP_WARMUP,
             measure_frames=SWEEP_MEASURED, data_directory=data_dir,
             device="cuda")[0]
+        window = window_ms(torch, setups.build_default_application(
+            exp, data_dir, device="cuda"), SWEEP_WARMUP)
         tech = exp.settings.polygon_sampling_technique
         rows[f"{cell}/{tech.value}"] = {
+            "window_ms": round(window, 4),
             "frame_ms": round(result.frame_time_ms, 4),
             "k5_ms": round(k5, 4),
             "allocated_gib": round(before / 2**30, 4),
@@ -298,6 +364,10 @@ def main(argv=None) -> int:
     parser.add_argument("--sweep", action="store_true",
                         help="also time PSA and Arvo PSA in both sweep "
                         "cells")
+    parser.add_argument("--sweep-techniques", default=None,
+                        help="with --sweep: 'all', or comma-separated "
+                        "PolygonSamplingTechnique names (default: "
+                        "PROJECTED_SOLID_ANGLE,PROJECTED_SOLID_ANGLE_ARVO)")
     args = parser.parse_args(argv)
     import numpy as np
     import torch
@@ -323,12 +393,19 @@ def main(argv=None) -> int:
                       for n, v in kernel_ms(torch, captured).items()},
         "k4_hit_share": round(float(
             hit_mask(captured["fused_shading"][0]).mean()), 6)}
+    del scene, captured
+    torch.cuda.empty_cache()
+    line["frame_window_ms"] = round(window_ms(
+        torch, application(data_dir, "cuda"), WARMUP), 4)
     if args.sweep:
-        del scene, captured
-        torch.cuda.empty_cache()
-        line["sweep"] = sweep_measurements(
-            torch, data_dir, ("PROJECTED_SOLID_ANGLE",
-                              "PROJECTED_SOLID_ANGLE_ARVO"))
+        from vulkan_renderer_tpu_torch.render import fused
+        names = args.sweep_techniques or \
+            "PROJECTED_SOLID_ANGLE,PROJECTED_SOLID_ANGLE_ARVO"
+        techniques = [t.name for t in fused.PolygonSamplingTechnique] \
+            if names == "all" else names.split(",")
+        line["sweep_build_wall_s"] = round(build.build_many(
+            sweep_jobs(techniques)), 2)
+        line["sweep"] = sweep_measurements(torch, data_dir, techniques)
     line["ptxas"] = {tag: build.register_report(report)
                      for tag, (_, report) in sorted(
                          build.BUILD_REPORTS.items())

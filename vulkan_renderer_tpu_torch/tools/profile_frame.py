@@ -120,7 +120,6 @@ def main(argv=None) -> int:
             return bench.render(scene, static, s)
     else:
         exp = harness.create_experiment_list()[args.experiment]
-        harness.check_experiment(exp)
         app = setups.build_default_application(exp, data, device="cuda")
         label = {"frame": f"experiment {args.experiment}",
                  "size": [exp.width, exp.height]}
