@@ -93,7 +93,18 @@ It
    steps that follow amplify the last-bit differences of the two
    devices' float32 arithmetic, so after 600 what is held is each
    texel's fit loss (tools/fit_ltc.py records_loss, both records
-   evaluated on the CPU), relatively.
+   evaluated on the CPU), relatively;
+18. swaps the bench scene's noise table for the packaged blue-noise table
+   (64x64x4, layer mask 3) and for a dithered table (128x128x1, mask 0)
+   that the port's void-and-cluster generator writes into data/noise
+   (tools/generate_noise.py, timed), and holds K4 (shadows on) and K5
+   (shadows off) against their plain versions bit for bit on 4,096 of the
+   bench frame's pixels with each table;
+19. holds K2 against its plain version exactly (primitive and t, ties
+   included) where pruning decides: 1024 x 1024 rays aimed at shared tile
+   edges, many at grazing angles, of a floor at z = 0.1 in 512 clusters
+   of four layers one ulp apart (tools/prune_check.py), and prints the
+   rays whose own box the slab test enters beyond the triangle's t.
 
 The line before the last is a JSON object listing the kernels, each with
 its launches on the main path, time, plain version's time and bound
@@ -462,6 +473,88 @@ def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
                       "rmse": rmse_rows, "ltc_fit_s": round(fit_s, 3),
                       "ltc_card_vs_cpu": ltc_read, "card": card}),
           flush=True)
+
+
+def run_closing_phases(torch, device, data_dir, card, scene, static,
+                       settings):
+    """Phases 18-19: the noise tables of other shapes on K4 and K5, and K2
+    where pruning decides."""
+    import numpy as np
+
+    from vulkan_renderer_tpu_torch.assets.noise import load_noise_table
+    from vulkan_renderer_tpu_torch.render import fused
+    from vulkan_renderer_tpu_torch.tools import bench_frame as bench
+    from vulkan_renderer_tpu_torch.tools import (generate_noise,
+                                                 kernel_check, prune_check)
+
+    # --- 18. blue-noise and dithered tables on K4 and K5 --------------------
+    start = time.perf_counter()
+    generate_noise.write_blob(data_dir, "dithered_2d",
+                              generate_noise.generate_blob(
+                                  "dithered_2d", 128, 128, 1))
+    dither_s = time.perf_counter() - start
+    log(f"dithered_2d 128x128x1 by void-and-cluster (numpy float64 on the "
+        f"host): {dither_s:.3f} s")
+    no_shadows = dataclasses.replace(settings, trace_shadow_rays=False)
+    noise_rows = {}
+    for name, shape, mask in (("blue_noise", (4, 64, 64, 4), 3),
+                              ("dithered_2d", (1, 128, 128, 4), 0)):
+        table = load_noise_table(name, data_dir)
+        check(table.noise_type == name and table.table.shape == shape
+              and table.texture_index_mask == mask,
+              f"{name}: table {table.noise_type} {table.table.shape} mask "
+              f"{table.texture_index_mask}")
+        noisy = dataclasses.replace(
+            scene, noise_table=torch.from_numpy(table.table.astype(
+                np.int32)).to(device),
+            noise_texture_index_mask=table.texture_index_mask)
+        for kernel, s, field in (
+                ("K4", settings, "fused_shading"),
+                ("K5", no_shadows, "fused_resolved")):
+            with torch.no_grad():
+                args = bench.capture_inputs(noisy, static, s)[field]
+            idx = subset_indices(torch, SWEEP_SUBSET, args[0].shape[1],
+                                 device)
+            sub = subset_args(args, idx)
+            if kernel == "K4":
+                r = kernel_check.compare(fused.fused_light_shading(*sub),
+                                         fused.fused_light_shading_plain(
+                                             *sub))
+            else:
+                r = kernel_check.compare(
+                    fused.fused_light_shading_resolved(*sub).T,
+                    fused.fused_light_shading_resolved_plain(*sub).T)
+            mismatches = round((1.0 - r["exact"]) * r["values"])
+            noise_rows[f"{kernel}/{name}"] = dict(
+                mismatches=mismatches, values=r["values"],
+                nonfinite_mismatch=r["nonfinite_mismatch"])
+            log(f"{kernel} vs plain with the {name} table "
+                f"{'x'.join(map(str, shape))} (mask {mask}), {idx.numel()} "
+                f"of {args[0].shape[1]} bench-frame px: mismatches "
+                f"{mismatches} of {r['values']} values (tolerance: bit for "
+                f"bit), max |d| {r['max_abs_err']:.3g}")
+            check(mismatches == 0 and r["nonfinite_mismatch"] == 0,
+                  f"{kernel} disagrees with its plain version on the "
+                  f"{name} table")
+        del noisy
+    torch.cuda.empty_cache()
+
+    # --- 19. K2 where pruning decides ---------------------------------------
+    row = prune_check.measure(device)
+    log(f"K2 vs plain on the layered floor ({row['triangles']} triangles, "
+        f"{row['clusters']} clusters, {row['rays']} edge rays): hits "
+        f"{row['hits'][0]}/{row['hits'][1]}, primitive mismatches "
+        f"{row['prim_mismatches']}, t bit mismatches "
+        f"{row['t_bit_mismatches']} (tolerance 0, ties included); rays "
+        f"whose own sub-box the slab test enters beyond their t "
+        f"{row['rays_at_risk']}; K2 {row['kernel_ms']} ms, plain "
+        f"{row['plain_s']} s [{card}]")
+    check(row["clusters"] >= 64, "the layered floor has under 64 clusters")
+    check(row["prim_mismatches"] == 0 and row["t_bit_mismatches"] == 0,
+          "K2 disagrees with its plain version where pruning decides")
+    print(json.dumps({"noise_tables": noise_rows,
+                      "dithered_generate_s": round(dither_s, 3),
+                      "prune": row, "card": card}), flush=True)
 
 
 def run():
@@ -1120,6 +1213,8 @@ def run():
 
     run_later_phases(torch, np, device, data_dir, card, experiments,
                      scene, static, settings, counters, build_app, last)
+    run_closing_phases(torch, device, data_dir, card, scene, static,
+                       settings)
 
     sources = {
         "K1": ("vulkan_renderer_tpu_torch/csrc/anyhit.cu",

@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1-K5 and a whole frame), on a tiny city and the roughness-planes
-stand-in; the per-pixel shading path on the card against the same frame
-on the CPU, one configuration of each class (tools/per_pixel_check.py,
-which states that tolerance); and the shading-path dispatch by the launch
-counters. Marked gpu: they skip where
+(K1-K5 and a whole frame), on a tiny city, the roughness-planes stand-in
+and K2 on a floor built to provoke its prune; the per-pixel shading path
+on the card against the same frame on the CPU, one configuration of each
+class (tools/per_pixel_check.py, which states that tolerance); and the
+shading-path dispatch by the launch counters. Marked gpu: they skip where
 torch.cuda.is_available() is False. This file imports only the port (no
 JAX, nothing of the JAX package), so on a machine with a card and no JAX
 it runs without the repository's conftest:
@@ -368,3 +368,16 @@ def test_bands_on_card(planes_scene):
     groups = len(fused.vertex_groups(static))
     assert {n: fn.launches for n, fn in counters.items()} == \
         {"K1": 4, "K2": 4, "K3": 4, "K4": 4 * groups}
+
+
+def test_closest_kernel_exact_where_pruning_decides():
+    """K2 against its plain version on tools/prune_check.py's layered
+    floor, 65,536 rays at shared tile edges: prim and t exact, ties
+    included (the prune's margin at work; chip_smoke.py phase 19 runs
+    1024 x 1024)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    from vulkan_renderer_tpu_torch.tools import prune_check
+    row = prune_check.measure("cuda", 65536)
+    assert row["rays_at_risk"] > 0
+    assert row["prim_mismatches"] == row["t_bit_mismatches"] == 0, row

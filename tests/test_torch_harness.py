@@ -282,6 +282,34 @@ def test_noise_type_reaches_the_frame(planes_dir):
     assert np.abs(frames["white"] - frames["ahmed_2d"]).mean() > 1e-3
 
 
+@pytest.mark.parametrize("name,noise,mask", [
+    ("blue_noise", NoiseType.BLUE, 3), ("dithered_2d",
+                                        NoiseType.BLUE_NOISE_DITHERED, 0)])
+def test_blue_noise_and_dithered_tables_reach_the_frame(planes_dir, name,
+                                                        noise, mask):
+    """The packaged 64x64x4 blue-noise table (layer mask 3) and a 128x128x1
+    dithered table (mask 0, seeded u16 values in the data directory: the
+    frame holds the table's shape and mask, not the generator) reach the
+    frame as in the JAX package, at test_noise_type_reaches_the_frame's
+    tolerance."""
+    if name == "dithered_2d":
+        path = os.path.join(planes_dir, "noise",
+                            "dithered_2d_rgba_128x128_01.blob")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.random.default_rng(17).integers(
+            0, 65536, 128 * 128 * 4, dtype=np.uint16).tofile(path)
+    app, got = _app_frame(planes_dir, name)
+    assert app.scene.noise_texture_index_mask == mask
+    assert tuple(app.scene.noise_table.shape) == (
+        (4, 64, 64, 4) if mask else (1, 128, 128, 4))
+    want = _jax_frame(planes_dir, app, noise)
+    diff = np.abs(got - want)
+    assert diff.mean() <= 1e-3, (name, diff.mean())
+    assert (diff.max(axis=-1) <= 1e-2).mean() >= 0.99, name
+    white = _app_frame(planes_dir, "white")[1]
+    assert np.abs(got - white).mean() > 1e-3
+
+
 def test_generated_stand_in_stays_tagged(tmp_path):
     """A scene whose stand-in is another scene's generator output (the
     attic takes the cornell box) leaves that file tagged too, so the

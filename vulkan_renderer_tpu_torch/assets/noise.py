@@ -1,13 +1,16 @@
 """Noise tables (reference: noise_table.c, noise_utility.glsl).
 
-Counterpart of vulkan_renderer_tpu/assets/noise.py. Sobol-family tables
-(the default Ahmed table among them) come from the port's numpy generator
-(tools/generate_noise.py, the same bytes as the JAX package's) and are
-cached as <data_directory>/noise/<type>_rgba_WxH_LL.blob; white noise is
-the reference's Wang-hash stream; the blue-noise types load their blob from
-the data directory or the JAX package's packaged data_builtin/noise, and
-fall back to white noise with a warning when neither has one, as the
-reference package does. Tables stay raw UNORM16: (layers, H, W, 4).
+Counterpart of vulkan_renderer_tpu/assets/noise.py, with its order of
+sources: the blob <data_directory>/noise/<type>_rgba_WxH_LL.blob, then a
+blob of that type packaged with the JAX package (data_builtin/noise, any
+resolution), then for the Sobol family (the default Ahmed table among
+them) the port's numpy generator (tools/generate_noise.py, the same bytes
+as the JAX package's), cached in the data directory; white noise, the
+reference's Wang-hash stream, with a warning when none of them has the
+table. Blue-noise and dithered tables are not generated at load (a
+128x128 dither mask takes ~25 s): python -m
+vulkan_renderer_tpu_torch.tools.generate_noise writes them. Tables stay
+raw UNORM16: (layers, H, W, 4).
 """
 
 from __future__ import annotations
@@ -73,10 +76,6 @@ def load_noise_table(noise_type: str = "ahmed_2d",
         return white_noise_table(width, height, layers)
     name = f"{noise_type}_rgba_{width:02d}x{height:02d}_{layers:02d}.blob"
     path = os.path.join(data_directory, "noise", name)
-    if not os.path.exists(path) and noise_type in SOBOL_FAMILY:
-        from ..tools.generate_noise import generate_sobol_family
-        path = generate_sobol_family(data_directory, noise_type, width,
-                                     height, layers)
     if not os.path.exists(path):
         builtin = sorted(glob.glob(os.path.join(
             _BUILTIN_NOISE, f"{noise_type}_rgba_*.blob")))
@@ -85,11 +84,20 @@ def load_noise_table(noise_type: str = "ahmed_2d",
             dims, layer_s = os.path.basename(path)[:-5].rsplit("_", 2)[-2:]
             width, height = (int(v) for v in dims.split("x"))
             layers = int(layer_s)
+    if not os.path.exists(path) and noise_type in SOBOL_FAMILY:
+        from ..tools.generate_noise import generate_sobol_family
+        try:
+            path = generate_sobol_family(data_directory, noise_type, width,
+                                         height, layers)
+        except OSError:
+            pass  # a read-only data directory: white noise below
     if not os.path.exists(path):
         warnings.warn(
             f"noise table {name!r} not found under {data_directory}/noise "
             "or the packaged data_builtin/noise: falling back to white "
-            "noise", stacklevel=2)
+            "noise. Write it with python -m "
+            "vulkan_renderer_tpu_torch.tools.generate_noise "
+            f"{data_directory}", stacklevel=2)
         return white_noise_table(width, height, layers)
     data = np.fromfile(path, np.uint16, width * height * layers * 4)
     return NoiseTable(data.reshape(layers, height, width, 4), noise_type)

@@ -7,15 +7,21 @@
 // XLA cull with supercluster budgets, an occlusion seed and an exactness
 // re-trace; here each ray walks one binary tree over the clusters
 // (common.cuh walk_bvh) nearer child first, then a cluster's 8-triangle
-// sub-boxes, then their triangles. A box is pruned when !(t_near <= best_t),
-// the best t so far (as at :992), and a sub-box when its slab test fails
-// against [0, best_t]. Triangle test: the reciprocal-det Moeller-Trumbore
+// sub-boxes, then their triangles. A box is pruned when
+// !(t_near <= cap), with cap the best t so far (as at :992) widened by
+// kPruneMargin, and a sub-box when its slab test fails against [0, cap].
+// The widening keeps the answer exact: the slab test's entry and
+// Moeller-Trumbore's t round one distance in two ways and part by a few
+// ulps, so a box can enter beyond the t of its own triangle, and with a
+// hit already found in between, the bare best t would drop the winner
+// (tools/prune_check.py builds a scene where it does; chip_smoke.py holds
+// K2 exact there). Triangle test: the reciprocal-det Moeller-Trumbore
 // of :1013-1028 with det_ok = |det| > 1e-12. A hit replaces the best when
 // tt < best_t, or tt == best_t with a lower primitive id, so the answer is
 // the lexicographic minimum of (t, prim) over the triangles behind the
 // boxes, whatever order the walk visits them in: the minimum that the
 // ascending-id scan with a strict < and trace_closest_plain return (the
-// reference's order below 1,024 clusters, :232-256). Pruning by best_t
+// reference's order below 1,024 clusters, :232-256). Pruning by the cap
 // only drops boxes that lie wholly beyond a hit already found.
 //
 // K3 replaces _attr_pass_one (kernel at :1244, pallas_call at :1298) plus
@@ -42,6 +48,10 @@ namespace {
 using vrt::Ray;
 using vrt::Tri;
 
+// Relative widening of the prune: 2^-16, 128-256 ulps of float32, far
+// above the few ulps by which the two roundings of a distance part.
+constexpr float kPruneMargin = 1.0f / 65536.0f;
+
 __global__ void __launch_bounds__(128)
 closest_kernel(const float* __restrict__ origins,
                const float* __restrict__ dirs,
@@ -58,15 +68,17 @@ closest_kernel(const float* __restrict__ origins,
   float best_t = INFINITY;
   int best = -1;
   vrt::TestCounts counts;
-  auto keep = [&](float t_near) { return t_near <= best_t; };
+  // best_t > 0 (t >= t_min), and inf stays inf.
+  auto cap = [&]() { return best_t + best_t * kPruneMargin; };
+  auto keep = [&](float t_near) { return t_near <= cap(); };
   auto visit = [&](int k) {
     const float* row = planes + (size_t)k * 9 * cluster_size;
     const float* boxes = subboxes + (size_t)k * 6 * subbox_count;
     for (int g = 0; g < subbox_count; ++g) {
-      // Sub-box pruned by the current best t; empty groups are NaN.
+      // Sub-box pruned by the current cap; empty groups are NaN.
       float t_sub;
       VR_COUNT(counts, subboxes, 1);
-      if (!vrt::slab(boxes + 6 * g, boxes + 6 * g + 3, ray, best_t, &t_sub))
+      if (!vrt::slab(boxes + 6 * g, boxes + 6 * g + 3, ray, cap(), &t_sub))
         continue;
       const int t_end = min((g + 1) * vrt::kSubGroup, cluster_size);
       for (int t = g * vrt::kSubGroup; t < t_end; ++t) {

@@ -193,14 +193,15 @@ def build_scene(mesh: SceneMesh, texture_dir: str,
                 data_directory: str = "data",
                 cluster_size: int = 64,
                 noise_type: str = "ahmed_2d",
-                linear_light_specs: list[LinearLightSpec] | None = None
-                ) -> Scene:
+                linear_light_specs: list[LinearLightSpec] | None = None,
+                ltc=None) -> Scene:
     """Scene on `device` from a parsed mesh, its textures, light specs and
     linear light specs. The noise table is `noise` if given, else the
     table of `noise_type` (RenderSettings.noise_type; a name that is no
     noise type takes white noise, as the JAX package's Application
-    does). Each light's texture_index is set from its
-    texture_file_path."""
+    does). The LTC table is `ltc`, a (table, constants) pair, if given,
+    else default_ltc_table(data_directory). Each light's texture_index is
+    set from its texture_file_path."""
     device = get_device(device)
     positions, normals, uvs = mesh_triangles(mesh)
     atlas = build_texture_atlas_np(
@@ -209,7 +210,8 @@ def build_scene(mesh: SceneMesh, texture_dir: str,
                                  mesh.material_indices, cluster_size)
     if noise is None:
         noise = noise_table_for_settings(noise_type, data_directory)
-    ltc_table, ltc_constants = default_ltc_table()
+    ltc_table, ltc_constants = ltc if ltc is not None \
+        else default_ltc_table(data_directory)
     light_textures, path_to_index = decode_light_textures(
         [spec.texture_file_path for spec in light_specs])
     light_specs = [dataclasses.replace(
@@ -222,8 +224,8 @@ def build_scene(mesh: SceneMesh, texture_dir: str,
         light_atlas=atlas_from_numpy(build_texture_atlas_np(
             light_textures, channels=4, unorm16=False), device),
         linear_lights=stack_linear_lights(linear_light_specs or [], device),
-        ltc=LtcTable(torch.from_numpy(ltc_table).to(device),
-                     torch.from_numpy(ltc_constants).to(device)),
+        ltc=LtcTable(torch.as_tensor(ltc_table).to(device),
+                     torch.as_tensor(ltc_constants).to(device)),
         clusters=clusters_from_numpy(clusters, device),
         noise_table=torch.from_numpy(noise.table.astype(np.int32)).to(device),
         noise_texture_index_mask=noise.texture_index_mask,

@@ -1,11 +1,18 @@
-"""Sobol-family noise tables (sobol_2d / owen_2d / burley_owen_2d /
-ahmed_2d), generated from scratch.
+"""Noise tables generated from scratch: blue noise and dither masks by
+void-and-cluster, and the Sobol family.
 
-The port's own copy of the Sobol-family part of
-vulkan_renderer_tpu/tools/generate_noise.py: the same constructions give
-the same blob bytes. The reference ships these as precomputed blobs
-(noise_table.c:77-106); the semantics are documented in
-noise_table.h:28-47:
+    python -m vulkan_renderer_tpu_torch.tools.generate_noise data [--small]
+
+The port's own copy of vulkan_renderer_tpu/tools/generate_noise.py: the
+same constructions in numpy float64 on the host give the same blob bytes
+(numpy's FFT, never torch.fft: void-and-cluster takes a greedy argmax and
+argmin over FFT energies, so another FFT's last bits change which tie
+wins). The reference ships these tables as precomputed blobs
+(noise_table.c:77-106); their semantics are documented in
+noise_table.h:28-55:
+  blue_noise, dithered_2d: void-and-cluster (Ulichney 1993) ranks per
+                  channel and layer, from a wrapped Gaussian energy,
+                  converted to u16 thresholds.
   sobol_2d:       4D Sobol points; dims (0,1) pick the screen pixel, the
                   later dims are the sample value for that pixel/layer.
   owen_2d:        same + nested (Owen) scrambling of the value dims.
@@ -22,9 +29,98 @@ RGBA, (layers, H, W, 4).
 
 from __future__ import annotations
 
+import argparse
 import os
 
 import numpy as np
+
+
+def _wrapped_gaussian_energy(size: int, sigma: float = 1.9) -> np.ndarray:
+    x = np.arange(size)
+    d = np.minimum(x, size - x).astype(np.float64)
+    g1 = np.exp(-(d * d) / (2.0 * sigma * sigma))
+    return np.outer(g1, g1)
+
+
+def void_and_cluster(size: int, rng: np.random.Generator) -> np.ndarray:
+    """A (size, size) blue-noise rank array (0 .. size^2 - 1)."""
+    kernel_f = np.fft.rfft2(_wrapped_gaussian_energy(size))
+
+    def energy(mask):
+        return np.fft.irfft2(np.fft.rfft2(mask) * kernel_f, s=(size, size))
+
+    n = size * size
+    # Initial pattern: ~10% random minority points, relaxed.
+    count = max(1, n // 10)
+    mask = np.zeros((size, size))
+    idx = rng.choice(n, count, replace=False)
+    mask.ravel()[idx] = 1.0
+    for _ in range(8 * count):
+        e = energy(mask)
+        cluster = np.unravel_index(np.argmax(np.where(mask > 0, e, -np.inf)),
+                                   mask.shape)
+        mask[cluster] = 0.0
+        e = energy(mask)
+        void = np.unravel_index(np.argmin(np.where(mask > 0, np.inf, e)),
+                                mask.shape)
+        if void == cluster:
+            mask[cluster] = 1.0
+            break
+        mask[void] = 1.0
+
+    ranks = np.zeros((size, size), np.int64)
+    # Phase 1: remove minority points one by one (ranks count-1 .. 0).
+    work = mask.copy()
+    for rank in range(count - 1, -1, -1):
+        e = energy(work)
+        cluster = np.unravel_index(np.argmax(np.where(work > 0, e, -np.inf)),
+                                   work.shape)
+        work[cluster] = 0.0
+        ranks[cluster] = rank
+    # Phase 2: insert points into voids (ranks count .. n-1).
+    work = mask.copy()
+    for rank in range(count, n):
+        e = energy(work)
+        void = np.unravel_index(np.argmin(np.where(work > 0, np.inf, e)),
+                                work.shape)
+        work[void] = 1.0
+        ranks[void] = rank
+    return ranks
+
+
+def ranks_to_u16(ranks: np.ndarray) -> np.ndarray:
+    n = ranks.size
+    return np.floor(ranks.astype(np.float64) / n * 65536.0) \
+        .clip(0, 65535).astype(np.uint16)
+
+
+def generate_blob(kind: str, width: int, height: int, layers: int,
+                  seed: int = 0) -> np.ndarray:
+    """(layers, H, W, 4) uint16 blue_noise or dithered_2d table: one
+    void-and-cluster mask of side `width` per layer and channel, all
+    drawn from one generator seeded with `seed`."""
+    if kind not in ("blue_noise", "dithered_2d"):
+        raise ValueError(kind)
+    rng = np.random.default_rng(seed)
+    out = np.empty((layers, height, width, 4), np.uint16)
+    for layer in range(layers):
+        for channel in range(4):
+            out[layer, :, :, channel] = ranks_to_u16(
+                void_and_cluster(width, rng))
+    return out
+
+
+def write_blob(data_directory: str, kind: str, table: np.ndarray) -> str:
+    """Write a (layers, H, W, 4) table under the loader's name; returns
+    the path."""
+    layers, height, width = table.shape[:3]
+    noise_dir = os.path.join(data_directory, "noise")
+    os.makedirs(noise_dir, exist_ok=True)
+    path = os.path.join(
+        noise_dir, f"{kind}_rgba_{width:02d}x{height:02d}_{layers:02d}.blob")
+    table.tofile(path)
+    return path
+
 
 # Joe & Kuo (new-joe-kuo-6.21201) primitive polynomials + initial direction
 # numbers for Sobol dims 1..6 (dim 0 is the van der Corput sequence).
@@ -218,13 +314,38 @@ def generate_sobol_family(data_directory: str, kind: str,
                           layers: int = 64) -> str:
     """Generate one Sobol-family blob and write it with the loader's naming
     convention. Returns the written path."""
-    noise_dir = os.path.join(data_directory, "noise")
-    os.makedirs(noise_dir, exist_ok=True)
     if kind == "ahmed_2d":
         table = ahmed_blob(width, height, layers)
     else:
         table = sobol_family_blob(kind, width, height, layers)
-    path = os.path.join(
-        noise_dir, f"{kind}_rgba_{width:02d}x{height:02d}_{layers:02d}.blob")
-    table.tofile(path)
-    return path
+    return write_blob(data_directory, kind, table)
+
+
+def main(data_directory: str = "data", small: bool = False) -> None:
+    """Write every generated table the loader reads, at the JAX tool's
+    resolutions: dithered 128x128x1 (64 with small), blue noise 64x64 with
+    8 layers (2 with small; the loader masks by layers - 1) from seed 1,
+    and the four Sobol-family tables at 256x256x64 (64x64x16)."""
+    size = 64 if small else 128
+    path = write_blob(data_directory, "dithered_2d",
+                      generate_blob("dithered_2d", size, size, 1))
+    print(f"wrote {path}")
+    layers = 2 if small else 8
+    path = write_blob(data_directory, "blue_noise",
+                      generate_blob("blue_noise", 64, 64, layers, seed=1))
+    print(f"wrote {path}")
+    size, layers = (64, 16) if small else (256, 64)
+    for kind in ("sobol_2d", "owen_2d", "burley_owen_2d", "ahmed_2d"):
+        path = generate_sobol_family(data_directory, kind, size, size, layers)
+        print(f"wrote {path}")
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser(
+        description="Write the noise tables into <directory>/noise.")
+    parser.add_argument("directory", nargs="?", default="data")
+    parser.add_argument("--small", action="store_true",
+                        help="smaller dithered and blue-noise tables and "
+                        "64x64x16 Sobol-family tables")
+    args = parser.parse_args()
+    main(args.directory, args.small)
