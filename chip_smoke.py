@@ -101,10 +101,19 @@ It
    (shadows off) against their plain versions bit for bit on 4,096 of the
    bench frame's pixels with each table;
 19. holds K2 against its plain version exactly (primitive and t, ties
-   included) where pruning decides: 1024 x 1024 rays aimed at shared tile
-   edges, many at grazing angles, of a floor at z = 0.1 in 512 clusters
-   of four layers one ulp apart (tools/prune_check.py), and prints the
-   rays whose own box the slab test enters beyond the triangle's t.
+   included) where pruning decides (tools/prune_check.py): 1024 x 1024
+   rays aimed at shared tile edges, many at grazing angles, of a floor at
+   z = 0.1 in 512 clusters of four layers one ulp apart; and 1024 x 1024
+   rays from one eye at that floor's thin_edge_scene, whose edge-on
+   triangles, slivers and flat slivers under the floor give computed hits
+   short of their own boxes; it prints the rays whose own box the slab
+   test enters beyond the triangle's t;
+20. holds K4 (PSA, DIFFUSE_SPECULAR_MIS, shadows on) and K5 (PSA and Arvo
+   PSA, DIFFUSE_ONLY) against their plain versions by bit pattern where
+   two_product's products leave the range in which one FMA equals Dekker's
+   split: lights 1e-17 to 1e-15 m from the shading points, near 2^64 m and
+   2^116 m out (tools/two_product_probe.py, 64x32 hit pixels of a small
+   city).
 
 The line before the last is a JSON object listing the kernels, each with
 its launches on the main path, time, plain version's time and bound
@@ -477,15 +486,16 @@ def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
 
 def run_closing_phases(torch, device, data_dir, card, scene, static,
                        settings):
-    """Phases 18-19: the noise tables of other shapes on K4 and K5, and K2
-    where pruning decides."""
+    """Phases 18-20: the noise tables of other shapes on K4 and K5, K2
+    where pruning decides, and two_product outside the FMA's range."""
     import numpy as np
 
     from vulkan_renderer_tpu_torch.assets.noise import load_noise_table
     from vulkan_renderer_tpu_torch.render import fused
     from vulkan_renderer_tpu_torch.tools import bench_frame as bench
     from vulkan_renderer_tpu_torch.tools import (generate_noise,
-                                                 kernel_check, prune_check)
+                                                 kernel_check, prune_check,
+                                                 two_product_probe)
 
     # --- 18. blue-noise and dithered tables on K4 and K5 --------------------
     start = time.perf_counter()
@@ -540,21 +550,37 @@ def run_closing_phases(torch, device, data_dir, card, scene, static,
     torch.cuda.empty_cache()
 
     # --- 19. K2 where pruning decides ---------------------------------------
-    row = prune_check.measure(device)
-    log(f"K2 vs plain on the layered floor ({row['triangles']} triangles, "
-        f"{row['clusters']} clusters, {row['rays']} edge rays): hits "
-        f"{row['hits'][0]}/{row['hits'][1]}, primitive mismatches "
-        f"{row['prim_mismatches']}, t bit mismatches "
-        f"{row['t_bit_mismatches']} (tolerance 0, ties included); rays "
-        f"whose own sub-box the slab test enters beyond their t "
-        f"{row['rays_at_risk']}; K2 {row['kernel_ms']} ms, plain "
-        f"{row['plain_s']} s [{card}]")
-    check(row["clusters"] >= 64, "the layered floor has under 64 clusters")
-    check(row["prim_mismatches"] == 0 and row["t_bit_mismatches"] == 0,
-          "K2 disagrees with its plain version where pruning decides")
+    prune_rows = {}
+    for name in prune_check.SCENES:
+        row = prune_check.measure(device, scene=name)
+        prune_rows[name] = row
+        log(f"K2 vs plain on {name} ({row['triangles']} triangles, "
+            f"{row['clusters']} clusters, {row['rays']} rays): hits "
+            f"{row['hits'][0]}/{row['hits'][1]}, primitive mismatches "
+            f"{row['prim_mismatches']}, t bit mismatches "
+            f"{row['t_bit_mismatches']} (tolerance 0, ties included); rays "
+            f"whose own sub-box the slab test enters beyond their t "
+            f"{row['rays_at_risk']}; K2 {row['kernel_ms']} ms, plain "
+            f"{row['plain_s']} s [{card}]")
+        check(row["clusters"] >= 64, f"{name} has under 64 clusters")
+        check(row["prim_mismatches"] == 0 and row["t_bit_mismatches"] == 0,
+              f"K2 disagrees with its plain version on {name}")
+
+    # --- 20. two_product outside the FMA's exact range on K4 and K5 ---------
+    probe_inputs = two_product_probe.base_inputs(data_dir)
+    probe_rows = two_product_probe.measure(probe_inputs, device)
+    for row in probe_rows:
+        log(f"{row['kernel']} {row['technique']} vs plain, two_product probe "
+            f"{row['case']} ({row['pixels']} px): mismatches "
+            f"{row['mismatches']} of {row['values']} values (bit patterns; "
+            f"{row['nonfinite']} non-finite in the plain version's)")
+        check(row["mismatches"] == 0,
+              f"{row['kernel']} {row['technique']} disagrees with its plain "
+              f"version on the two_product probe {row['case']}")
     print(json.dumps({"noise_tables": noise_rows,
                       "dithered_generate_s": round(dither_s, 3),
-                      "prune": row, "card": card}), flush=True)
+                      "prune": prune_rows, "two_product_probe": probe_rows,
+                      "card": card}), flush=True)
 
 
 def run():

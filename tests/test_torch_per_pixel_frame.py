@@ -177,3 +177,39 @@ def test_dispatch_follows_fused_supported(cornell):
                          kernels=kernels)
             want = [kernel] if kernel and mode != "off" else []
             assert calls == want, (settings, mode, calls)
+
+
+@pytest.fixture(scope="module")
+def error_display_frames(tmp_path_factory):
+    """tools/per_pixel_check.py's error-display class on the CPU: its frame
+    and the frame whose estimate error_to_color shows doubled."""
+    import torch
+
+    from vulkan_renderer_tpu_torch.render import shading
+    files = per_pixel_check.write_scene_files(
+        str(tmp_path_factory.mktemp("per_pixel")))
+    scenes = per_pixel_check.load_scenes(files, "cpu")
+    with torch.no_grad():
+        frame = per_pixel_check.render_class(scenes, "error_display")
+    patch = pytest.MonkeyPatch()
+    to_color = shading.error_to_color
+    patch.setattr(shading, "error_to_color",
+                  lambda error, factor: to_color(error, 2.0 * factor))
+    try:
+        with torch.no_grad():
+            doubled = per_pixel_check.render_class(scenes, "error_display")
+    finally:
+        patch.undo()
+    return frame.numpy(), doubled.numpy()
+
+
+def test_error_bins_agree_rejects_a_doubled_estimate(error_display_frames):
+    frame, doubled = error_display_frames
+    ok, stats = per_pixel_check.error_bins_agree(doubled, frame)
+    assert not ok, stats
+    # The statistics the check had before pass the doubled frame: only
+    # the one-way share over the pixels above the clamp floor sees it.
+    assert stats["mean_abs_bin_diff"] <= 0.75 and stats["above_floor"] > 100
+    assert stats["one_way_share"] > 0.95
+    ok, stats = per_pixel_check.error_bins_agree(frame, frame)
+    assert ok and stats["one_way_share"] == 0.0, stats

@@ -5,24 +5,65 @@
 // vulkan_renderer_tpu/render/trace_kernel.py::_closest_pass_one (kernel at
 // :976, pallas_call at :1060). The TPU build runs it over work items of an
 // XLA cull with supercluster budgets, an occlusion seed and an exactness
-// re-trace; here each ray walks one binary tree over the clusters
-// (common.cuh walk_bvh) nearer child first, then a cluster's 8-triangle
-// sub-boxes, then their triangles. A box is pruned when
-// !(t_near <= cap), with cap the best t so far (as at :992) widened by
-// kPruneMargin, and a sub-box when its slab test fails against [0, cap].
-// The widening keeps the answer exact: the slab test's entry and
-// Moeller-Trumbore's t round one distance in two ways and part by a few
-// ulps, so a box can enter beyond the t of its own triangle, and with a
-// hit already found in between, the bare best t would drop the winner
-// (tools/prune_check.py builds a scene where it does; chip_smoke.py holds
-// K2 exact there). Triangle test: the reciprocal-det Moeller-Trumbore
-// of :1013-1028 with det_ok = |det| > 1e-12. A hit replaces the best when
+// re-trace; here each ray walks one binary tree over the clusters (the
+// while-while walk of common.cuh walk_bvh, nearer child first, with the
+// prune below), then a cluster's 8-triangle sub-boxes, then their
+// triangles. Triangle test: the reciprocal-det Moeller-Trumbore of
+// :1013-1028 with det_ok = |det| > 1e-12. A hit replaces the best when
 // tt < best_t, or tt == best_t with a lower primitive id, so the answer is
 // the lexicographic minimum of (t, prim) over the triangles behind the
-// boxes, whatever order the walk visits them in: the minimum that the
-// ascending-id scan with a strict < and trace_closest_plain return (the
-// reference's order below 1,024 clusters, :232-256). Pruning by the cap
-// only drops boxes that lie wholly beyond a hit already found.
+// boxes the ray passes, whatever order the walk visits them in: the
+// minimum that the ascending-id scan with a strict < and
+// trace_closest_plain return (the reference's order below 1,024 clusters,
+// :232-256), as long as the prune drops no box that holds a triangle
+// whose computed t could be below the best t.
+//
+// The prune, and the bound that makes it exact. A box B (a BVH child or a
+// sub-box) that passes the slab test against [0, t_max] is dropped when
+// hit_t_floor(B) > best_t, where hit_t_floor is a lower bound on the
+// computed t of every hit on a triangle in B. Moeller-Trumbore's computed
+// t is not bounded below by B's entry: a triangle whose plane holds the
+// ray (edge-on) has det and t's numerator both at rounding level, and its
+// computed hit lands anywhere along the ray (tools/prune_check.py
+// thin_edge_scene: up to 40% short); and a computed hit (u, v inside the
+// triangle) can lie beside it, outside B, on a ray that enters B later.
+// The bound exists for axis triangles: both edges have the same exactly
+// zero component (e1.a == e2.a == 0, a = x, y or z), so every term of det
+// and of t's numerator off that axis is an exact zero, and det = d_a W(1 +
+// e), numerator = t_a W(1 + e'), with |e|, |e'| <= 2 kappa u + O(u^2),
+// u = 2^-24, kappa = |e1||e2| / |e1 x e2| (the sliver factor). So, with
+// t* the ray's exact distance to the triangle's plane:
+//   (1) t >= t* (1 - (5 + 4 kappa) u): three roundings of t_a, 1/det and
+//       the product, two of each of the two terms of W;
+//   (2) the ray meets the plane within u (kappa (|T| + t*) + |e1| +
+//       |e2|) of the triangle (|T|: the distance from the origin to v0):
+//       the errors of u and v, the rounding of u + v, and the edges e1 =
+//       fl(v1 - v0), which move the triangle's corners against the box's.
+// Every vertex is within F of the origin (F: the sum over axes of the farther
+// of |lo - o| and |hi - o| over the scene's box, the root's), so |T| <= F and
+// t* <= F + D + eps, D the scene box's side sum (|e1| + |e2| <= 2 D): with
+// rho = 4 kappa u, the ray passes B within eps = 2 (rho (2 F + D) + 4 u D) =
+// kappa 8 u (2 F + D) + 8 u D at t* (per ray, floor_scale), and enters B
+// grown by eps no later than t*. Along the axis that sets B's computed entry
+// t_near, that grown box's entry is t_near - eps |1/d_a|, so t >= (t_near -
+// eps |1/d_a|) (1 - eta) with eta = 2 (5 + 4 kappa) u + 16 u, the factors of
+// 2 and the 16 u covering the roundings of the slab test and of the bound
+// itself. `python -m vulkan_renderer_tpu_torch.tools.prune_check --bounds 40`
+// checks (1) and (2) in float32 numpy over 8 M random axis triangles, slivers
+// to kappa = 10^4, and rays at their edges and to 10^-6 rad off their plane:
+// the measured worst is under half of the terms that eta and eps take
+// (PERF.md section 6). For any other triangle t's error grows as 1 / |d . n|
+// for rays near its plane, with no bound but the det gate, so a box holding
+// one is never pruned by t. render/clusters.py stores per BVH child the
+// largest kappa below it (record words 14 and 15), +inf where a child holds a
+// triangle that is not an axis triangle, a collinear one, or one with kappa >
+// 2^20; triangles with a zero edge are never hit (det is an exact 0) and
+// count 0. The bench city and the sweep's planes are axis triangles of kappa
+// <= 5.1, where the floor lies millimetres below the entry and the walk
+// makes 0.02-0.08% more box and triangle tests than a flat 2^-16 margin;
+// general meshes keep the prune only below the nodes that hold axis
+// triangles alone. The floor is straight-line code: with early returns it
+// cost K2 more than its arithmetic.
 //
 // K3 replaces _attr_pass_one (kernel at :1244, pallas_call at :1298) plus
 // the XLA finalize _attrs_finalize (:1311-1381): the winning triangle's 9
@@ -48,9 +89,70 @@ namespace {
 using vrt::Ray;
 using vrt::Tri;
 
-// Relative widening of the prune: 2^-16, 128-256 ulps of float32, far
-// above the few ulps by which the two roundings of a distance part.
-constexpr float kPruneMargin = 1.0f / 65536.0f;
+constexpr float kU = 1.0f / 16777216.0f;   // 2^-24, float32's unit roundoff
+constexpr float kKappaMax = 1048576.0f;    // 2^20
+
+// The slab test of common.cuh slab against [0, t_cap], which also writes
+// |1/d| of the axis whose entry is t_near (the last of equal entries).
+__device__ __forceinline__ bool slab_entry(const float* lo, const float* hi,
+                                           const Ray& ray, float t_cap,
+                                           float* t_near_out,
+                                           float* inv_entry_out) {
+  const float o[3] = {ray.ox, ray.oy, ray.oz};
+  const float inv[3] = {ray.ix, ray.iy, ray.iz};
+  float t_near = 0.0f, t_far = 0.0f, inv_entry = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t0 = (lo[a] - o[a]) * inv[a];
+    const float t1 = (hi[a] - o[a]) * inv[a];
+    const float near = vrt::jmin(t0, t1), far = vrt::jmax(t0, t1);
+    if (a == 0) {
+      t_near = near;
+      t_far = far;
+      inv_entry = fabsf(inv[a]);
+    } else {
+      inv_entry = (near >= t_near) ? fabsf(inv[a]) : inv_entry;
+      t_near = vrt::jmax(t_near, near);
+      t_far = vrt::jmin(t_far, far);
+    }
+  }
+  *t_near_out = t_near;
+  *inv_entry_out = inv_entry;
+  return (t_near <= t_far) && (t_far >= 0.0f) && (t_near <= t_cap) &&
+         (t_cap >= 0.0f);
+}
+
+// Per ray: eps = kappa * scale.x + scale.y (header), from the scene's box
+// (the union of the root's children; NaN children drop out).
+__device__ __forceinline__ float2 floor_scale(const float4* nodes,
+                                              const Ray& ray) {
+  const float4 a = __ldg(nodes), b = __ldg(nodes + 1), c = __ldg(nodes + 2);
+  const float lo[3] = {fminf(a.x, b.z), fminf(a.y, b.w), fminf(a.z, c.x)};
+  const float hi[3] = {fmaxf(a.w, c.y), fmaxf(b.x, c.z), fmaxf(b.y, c.w)};
+  const float o[3] = {ray.ox, ray.oy, ray.oz};
+  float far = 0.0f, size = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    far += fmaxf(fabsf(lo[k] - o[k]), fabsf(hi[k] - o[k]));
+    size += hi[k] - lo[k];
+  }
+  return {8.0f * kU * (2.0f * far + size), 8.0f * kU * size};
+}
+
+// A lower bound on the computed t of any hit on a triangle in a box
+// entered at t_near along an axis with |1/d| = inv_entry, whose
+// triangles' largest sliver factor is kappa (see the header); -inf where
+// there is none.
+__device__ __forceinline__ float hit_t_floor(float t_near, float inv_entry,
+                                             float kappa, float2 scale) {
+  const float eps = kappa * scale.x + scale.y;
+  const float eta = (26.0f + 8.0f * kappa) * kU;
+  const float at = (t_near - eps * inv_entry) * (1.0f - eta);
+  // Straight-line code: a branch here costs K2 more than the arithmetic.
+  const bool bounded =
+      (kappa <= kKappaMax) & (inv_entry < 1e30f) & (t_near > 0.0f);
+  return bounded ? at : -INFINITY;
+}
 
 __global__ void __launch_bounds__(128)
 closest_kernel(const float* __restrict__ origins,
@@ -65,20 +167,23 @@ closest_kernel(const float* __restrict__ origins,
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= ray_count) return;
   const Ray ray = vrt::load_ray(origins, dirs, t_max, r);
+  const float2 scale = floor_scale(nodes, ray);
   float best_t = INFINITY;
   int best = -1;
   vrt::TestCounts counts;
-  // best_t > 0 (t >= t_min), and inf stays inf.
-  auto cap = [&]() { return best_t + best_t * kPruneMargin; };
-  auto keep = [&](float t_near) { return t_near <= cap(); };
-  auto visit = [&](int k) {
+  // NaN floors keep their box.
+  auto keep = [&](float at) { return !(at > best_t); };
+  auto visit = [&](int k, float kappa) {
     const float* row = planes + (size_t)k * 9 * cluster_size;
     const float* boxes = subboxes + (size_t)k * 6 * subbox_count;
     for (int g = 0; g < subbox_count; ++g) {
-      // Sub-box pruned by the current cap; empty groups are NaN.
-      float t_sub;
+      // Empty groups are NaN and fail the slab test.
+      float t_sub, inv_sub;
       VR_COUNT(counts, subboxes, 1);
-      if (!vrt::slab(boxes + 6 * g, boxes + 6 * g + 3, ray, cap(), &t_sub))
+      const float* lo = boxes + 6 * g;
+      const float* hi = lo + 3;
+      if (!(slab_entry(lo, hi, ray, ray.t_max, &t_sub, &inv_sub) &
+            keep(hit_t_floor(t_sub, inv_sub, kappa, scale))))
         continue;
       const int t_end = min((g + 1) * vrt::kSubGroup, cluster_size);
       for (int t = g * vrt::kSubGroup; t < t_end; ++t) {
@@ -106,9 +211,62 @@ closest_kernel(const float* __restrict__ origins,
         }
       }
     }
+  };
+  // common.cuh walk_bvh's while-while walk; the stack keeps each pushed
+  // child's hit floor (checked again when popped) and its kappa.
+  int stack_ref[vrt::kStack];
+  float stack_floor[vrt::kStack], stack_kappa[vrt::kStack];
+  int sp = 0;
+  int ref = 0;  // the root
+  float ref_kappa = INFINITY;
+  auto pop = [&]() {
+    while (sp > 0) {
+      --sp;
+      if (keep(stack_floor[sp])) {
+        ref = stack_ref[sp];
+        ref_kappa = stack_kappa[sp];
+        return true;
+      }
+    }
     return false;
   };
-  vrt::walk_bvh(nodes, ray, cluster_count, keep, visit, counts);
+  for (;;) {
+    while (ref >= 0) {
+      const float4* rec = nodes + 4 * ref;
+      const float4 a = __ldg(rec), b = __ldg(rec + 1), c = __ldg(rec + 2),
+                   d = __ldg(rec + 3);
+      const float lo_l[3] = {a.x, a.y, a.z}, hi_l[3] = {a.w, b.x, b.y};
+      const float lo_r[3] = {b.z, b.w, c.x}, hi_r[3] = {c.y, c.z, c.w};
+      float t_l, t_r, inv_l, inv_r;
+      const bool pass_l =
+          slab_entry(lo_l, hi_l, ray, ray.t_max, &t_l, &inv_l);
+      const bool pass_r =
+          slab_entry(lo_r, hi_r, ray, ray.t_max, &t_r, &inv_r);
+      const float floor_l = hit_t_floor(t_l, inv_l, d.z, scale);
+      const float floor_r = hit_t_floor(t_r, inv_r, d.w, scale);
+      const bool in_l = pass_l & keep(floor_l);
+      const bool in_r = pass_r & keep(floor_r);
+      VR_COUNT(counts, boxes, 2);
+      const int ref_l = __float_as_int(d.x), ref_r = __float_as_int(d.y);
+      if (in_l && in_r) {
+        const bool right_first = t_r < t_l;
+        stack_ref[sp] = right_first ? ref_l : ref_r;
+        stack_floor[sp] = right_first ? floor_l : floor_r;
+        stack_kappa[sp] = right_first ? d.z : d.w;
+        ++sp;
+        ref = right_first ? ref_r : ref_l;
+        ref_kappa = right_first ? d.w : d.z;
+      } else if (in_l || in_r) {
+        ref = in_l ? ref_l : ref_r;
+        ref_kappa = in_l ? d.z : d.w;
+      } else if (!pop()) {
+        goto done;
+      }
+    }
+    if (-1 - ref < cluster_count) visit(-1 - ref, ref_kappa);
+    if (!pop()) break;
+  }
+done:
   t_out[r] = best_t;
   prim_out[r] = best;
   vrt::flush_counts(counts, test_counts);

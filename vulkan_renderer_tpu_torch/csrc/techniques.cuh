@@ -112,30 +112,64 @@ K_INLINE f32 clip01(f32 x) { return vrt::jclip(x, 0.0f, 1.0f); }
 
 // --- error-free products (ops/math_utils.py two_product / kahan) -----------
 
-// p = a * b rounded and its exact error e = a * b - p. The plain version
-// computes e with Dekker's split (17 operations); one fused multiply-add
-// rounds a * b - p once, and that difference is exactly representable, so
-// e is the same float wherever Dekker's split is exact: |a|, |b| < 2^115,
-// |a * b| < 2^127, and a * b zero or at least 2^-102 in magnitude
-// (tests/test_torch_two_product.py pins that range; light vertices in the
-// shading frame lie far inside it).
-// The only FMA the kernels issue; --fmad=false keeps every other product
-// rounded on its own.
-K_INLINE void two_product(f32 a, f32 b, f32& p, f32& e) {
-  p = a * b;
-  e = vrt::fma_rn(a, b, -p);
+// p = a * b rounded and its exact error e = a * b - p, with the bits of
+// the plain version's Dekker split (ops/math_utils.py two_product). One
+// fused multiply-add rounds a * b - p once, and that difference is exactly
+// representable, so it is Dekker's float wherever Dekker's split is exact:
+// |a|, |b| < 2^115 (a * 4097 finite), |a * b| < 2^127, and a * b zero or
+// at least 2^-102 in magnitude (tests/test_torch_two_product.py). kFma
+// takes the FMA, which the caller may ask for only where fma_exact holds
+// for every operand; otherwise two_product runs Dekker's split itself, in
+// the plain version's order (the kernels are built with --fmad=false, so
+// no step of it is fused). The callers test a polygon's coordinates once
+// and take one of two instantiations: a test per product measured K4
+// +40% and K5 PSA +57% on the H100 (PERF.md section 6). The FMA is the
+// only one the kernels issue.
+K_INLINE f32 dekker_error(f32 a, f32 b, f32 p) {
+  f32 a_hi = a * 4097.0f;
+  a_hi = a_hi - (a_hi - a);
+  const f32 a_lo = a - a_hi;
+  f32 b_hi = b * 4097.0f;
+  b_hi = b_hi - (b_hi - b);
+  const f32 b_lo = b - b_hi;
+  return ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo;
 }
 
+// c is 0 or 2^-50 <= |c| < 2^63, read off its exponent field: the
+// product of two such values is 0 or between 2^-100 and 2^126, inside the
+// range where the FMA's error term is Dekker's. Shading-frame coordinates
+// from 1e-15 m to 9e18 m pass.
+K_INLINE bool fma_exact(f32 c) {
+  const unsigned u = __float_as_uint(raw(c)) & 0x7fffffffu;
+  return u == 0u || (u >> 23) - 77u < 190u - 77u;
+}
+
+K_INLINE bool fma_exact(V3 v) {
+  return fma_exact(v.x) & fma_exact(v.y) & fma_exact(v.z);
+}
+
+template <bool kFma>
+K_INLINE void two_product(f32 a, f32 b, f32& p, f32& e) {
+  p = a * b;
+  if constexpr (kFma) {
+    e = vrt::fma_rn(a, b, -p);
+  } else {
+    e = dekker_error(a, b, p);
+  }
+}
+
+template <bool kFma>
 K_INLINE f32 kahan(f32 a, f32 b, f32 c, f32 d) {
   f32 p1, e1, p2, e2;
-  two_product(a, b, p1, e1);
-  two_product(c, d, p2, e2);
+  two_product<kFma>(a, b, p1, e1);
+  two_product<kFma>(c, d, p2, e2);
   return (p1 - p2) + (e1 - e2);
 }
 
+template <bool kFma>
 K_INLINE V3 cross3(V3 a, V3 b) {
-  return {kahan(a.y, b.z, a.z, b.y), kahan(a.z, b.x, a.x, b.z),
-          kahan(a.x, b.y, a.y, b.x)};
+  return {kahan<kFma>(a.y, b.z, a.z, b.y), kahan<kFma>(a.z, b.x, a.x, b.z),
+          kahan<kFma>(a.x, b.y, a.y, b.x)};
 }
 
 K_INLINE V3 cross3_fast(V3 a, V3 b) {
@@ -478,8 +512,9 @@ K_INLINE f32 mis_estimate(f32 integrand, f32 sampled_weight,
 
 // --- ellipse helpers (ops/soa.py) ------------------------------------------
 
+template <bool kFma>
 K_INLINE V2 ellipse_from_edge(V3 v0, V3 v1) {
-  const V3 n = cross3(v0, v1);
+  const V3 n = cross3<kFma>(v0, v1);
   const bool nz_ok = n.z != 0.0f;
   f32 scaling = 1.0f / (nz_ok ? n.z : 1.0f);
   scaling = signbit_f(n.x) ? -scaling : scaling;
@@ -548,13 +583,37 @@ struct PsaPoly {
 template <int M>
 K_INLINE void prepare_psa(const V3 (&v)[M], int count_in, PsaPoly<M>& poly) {
   const int count = max(count_in, 3);
-  V2 raw[M];
-  bool raw_inner[M];
+  // fma_exact on every lane, in fewer instructions: clip leaves z >= +0
+  // (0 on the horizon, where z - 1 wraps to the top), and an exact 0 in x
+  // or y sends the polygon to Dekker's split (rare, and exact); a polygon
+  // clipped away is all zeros (hi == 0), whose products are exact either
+  // way. A NaN coordinate passes (fmaxf and fminf drop it); the FMA and
+  // the split then both give NaN.
+  float hi = 0.0f, lo_xy = INFINITY;
+  unsigned lo_z = 0xffffffffu;
 #pragma unroll
   for (int k = 0; k < M; ++k) {
-    raw[k] = ellipse_from_edge(v[k], v[(k + 1) % M]);
-    raw_inner[k] = signbit_f(raw[k].x);
+    const float x = fabsf(raw(v[k].x)), y = fabsf(raw(v[k].y));
+    hi = fmaxf(hi, fmaxf(x, fmaxf(y, raw(v[k].z))));
+    lo_xy = fminf(lo_xy, fminf(x, y));
+    lo_z = min(lo_z, __float_as_uint(raw(v[k].z)) - 1u);
   }
+  const bool exact = (hi == 0.0f) |
+                     ((hi < 0x1p63f) & (lo_xy >= 0x1p-50f) &
+                      (lo_z >= __float_as_uint(0x1p-50f) - 1u));
+  V2 raw[M];
+  bool raw_inner[M];
+  if (exact) {
+#pragma unroll
+    for (int k = 0; k < M; ++k)
+      raw[k] = ellipse_from_edge<true>(v[k], v[(k + 1) % M]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < M; ++k)
+      raw[k] = ellipse_from_edge<false>(v[k], v[(k + 1) % M]);
+  }
+#pragma unroll
+  for (int k = 0; k < M; ++k) raw_inner[k] = signbit_f(raw[k].x);
   // Lane k's previous edge: lane count-1 for k == 0, else k-1.
   V2 last_raw = {0.0f, 0.0f};
   bool last_inner = false;
@@ -598,10 +657,19 @@ K_INLINE void prepare_psa(const V3 (&v)[M], int count_in, PsaPoly<M>& poly) {
     poly.psa = psa;
   } else {
     // CCW sort by a tie-preserving pseudo-angle, then the sector walk.
-    f32 keys[M];
+    f32 crs[M], keys[M];
+    if (exact) {
+#pragma unroll
+      for (int k = 0; k < M; ++k)
+        crs[k] = kahan<true>(v[0].x, v[k].y, v[0].y, v[k].x);
+    } else {
+#pragma unroll
+      for (int k = 0; k < M; ++k)
+        crs[k] = kahan<false>(v[0].x, v[k].y, v[0].y, v[k].x);
+    }
 #pragma unroll
     for (int k = 0; k < M; ++k) {
-      const f32 cr = kahan(v[0].x, v[k].y, v[0].y, v[k].x);
+      const f32 cr = crs[k];
       const f32 dt = v[0].x * v[k].x + v[0].y * v[k].y;
       const f32 p = dt / (fabsf(dt) + fabsf(cr) + 1e-37f);
       const f32 key = cr >= 0.0f ? 1.0f - p : p - 1.0f;
@@ -878,11 +946,23 @@ K_INLINE void prepare_sa_arvo(const V3 (&dirs)[M], int count, SaFan<M>& f) {
 #pragma unroll
   for (int i = 0; i < M - 2; ++i) {
     const V3 v1 = dirs[i + 1], v2 = dirs[i + 2];
-    const V3 en0 = normalize3(cross3(sub3(v1, v0), v0));
-    const V3 en1 = normalize3(cross3(sub3(v2, v1), v1));
+    const V3 e10 = sub3(v1, v0), e21 = sub3(v2, v1);
+    V3 c0, c1, c2;
+    if (fma_exact(e10) & fma_exact(e21) & fma_exact(v0) & fma_exact(v1) &
+        fma_exact(v2)) {
+      c0 = cross3<true>(e10, v0);
+      c1 = cross3<true>(e21, v1);
+      c2 = cross3<true>(v1, v2);
+    } else {
+      c0 = cross3<false>(e10, v0);
+      c1 = cross3<false>(e21, v1);
+      c2 = cross3<false>(v1, v2);
+    }
+    const V3 en0 = normalize3(c0);
+    const V3 en1 = normalize3(c1);
     const f32 cos_op = -dot3(en0, en1);
     const f32 sin_op = sqrtf(vrt::jmax(-cos_op * cos_op + 1.0f, 0.0f));
-    const f32 simplex = dot3(v0, cross3(v1, v2));
+    const f32 simplex = dot3(v0, c2);
     const f32 tangent = fabsf(simplex) / (((1.0f + dot3(v0, v1)) +
                                              dot3(v0, v2)) + dot3(v1, v2));
     f32 sa_i = 2.0f * positive_atan_unbiased(tangent);
@@ -1025,10 +1105,22 @@ K_INLINE void prepare_urena(const float* ls, V3 o, Urena& q) {
   const f32 y1 = y0 + ls[kLsScaling + 1];
   const V3 v00 = {x0, y0, z0}, v01 = {x0, y1, z0}, v10 = {x1, y0, z0},
            v11 = {x1, y1, z0};
-  const V3 n0 = normalize3(cross3(v00, v10));
-  const V3 n1 = normalize3(cross3(v10, v11));
-  const V3 n2 = normalize3(cross3(v11, v01));
-  const V3 n3 = normalize3(cross3(v01, v00));
+  V3 c[4];
+  if (fma_exact(v00) & fma_exact(v11)) {  // v01 and v10 mix their values
+    c[0] = cross3<true>(v00, v10);
+    c[1] = cross3<true>(v10, v11);
+    c[2] = cross3<true>(v11, v01);
+    c[3] = cross3<true>(v01, v00);
+  } else {
+    c[0] = cross3<false>(v00, v10);
+    c[1] = cross3<false>(v10, v11);
+    c[2] = cross3<false>(v11, v01);
+    c[3] = cross3<false>(v01, v00);
+  }
+  const V3 n0 = normalize3(c[0]);
+  const V3 n1 = normalize3(c[1]);
+  const V3 n2 = normalize3(c[2]);
+  const V3 n3 = normalize3(c[3]);
   const f32 g0 = acos_soa(vrt::jclip(-dot3(n0, n1), -1.0f, 1.0f));
   const f32 g1 = acos_soa(vrt::jclip(-dot3(n1, n2), -1.0f, 1.0f));
   const f32 g2 = acos_soa(vrt::jclip(-dot3(n2, n3), -1.0f, 1.0f));

@@ -11,7 +11,10 @@ All kernels are compiled with --fmad=false: nvcc would otherwise contract
 a*b+c into FMAs, and the kernels then stop matching their plain PyTorch
 versions (which round every product) on near-tie triangle edges and
 sector boundaries. The one FMA they issue is written out
-(csrc/techniques.cuh two_product, whose result is exact either way).
+(csrc/techniques.cuh two_product), taken only where its error term equals
+the plain version's Dekker split; outside that range the kernels run the
+split itself. No -ftz and no --use_fast_math: the plain versions keep
+subnormals, and so must the kernels.
 """
 
 from __future__ import annotations

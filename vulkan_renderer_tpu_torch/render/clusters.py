@@ -11,7 +11,8 @@ contiguous rows:
 - subboxes (K, 6G): per 8-triangle group [lo.xyz hi.xyz], NaN for groups
   without a valid triangle;
 - bvh_nodes (M, 16): one binary tree over the cluster sequence
-  (build_cluster_bvh_np), which both CUDA tracers walk.
+  (build_cluster_bvh_np), which both CUDA tracers walk, with each child's
+  sliver bound for K2's prune (triangle_kappa_np).
 
 NaN boxes fail every comparison of the slab test (trace_kernel.py
 ray_box_slab and csrc/common.cuh), so padding can never produce a hit;
@@ -28,6 +29,37 @@ import torch
 
 SUB_GROUP = 8  # triangles per sub-box
 BVH_RECORD = 16  # floats per inner node: 64 bytes (csrc/common.cuh)
+KAPPA_MAX = 2.0 ** 20  # csrc/closest.cu kKappaMax
+
+
+def triangle_kappa_np(e1: np.ndarray, e2: np.ndarray) -> np.ndarray:
+    """(..., 3) float32 edges -> (...,) float32: the bound K2's prune
+    takes for each triangle (csrc/closest.cu header). An axis triangle
+    (e1 and e2 both exactly 0 on one axis) gets its sliver factor
+    |e1||e2| / |e1 x e2|, computed in float64 and rounded up; a triangle
+    with a zero edge is never hit (det is an exact 0) and gets 0; any
+    other triangle, and an axis triangle past KAPPA_MAX or collinear,
+    gets +inf (its box is never pruned by t)."""
+    a = np.asarray(e1, np.float32).astype(np.float64)
+    b = np.asarray(e2, np.float32).astype(np.float64)
+    zero_edge = ~(a != 0).any(axis=-1) | ~(b != 0).any(axis=-1)
+    axis = ((a == 0) & (b == 0)).any(axis=-1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        kappa = np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1) \
+            / np.linalg.norm(np.cross(a, b), axis=-1)
+    kappa = np.where(axis & (kappa <= KAPPA_MAX), kappa, np.inf)
+    kappa = np.where(zero_edge, 0.0, kappa)
+    up = kappa.astype(np.float32)
+    return np.where(up < kappa, np.nextafter(up, np.float32(np.inf)), up)
+
+
+def cluster_kappa_np(planes: np.ndarray, cluster_size: int) -> np.ndarray:
+    """(K, 9C) planes -> (K,) float32 largest triangle_kappa_np of each
+    cluster (padding lanes have zero edges and count 0)."""
+    tab = np.asarray(planes, np.float32).reshape(-1, 9, cluster_size)
+    kappa = triangle_kappa_np(np.moveaxis(tab[:, 3:6], 1, -1),
+                              np.moveaxis(tab[:, 6:9], 1, -1))
+    return kappa.max(axis=1)
 
 
 @dataclasses.dataclass
@@ -105,8 +137,8 @@ def build_clusters_np(triangle_positions: np.ndarray,
                 subboxes=subboxes)
 
 
-def build_cluster_bvh_np(aabb_lo: np.ndarray,
-                         aabb_hi: np.ndarray) -> np.ndarray:
+def build_cluster_bvh_np(aabb_lo: np.ndarray, aabb_hi: np.ndarray,
+                         kappa: np.ndarray | None = None) -> np.ndarray:
     """Binary tree over the cluster sequence, built bottom-up by pair
     reductions (as vulkan_renderer_tpu/render/bvh.py does over triangles):
     the K cluster boxes, padded with NaN boxes to a power of two >= 2, are
@@ -116,7 +148,9 @@ def build_cluster_bvh_np(aabb_lo: np.ndarray,
 
     Returns (M, 16) float32 inner-node records, root first, then level by
     level: [left lo.xyz, left hi.xyz, right lo.xyz, right hi.xyz, left ref,
-    right ref, 0, 0], one 64-byte record feeding two slab tests. A ref is
+    right ref, left kappa, right kappa], one 64-byte record feeding two
+    slab tests; a child's kappa is the largest of its clusters' `kappa`
+    (K,) (cluster_kappa_np; +inf, no prune by t, when None). A ref is
     stored as int32 bits: >= 0 is an inner node's row, < 0 is the leaf
     cluster -1 - ref (padding leaves and dropped nodes point past the last
     cluster, behind a NaN box that no ray passes). The tree is
@@ -130,11 +164,17 @@ def build_cluster_bvh_np(aabb_lo: np.ndarray,
     hi = np.full((n, 3), np.nan, np.float32)
     lo[:k] = aabb_lo
     hi[:k] = aabb_hi
+    kap = np.zeros(n, np.float32)
+    kap[:k] = np.inf if kappa is None else kappa
     levels = [(lo, hi)]  # leaves first, root last
+    kappas = [kap]
     while lo.shape[0] > 1:
         lo = np.fmin(lo[0::2], lo[1::2])
         hi = np.fmax(hi[0::2], hi[1::2])
+        kap = np.maximum(kap[0::2], kap[1::2])
         levels.append((lo, hi))
+        kappas.append(kap)
+    kappas.reverse()
     levels.reverse()  # levels[0] is the root, levels[-1] the leaves
     # Rows of the kept inner nodes, level by level.
     kept = [~np.isnan(lo[:, 0]) for lo, _ in levels[:-1]]
@@ -156,6 +196,7 @@ def build_cluster_bvh_np(aabb_lo: np.ndarray,
         rows[:, 0:3], rows[:, 3:6] = pairs_lo[:, 0], pairs_hi[:, 0]
         rows[:, 6:9], rows[:, 9:12] = pairs_lo[:, 1], pairs_hi[:, 1]
         rows.view(np.int32)[:, 12:14] = child_refs.reshape(-1, 2)[keep]
+        rows[:, 14:16] = kappas[level + 1].reshape(-1, 2)[keep]
         records.append(rows)
     return np.concatenate(records)
 
@@ -173,7 +214,9 @@ def clusters_from_numpy(arrays: dict, device) -> Clusters:
     built over their boxes."""
     tables = {k: np.array(arrays[k], np.float32)
               for k in ("aabb_lo", "aabb_hi", "planes", "attrs", "subboxes")}
-    tables["bvh_nodes"] = build_cluster_bvh_np(tables["aabb_lo"],
-                                               tables["aabb_hi"])
+    tables["bvh_nodes"] = build_cluster_bvh_np(
+        tables["aabb_lo"], tables["aabb_hi"],
+        cluster_kappa_np(tables["planes"],
+                         tables["planes"].shape[1] // 9))
     return Clusters(**{k: torch.from_numpy(v).to(device)
                        for k, v in tables.items()})

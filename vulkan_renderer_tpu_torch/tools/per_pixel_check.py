@@ -14,12 +14,21 @@ difference| <= 1e-3 and >= 99% of pixels within 1e-2. An error display's
 color is the log10 bin of a float32 rounding residual, which the card's
 transcendental and rsqrt instructions change like another formulation
 does: its frames agree when the unlit pattern matches for >= 99.5% of
-pixels, >= 98% of lit pixels are within 4 bins (one decade) and the mean
-|bin difference| over lit pixels is at most 0.75. A bin is a quarter
-decade; most pixels sit in the lowest bin, where the residual is clamped,
-so an estimate off by a factor of 2 moves only the others, by about 1.2
-bins each. The estimates themselves are held by value against the JAX
-package on the CPU (tests/test_torch_sampling_ops.py).
+pixels, >= 98% of lit pixels are within 4 bins (one decade), the mean
+|bin difference| over lit pixels is at most 0.75, and of the lit pixels
+above the clamp floor (the reference's bin above the lowest) at most
+MAX_ONE_WAY_SHARE moved the same way (the larger of the shares that
+moved up and that moved down). A bin is a quarter decade; most pixels
+sit in the lowest bin, where the residual is clamped, so an estimate off
+by a factor of 2 moves only the others, each by about 1.2 bins, all one
+way: at 64x32 the doubled estimate (error_to_color's factor x2) keeps
+the mean |bin difference| at 0.577 and moves 675 of 675 pixels above the
+floor up, a one-way share of 1.0, where the card against the CPU moves
+them both ways: 0.504 (chip_smoke.py phase 11 on an NVIDIA H100 80GB
+HBM3, 700 W), and the port against the JAX package's per-pixel path at
+most 0.492 (the CPU tests of the error displays). MAX_ONE_WAY_SHARE =
+0.75 lies between. The estimates themselves are held by value against
+the JAX package on the CPU (tests/test_torch_sampling_ops.py).
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from ..scene.scene import load_scene
 from .export_scene import write_test_scene
 
 WIDTH, HEIGHT = 64, 32
+MAX_ONE_WAY_SHARE = 0.75
 Strategy = SamplingStrategy
 Tech = PolygonSamplingTechnique
 
@@ -160,16 +170,24 @@ def error_bins_agree(got, want) -> tuple[bool, dict]:
     a, b = error_bins(want), error_bins(got)
     lit = (a >= 0) & (b >= 0)
     diff = np.abs(a[lit] - b[lit])
+    above = lit & (a > 0)
+    shift = b[above] - a[above]
     stats = {"unlit_pattern": float(((a < 0) == (b < 0)).mean()),
              "lit_share": float(lit.mean()),
              "within_4_bins": float((diff <= 4).mean()) if lit.any() else 0.0,
-             "mean_abs_bin_diff": float(diff.mean()) if lit.any() else 0.0}
+             "mean_abs_bin_diff": float(diff.mean()) if lit.any() else 0.0,
+             "above_floor": int(above.sum()),
+             "one_way_share": float(max((shift > 0).mean(),
+                                        (shift < 0).mean()))
+             if above.any() else 0.0}
     return (stats["unlit_pattern"] >= 0.995 and stats["lit_share"] > 0.3
             and stats["within_4_bins"] >= 0.98
-            and stats["mean_abs_bin_diff"] <= 0.75), stats
+            and stats["mean_abs_bin_diff"] <= 0.75
+            and stats["one_way_share"] <= MAX_ONE_WAY_SHARE), stats
 
 
 def compare_class(name: str, got, want) -> tuple[bool, dict]:
     if CLASSES[name][2].get("error_display") is not None:
         return error_bins_agree(got, want)
     return frames_agree(got, want)
+
