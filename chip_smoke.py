@@ -113,7 +113,16 @@ It
    two_product's products leave the range in which one FMA equals Dekker's
    split: lights 1e-17 to 1e-15 m from the shading points, near 2^64 m and
    2^116 m out (tools/two_product_probe.py, 64x32 hit pixels of a small
-   city).
+   city);
+21. holds K1 against its plain version, which is the Pallas K1's function
+   (every triangle of each cluster whose box passes), where a sub-box gate
+   decides (tools/anyhit_gate_check.py): rays from the bench frame's four
+   street lights through every vertex of the small city (4,484) and of a
+   larger one (make_city(60, detail=5): 32,964), and grazing segments
+   beside prune_check's edge-on triangles, slivers and flat slivers
+   (98,304); 0 mismatches, and 0 rays where the float32 model of K1's
+   grown gate parts from the plain version; it prints the rays where a
+   bare slab test of the sub-box (K1's gate before) would part.
 
 The line before the last is a JSON object listing the kernels, each with
 its launches on the main path, time, plain version's time and bound
@@ -147,6 +156,9 @@ FP32_OPS_PER_S = 33.5e12
 # 2 sub, 2 mul, min, max; 4 min/max to combine; 4 comparisons) and the two
 # Moeller-Trumbore bodies (crosses, dots, sign or reciprocal, 6-7 tests).
 SLAB_OPS, ANYHIT_TRI_OPS, CLOSEST_TRI_OPS = 26, 55, 57
+# K1's sub-box gate (csrc/anyhit.cu grown_slab): the slab test plus the
+# two moves of each axis's entry and exit.
+ANYHIT_SUBBOX_OPS = SLAB_OPS + 6
 # K3's float32 operations per hit ray, counted from csrc/closest.cu
 # attrs_kernel as K4's and K5's counting builds count (csrc/count_ops.cuh:
 # add, sub, mul, div, sqrt, rsqrt, compare, max one each): barycentrics 42,
@@ -583,6 +595,30 @@ def run_closing_phases(torch, device, data_dir, card, scene, static,
                       "card": card}), flush=True)
 
 
+def run_gate_phase(device, card):
+    """Phase 21: K1 where a sub-box gate decides."""
+    from vulkan_renderer_tpu_torch.tools import anyhit_gate_check
+
+    rows = {}
+    for name in anyhit_gate_check.PROBES:
+        row = anyhit_gate_check.measure(device, name)
+        rows[name] = row
+        log(f"K1 vs plain on {name} ({row['triangles']} triangles, "
+            f"{row['clusters']} clusters, {row['rays']} rays): occluded "
+            f"{row['k1_occluded']}/{row['occluded']}, mismatches "
+            f"{row['k1_mismatches']} (tolerance 0); the model of K1's "
+            f"grown gate parts on {row['grown_gate_parts']} rays "
+            f"(tolerance 0), a bare sub-box slab gate on "
+            f"{row['slab_gate_parts']}; K1 {row['k1_ms']} ms [{card}]")
+        check(row["k1_mismatches"] == 0,
+              f"K1 disagrees with its plain version on {name}")
+        check(row["grown_gate_parts"] == 0,
+              f"the model of K1's sub-box gate drops hits on {name}")
+    check(rows["city_20x3_vertices"]["slab_gate_parts"] > 0,
+          "the vertex rays no longer probe the sub-box gate")
+    print(json.dumps({"anyhit_gate": rows, "card": card}), flush=True)
+
+
 def run():
     try:
         import torch
@@ -782,18 +818,12 @@ def run():
 
     # --- 4b. box and triangle tests per ray ----------------------------------
     # Rays are live where t_max >= 0 (the kernels return the others at once).
-    test_counts = {}
-    for name, fn in (("K2", tk.trace_closest), ("K1", tk.trace_anyhit)):
-        args = captured["trace_closest" if name == "K2" else "trace_anyhit"]
-        rays = int((args[3] >= 0.0).sum())
-        counts = torch.zeros(3, dtype=torch.int64, device=device)
-        fn(*args, test_counts=counts)
-        boxes, subboxes, tris = (int(c) for c in counts.tolist())
-        test_counts[name] = dict(boxes=boxes, subboxes=subboxes,
-                                 triangles=tris, rays=rays)
+    test_counts = bench.test_counts(torch, captured)
+    for name, c in test_counts.items():
+        rays = c["rays"]
         log(f"{name} BVH tests per live ray ({rays} rays): child boxes "
-            f"{boxes / rays:.2f}, sub-boxes {subboxes / rays:.2f}, "
-            f"triangles {tris / rays:.2f}")
+            f"{c['boxes'] / rays:.2f}, sub-boxes {c['subboxes'] / rays:.2f}, "
+            f"triangles {c['triangles'] / rays:.2f}")
 
     # --- 4c. K4's float operations on the bench frame ------------------------
     k4_ops_table, k4_ops = op_counts(torch, fused.fused_light_shading,
@@ -1241,6 +1271,7 @@ def run():
                      scene, static, settings, counters, build_app, last)
     run_closing_phases(torch, device, data_dir, card, scene, static,
                        settings)
+    run_gate_phase(device, card)
 
     sources = {
         "K1": ("vulkan_renderer_tpu_torch/csrc/anyhit.cu",
@@ -1274,15 +1305,15 @@ def run():
     tables = 4 * (clusters.planes.numel() + clusters.subboxes.numel()
                   + clusters.bvh_nodes.numel())
     bounds, design_ops_ms = {}, {}
-    for name, args, out_bytes, tri_ops in (
-            ("K1", s_args, 1, ANYHIT_TRI_OPS),
-            ("K2", c_args, 8, CLOSEST_TRI_OPS)):
+    for name, args, out_bytes, sub_ops, tri_ops in (
+            ("K1", s_args, 1, ANYHIT_SUBBOX_OPS, ANYHIT_TRI_OPS),
+            ("K2", c_args, 8, SLAB_OPS, CLOSEST_TRI_OPS)):
         c = test_counts[name]
         bounds[name] = bound_ms(
             args[2].shape[0] * (28 + out_bytes) + tables,
             tracer_floor_ops(c["rays"], clusters.cluster_count, tri_ops))
-        design_ops_ms[name] = ((c["boxes"] + c["subboxes"]) * SLAB_OPS
-                               + c["triangles"] * tri_ops) \
+        design_ops_ms[name] = (c["boxes"] * SLAB_OPS + c["subboxes"]
+                               * sub_ops + c["triangles"] * tri_ops) \
             / FP32_OPS_PER_S * 1e3
     a_prim = a_args[1]
     k3_hits = int((a_prim >= 0).sum())

@@ -161,10 +161,15 @@ def test_axis_triangle_error_terms_within_the_bound():
 
 
 def test_model_margin_is_the_kernels():
-    path = os.path.join(os.path.dirname(tk.__file__), "..", "csrc",
-                        "closest.cu")
-    with open(path) as f:
-        source = f.read()
+    """The constants and lines of closest.cu's hit floor that the model
+    copies; kU, kKappaMax and floor_scale live in common.cuh, which K1's
+    sub-box gate shares."""
+    source = ""
+    for name in ("closest.cu", "common.cuh"):
+        path = os.path.join(os.path.dirname(tk.__file__), "..", "csrc",
+                            name)
+        with open(path) as f:
+            source += f.read()
     m = re.search(r"kU = 1\.0f / (\d+)\.0f;", source)
     assert m and 1.0 / int(m.group(1)) == pc.UNIT_ROUNDOFF
     m = re.search(r"kKappaMax = (\d+)\.0f;", source)

@@ -72,7 +72,10 @@ def test_anyhit_matches_bruteforce(city, rng):
     """K1's plain version (division-free test) against
     trace_anyhit_bruteforce (divided test): the formulas differ only at
     edges, so at most 0.1% of rays may disagree; dead rays (t_max < 0)
-    never hit."""
+    never hit. The Pallas K1's own formula is held exactly, and the JAX
+    Pallas K1 in interpret mode, in test_torch_pallas_parity_anyhit.py;
+    K1's sub-box gate on rays aimed at vertices, where a bare slab test
+    drops hits, in test_torch_anyhit_gate.py."""
     tris, _, _, _, clusters = city
     r = 4000
     origins = np.concatenate([

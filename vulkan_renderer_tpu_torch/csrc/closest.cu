@@ -89,8 +89,9 @@ namespace {
 using vrt::Ray;
 using vrt::Tri;
 
-constexpr float kU = 1.0f / 16777216.0f;   // 2^-24, float32's unit roundoff
-constexpr float kKappaMax = 1048576.0f;    // 2^20
+using vrt::floor_scale;
+using vrt::kKappaMax;
+using vrt::kU;
 
 // The slab test of common.cuh slab against [0, t_cap], which also writes
 // |1/d| of the axis whose entry is t_near (the last of equal entries).
@@ -120,23 +121,6 @@ __device__ __forceinline__ bool slab_entry(const float* lo, const float* hi,
   *inv_entry_out = inv_entry;
   return (t_near <= t_far) && (t_far >= 0.0f) && (t_near <= t_cap) &&
          (t_cap >= 0.0f);
-}
-
-// Per ray: eps = kappa * scale.x + scale.y (header), from the scene's box
-// (the union of the root's children; NaN children drop out).
-__device__ __forceinline__ float2 floor_scale(const float4* nodes,
-                                              const Ray& ray) {
-  const float4 a = __ldg(nodes), b = __ldg(nodes + 1), c = __ldg(nodes + 2);
-  const float lo[3] = {fminf(a.x, b.z), fminf(a.y, b.w), fminf(a.z, c.x)};
-  const float hi[3] = {fmaxf(a.w, c.y), fmaxf(b.x, c.z), fmaxf(b.y, c.w)};
-  const float o[3] = {ray.ox, ray.oy, ray.oz};
-  float far = 0.0f, size = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    far += fmaxf(fabsf(lo[k] - o[k]), fabsf(hi[k] - o[k]));
-    size += hi[k] - lo[k];
-  }
-  return {8.0f * kU * (2.0f * far + size), 8.0f * kU * size};
 }
 
 // A lower bound on the computed t of any hit on a triangle in a box

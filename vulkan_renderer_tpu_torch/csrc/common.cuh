@@ -20,6 +20,8 @@ namespace vrt {
 
 constexpr int kSubGroup = 8;   // triangles per sub-box
 constexpr int kStack = 32;     // BVH traversal stack (tree depth <= 31)
+constexpr float kU = 1.0f / 16777216.0f;   // 2^-24, float32's unit roundoff
+constexpr float kKappaMax = 1048576.0f;    // 2^20 (render/clusters.py)
 
 K_INLINE float jmin(float a, float b) { return (a < b || a != a) ? a : b; }
 K_INLINE float jmax(float a, float b) { return (a > b || a != a) ? a : b; }
@@ -75,6 +77,25 @@ K_INLINE bool slab(const float* __restrict__ lo, const float* __restrict__ hi,
   *t_near_out = t_near;
   return (t_near <= t_far) && (t_far >= 0.0f) && (t_near <= t_cap) &&
          (t_cap >= 0.0f);
+}
+
+// Per ray: (kappa's factor, the constant) of eps = kappa * x + y, the
+// distance within which a ray passes a box that holds an axis triangle of
+// sliver factor kappa whenever Moeller-Trumbore accepts a hit on it
+// (derived in the header of closest.cu), from the scene's box (the union
+// of the root's children; NaN children drop out).
+K_INLINE float2 floor_scale(const float4* __restrict__ nodes, const Ray& ray) {
+  const float4 a = __ldg(nodes), b = __ldg(nodes + 1), c = __ldg(nodes + 2);
+  const float lo[3] = {fminf(a.x, b.z), fminf(a.y, b.w), fminf(a.z, c.x)};
+  const float hi[3] = {fmaxf(a.w, c.y), fmaxf(b.x, c.z), fmaxf(b.y, c.w)};
+  const float o[3] = {ray.ox, ray.oy, ray.oz};
+  float far = 0.0f, size = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    far += fmaxf(fabsf(lo[k] - o[k]), fabsf(hi[k] - o[k]));
+    size += hi[k] - lo[k];
+  }
+  return {8.0f * kU * (2.0f * far + size), 8.0f * kU * size};
 }
 
 // Triangle t of a cluster's component-major plane row: component j of
@@ -135,7 +156,10 @@ K_INLINE void flush_counts(const TestCounts& counts,
 // keep(t_near) accepts is visited, the nearer one first (left on a tie),
 // the farther one pushed with its t_near and checked against keep() again
 // when it is popped. A leaf ref (< 0) names cluster -1 - ref:
-// visit(cluster) tests its triangles and returns true to end the walk.
+// visit(cluster, kappa) tests its triangles and returns true to end the
+// walk; kappa is the cluster's largest sliver factor, from its parent's
+// record (words 14-15; +inf for a cluster that holds a triangle that is
+// not an axis triangle).
 // Refs past the last cluster sit behind NaN boxes that never pass; they
 // are skipped all the same. The loop is a while-while walk (Aila and
 // Laine, HPG 2009): a thread runs inner nodes until it reaches a leaf, so
@@ -147,9 +171,10 @@ K_INLINE void walk_bvh(const float4* __restrict__ nodes, const Ray& ray,
                        int cluster_count, Keep keep, Visit visit,
                        TestCounts& counts) {
   int stack_ref[kStack];
-  float stack_tnear[kStack];
+  float stack_tnear[kStack], stack_kappa[kStack];
   int sp = 0;
   int ref = 0;  // the root
+  float ref_kappa = INFINITY;
   for (;;) {
     while (ref >= 0) {
       const float4* rec = nodes + 4 * ref;
@@ -166,24 +191,29 @@ K_INLINE void walk_bvh(const float4* __restrict__ nodes, const Ray& ray,
         const bool right_first = t_r < t_l;
         stack_ref[sp] = right_first ? ref_l : ref_r;
         stack_tnear[sp] = right_first ? t_l : t_r;
+        stack_kappa[sp] = right_first ? d.z : d.w;
         ++sp;
         ref = right_first ? ref_r : ref_l;
+        ref_kappa = right_first ? d.w : d.z;
       } else if (in_l || in_r) {
         ref = in_l ? ref_l : ref_r;
+        ref_kappa = in_l ? d.z : d.w;
       } else {
         do {
           if (sp == 0) return;
           --sp;
           ref = stack_ref[sp];
+          ref_kappa = stack_kappa[sp];
         } while (!keep(stack_tnear[sp]));
       }
     }
     const int k = -1 - ref;
-    if (k < cluster_count && visit(k)) return;
+    if (k < cluster_count && visit(k, ref_kappa)) return;
     do {
       if (sp == 0) return;
       --sp;
       ref = stack_ref[sp];
+      ref_kappa = stack_kappa[sp];
     } while (!keep(stack_tnear[sp]));
   }
 }

@@ -4,8 +4,9 @@ PyTorch versions.
 Replaces the Pallas kernels of vulkan_renderer_tpu/render/trace_kernel.py:
 
 - K1 trace_anyhit (csrc/anyhit.cu) <- _anyhit_pass_one (:637): shadow
-  any-hit, division-free Moeller-Trumbore (:676-692), t in
-  [t_min, t_max], no backface culling, t_max < 0 marks a dead ray.
+  any-hit, division-free Moeller-Trumbore (:676-692) over every triangle
+  of each cluster whose box passes, t in [t_min, t_max], no backface
+  culling, t_max < 0 marks a dead ray.
 - K2 trace_closest (csrc/closest.cu) <- _closest_pass_one (:949): primary
   closest hit, reciprocal-det Moeller-Trumbore (:1013-1028), the
   lexicographic minimum of (t, primitive id), so ties keep the lower id.
@@ -17,12 +18,15 @@ The CUDA tracers walk one BVH over the clusters (render/clusters.py
 build_cluster_bvh_np), then each reached cluster's 8-triangle sub-boxes,
 then their triangles, exact by construction: the TPU build's work-item
 cull, budgets, re-trace, seeds and stale-attribute fixup have no
-counterpart. The plain versions test every triangle of every cluster box
-and sub-box that passes its slab test against [0, t_max] (brute force
-inside the cull), with the kernels' per-triangle formulas. The candidates
-are the same: a cluster box that passes implies that every box above it
-in the tree passes, since a parent's box contains its children's and the
-slab arithmetic rounds monotonically.
+counterpart. The plain versions test, with the kernels' per-triangle
+formulas, every triangle of every cluster box that passes its slab test
+against [0, t_max] (brute force inside the cull) -- K2's also needs the
+triangle's sub-box to pass, as the Pallas K2 does; K1's, like the Pallas
+K1, does not. The candidates are the same: a cluster box that passes
+implies that every box above it in the tree passes, since a parent's box
+contains its children's and the slab arithmetic rounds monotonically.
+K1's own sub-box gate is conservative, so it drops no hit that the plain
+version finds (csrc/anyhit.cu header; tools/anyhit_gate_check.py).
 """
 
 from __future__ import annotations
@@ -124,7 +128,8 @@ def _cluster_steps(k: int, rays: int, c: int, device: torch.device):
 # ---------------------------------------------------------------------------
 
 
-def _anyhit_chunk(clusters: Clusters, o, d, tm, t_min: float):
+def _anyhit_chunk(clusters: Clusters, o, d, tm, t_min: float,
+                  subbox_gate=None):
     k = clusters.cluster_count
     r = d.shape[0]
     inv = inverse_directions(d)
@@ -154,18 +159,22 @@ def _anyhit_chunk(clusters: Clusters, o, d, tm, t_min: float):
         v = (dx * qx + dy * qy + dz * qz) * su
         tt = (e2x * qx + e2y * qy + e2z * qz) * su
         hit = (adet > 1e-12) & (u >= 0.0) & (v >= 0.0) & (u + v <= adet) \
-            & (tt >= t_min * adet) & (tt <= tmax * adet) & live[:, :, None] \
-            & subbox_candidates(clusters, k0, k1, o, inv, tm)
+            & (tt >= t_min * adet) & (tt <= tmax * adet) & live[:, :, None]
+        if subbox_gate is not None:
+            hit &= subbox_gate(clusters, k0, k1, o, inv, tm)
         occluded |= hit.flatten(1).any(dim=1)
     return occluded
 
 
 def trace_anyhit_plain(clusters: Clusters, origins, dirs, t_max,
-                       t_min: float = T_MIN):
-    """Plain version of K1: occluded (R,) bool."""
+                       t_min: float = T_MIN, subbox_gate=None):
+    """Plain version of K1: occluded (R,) bool, the Pallas K1's function.
+    subbox_gate, for probes only (tools/anyhit_gate_check.py): a function
+    (clusters, k0, k1, origins, inv, t_max) -> (R, k1 - k0, C) bool mask
+    that a triangle must also pass, such as subbox_candidates."""
     out = [_anyhit_chunk(clusters, origins[i:i + _RAY_CHUNK],
                          dirs[i:i + _RAY_CHUNK], t_max[i:i + _RAY_CHUNK],
-                         t_min)
+                         t_min, subbox_gate)
            for i in range(0, dirs.shape[0], _RAY_CHUNK)]
     return torch.cat(out) if out else torch.zeros(0, dtype=torch.bool,
                                                   device=dirs.device)

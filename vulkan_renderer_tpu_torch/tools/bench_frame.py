@@ -14,7 +14,7 @@ checkout this file is in), so that two trees can be compared in one run
 on one card:
 
     python3 vulkan_renderer_tpu_torch/tools/bench_frame.py \
-        [--root DIR] [--data DIR] [--sweep]
+        [--root DIR] [--data DIR] [--sweep] [--count-tests]
 
 It builds the bench frame's kernel libraries (K1-K4), writes or reuses
 the bench city under --data, and prints one JSON line: the root, the
@@ -26,7 +26,9 @@ every library built, and the window ms/frame: WINDOW_FRAMES frames
 dispatched through core/app.py's Application with its frames in flight,
 the host clock from the first dispatch until the last frame retires,
 divided by WINDOW_FRAMES (after WARMUP frames rendered one at a time).
-With --sweep it adds, for PSA and Arvo PSA in both sweep cells
+With --count-tests it adds K1's and K2's BVH child-box, sub-box and
+triangle tests over the bench frame's rays (their -DVR_COUNT_TESTS=1
+builds). With --sweep it adds, for PSA and Arvo PSA in both sweep cells
 (--sweep-techniques all: for all 13 techniques, as chip_smoke.py phase 8
 runs them; their K5 libraries are built first, in parallel): the window
 ms/frame as above, the harness's median ms/frame (SWEEP_WARMUP warm-up
@@ -178,18 +180,19 @@ def noise_numbers():
     return (np.arange(4) * 0x123456).astype(np.uint32)
 
 
-def render(scene, static, s, kernels=None):
+def render(scene, static, s, kernels=None, width=WIDTH, height=HEIGHT):
     """One bench frame (H, W, 3) through `kernels` (default: the port's
     kernels)."""
     from vulkan_renderer_tpu_torch.render import pipeline
     return pipeline.render_frame(
-        scene, static, camera(), s, WIDTH, HEIGHT, noise_numbers(),
+        scene, static, camera(), s, width, height, noise_numbers(),
         pipeline.KERNELS if kernels is None else kernels)
 
 
-def capture_inputs(scene, static, s):
-    """Render one frame and return each kernel's arguments, keyed by the
-    pipeline.FrameKernels field that took them."""
+def capture_inputs(scene, static, s, width=WIDTH, height=HEIGHT):
+    """Render one frame (the bench frame's camera, at width x height) and
+    return each kernel's arguments, keyed by the pipeline.FrameKernels
+    field that took them."""
     from vulkan_renderer_tpu_torch.render import pipeline
     captured = {}
 
@@ -201,7 +204,7 @@ def capture_inputs(scene, static, s):
 
     render(scene, static, s, pipeline.FrameKernels(*(
         recorder(f.name, getattr(pipeline.KERNELS, f.name))
-        for f in dataclasses.fields(pipeline.FrameKernels))))
+        for f in dataclasses.fields(pipeline.FrameKernels))), width, height)
     return captured
 
 
@@ -249,6 +252,23 @@ def kernel_ms(torch, captured):
         "K4": cuda_ms(torch, lambda: k.fused_shading(
             *captured["fused_shading"]), 5),
     }
+
+
+def test_counts(torch, captured):
+    """K1's and K2's BVH child-box, sub-box and triangle tests over the
+    frame's rays, from their counting builds (-DVR_COUNT_TESTS=1), and
+    their live rays (t_max >= 0)."""
+    from vulkan_renderer_tpu_torch.render import trace_kernel as tk
+    out = {}
+    for name, fn, field in (("K1", tk.trace_anyhit, "trace_anyhit"),
+                            ("K2", tk.trace_closest, "trace_closest")):
+        args = captured[field]
+        counts = torch.zeros(3, dtype=torch.int64, device=args[2].device)
+        fn(*args, test_counts=counts)
+        out[name] = dict(zip(("boxes", "subboxes", "triangles"),
+                             counts.tolist()),
+                         rays=int((args[3] >= 0).sum()))
+    return out
 
 
 def sweep_jobs(techniques):
@@ -364,6 +384,9 @@ def main(argv=None) -> int:
     parser.add_argument("--sweep", action="store_true",
                         help="also time PSA and Arvo PSA in both sweep "
                         "cells")
+    parser.add_argument("--count-tests", action="store_true",
+                        help="also count K1's and K2's box, sub-box and "
+                        "triangle tests on the bench frame")
     parser.add_argument("--sweep-techniques", default=None,
                         help="with --sweep: 'all', or comma-separated "
                         "PolygonSamplingTechnique names (default: "
@@ -380,7 +403,9 @@ def main(argv=None) -> int:
 
     card = card_name()
     s = settings()
-    wall = build.build_many(kernel_jobs(s))
+    counting = [(name, {"VR_COUNT_TESTS": 1})
+                for name in ("anyhit", "closest")] if args.count_tests else []
+    wall = build.build_many(kernel_jobs(s) + counting)
     data_dir = os.path.abspath(args.data or os.path.join(root, "data"))
     scene, static = load_city(data_dir, torch.device("cuda"))
     captured = capture_inputs(scene, static, s)
@@ -393,6 +418,8 @@ def main(argv=None) -> int:
                       for n, v in kernel_ms(torch, captured).items()},
         "k4_hit_share": round(float(
             hit_mask(captured["fused_shading"][0]).mean()), 6)}
+    if args.count_tests:
+        line["tests"] = test_counts(torch, captured)
     del scene, captured
     torch.cuda.empty_cache()
     line["frame_window_ms"] = round(window_ms(

@@ -234,11 +234,10 @@ def thin_edge_scene(seed: int = 3) -> np.ndarray:
     return np.ascontiguousarray(runs[order].reshape(-1, 3, 3), np.float32)
 
 
-def thin_edge_rays(count: int, seed: int = 4):
-    """(origins, dirs, t_max) float32 CPU tensors: `count` rays from EYE,
-    a third aimed at points of the edge-on triangles, a third along the
-    slivers' long axes and a third along the flat slivers'
-    (thin_edge_parts); t_max is inf."""
+def thin_edge_points(count: int, seed: int = 4) -> np.ndarray:
+    """(count, 3) float64 points: a third in the edge-on triangles, a
+    third on the slivers' long edges and a third on the flat slivers'
+    (thin_edge_parts)."""
     groups = [a.astype(np.float64) for a in thin_edge_parts()]
     rng = np.random.default_rng(seed)
     points = []
@@ -253,7 +252,13 @@ def thin_edge_rays(count: int, seed: int = 4):
             w[:, 1] = 0.0
         points.append(pick[:, 0] + w[:, :1] * (pick[:, 1] - pick[:, 0])
                       + w[:, 1:] * (pick[:, 2] - pick[:, 0]))
-    dirs = np.concatenate(points) - np.array(EYE, np.float64)
+    return np.concatenate(points)
+
+
+def thin_edge_rays(count: int, seed: int = 4):
+    """(origins, dirs, t_max) float32 CPU tensors: `count` rays from EYE
+    aimed at thin_edge_points; t_max is inf."""
+    dirs = thin_edge_points(count, seed) - np.array(EYE, np.float64)
     dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
     origins = np.broadcast_to(np.array(EYE, np.float32), dirs.shape)
     return (torch.from_numpy(np.ascontiguousarray(origins)),
