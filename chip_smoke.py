@@ -55,12 +55,17 @@ It
    reset before and read after (K1, K2 and K3 must run, K4 and K5 must
    not), holds it against the kernel frame with shadows on (K4) and off
    (K5) at the CPU parity tests' frame tolerance (mean |sRGB difference|
-   <= 1e-3, >= 99% of pixels within 1e-2), and times both paths;
+   <= 1e-3, >= 99% of pixels within 1e-2), and times both paths; the
+   per-pixel path computes the JAX per-pixel formulation (ops/sampling*.py)
+   and K4/K5 the structure-of-arrays one (ops/soa*.py), so the check holds
+   two formulations against each other; one per-pixel frame is profiled
+   (tools/profile_frame.py: device launches, busy ms, peak memory);
 10. runs the nine experiments that only the per-pixel path renders (error
    displays 6-8, the IES light 46, GGX MIS 315, the linear lights 324-327)
    through the harness at their full sizes (1 warm-up and 2 measured
    frames), counters reset before and read after, and prints each one's
-   ms/frame, peak device memory and share of NaN/Inf (pink) pixels;
+   ms/frame, peak device memory and share of NaN/Inf (pink) pixels, and
+   the device launches and busy ms of one more frame under the profiler;
 11. renders one configuration of each per-pixel class (tools/
    per_pixel_check.py: separately, random, GGX MIS, an error display,
    IES, a textured area light, a linear light) at 64x32 on the card and
@@ -169,6 +174,10 @@ SWEEP_SUBSET = 4096
 # The techniques whose K5 operations are counted over the whole sweep
 # frame (the PSA row of the kernels line, and the slowest technique).
 COUNTED_TECHNIQUES = ("PROJECTED_SOLID_ANGLE", "PROJECTED_SOLID_ANGLE_ARVO")
+# What phases 9-10 log of one profiled per-pixel frame
+# (tools/profile_frame.py summarize).
+PROFILE_KEYS = ("host_ms_per_frame", "device_busy_ms_per_frame",
+                "busy_share", "device_events_per_frame")
 # The central 4-gon 128-light PSA sweep experiment (K5), phases 12-14.
 PSA_SWEEP_EXPERIMENT = 113
 BANDS = 4
@@ -650,7 +659,9 @@ def run():
         SamplingStrategy)
     from vulkan_renderer_tpu_torch.render.shading import SceneStatic
     from vulkan_renderer_tpu_torch.tools import bench_frame as bench
-    from vulkan_renderer_tpu_torch.tools import kernel_check, per_pixel_check
+    from vulkan_renderer_tpu_torch.tools import (kernel_check,
+                                                 per_pixel_check,
+                                                 profile_frame)
 
     WIDTH, HEIGHT = bench.WIDTH, bench.HEIGHT
     SWEEP_WIDTH, SWEEP_HEIGHT = bench.SWEEP_WIDTH, bench.SWEEP_HEIGHT
@@ -1204,10 +1215,19 @@ def run():
     for label, ms in path_ms.items():
         log(f"bench frame ms, {label}: median {ms:.3f} ({bench.FRAMES} "
             f"frames after {bench.WARMUP} warm-up) [{card}]")
+    # One profiled per-pixel frame: its device launches and peak memory.
+    pp_profile, pp_peak = profile_frame.profile_frames(
+        torch, lambda: bench.render(scene, pp_static, settings), 1, 1)
+    check(pp_profile is not None, "the profiler saw no per-pixel launch")
+    pp_profile = {k: pp_profile[k] for k in PROFILE_KEYS}
+    log(f"per-pixel bench frame, profiled: {pp_profile}, peak device "
+        f"memory {pp_peak:.3f} GiB [{card}]")
     print(json.dumps({"bench_frame_ms": {k: round(v, 4)
                                          for k, v in path_ms.items()},
-                      "per_pixel_launches": pp_launches, "card": card}),
-          flush=True)
+                      "per_pixel_launches": pp_launches,
+                      "per_pixel_profile": pp_profile,
+                      "per_pixel_peak_gib": round(pp_peak, 3),
+                      "card": card}), flush=True)
     del pp_image, pp_image_k5, k5_image
     torch.cuda.empty_cache()
 
@@ -1231,15 +1251,23 @@ def run():
               f"experiment {index} frame is not finite")
         check(float(frame.mean()) > 0.0, f"experiment {index} is black")
         pink_share = float((frame == pink).all(dim=-1).float().mean())
+        del frame
+        # One more frame of a fresh Application under the profiler.
+        profiled, _ = profile_frame.profile_frames(
+            torch, build_app(exp).render_frame_sync, 1, 1)
+        last.pop("image")
+        check(profiled is not None,
+              f"the profiler saw no launch of experiment {index}")
+        profiled = {k: profiled[k] for k in PROFILE_KEYS}
         experiment_rows[index] = dict(
             ms=round(result.frame_time_ms, 3), peak_gib=round(peak, 3),
-            pink_share=pink_share, width=exp.width, height=exp.height)
+            pink_share=pink_share, width=exp.width, height=exp.height,
+            **profiled)
         log(f"experiment {index:03d} {exp.width}x{exp.height}: "
             f"{result.frame_time_ms:.3f} ms/frame (1 warm-up, 2 measured), "
             f"peak device memory {peak:.3f} GiB, NaN/Inf (pink) pixels "
-            f"{pink_share:.6f} [{card}]")
+            f"{pink_share:.6f}, one profiled frame {profiled} [{card}]")
         check(peak < 40.0, f"experiment {index} took {peak:.1f} GiB")
-        del frame
         torch.cuda.empty_cache()
     exp_launches = {name: fn.launches for name, fn in counters.items()}
     log(f"per-pixel experiments launches: {exp_launches}")

@@ -7,12 +7,13 @@ numpy polygons in shading space (some below or across the horizon),
 directions and UNORM16-quantized random numbers, handed to both packages.
 
 Tolerances, stated per check: float32 results agree within a few 1e-6
-relative where the two formulations differ only in rounding (the port
-runs the structure-of-arrays arithmetic of K4's plain version: rsqrt
-normalization, one-hot lane selection; XLA contracts multiply-adds into
-FMAs). Samples agree for >= 99% of random numbers (a sample at a sector
-or fan boundary may land in the neighbour), Arvo's PSA samples for >= 98%
-(its sector choice flips between formulations, ROADMAP Queue 3). The
+relative where the two packages differ only in rounding (the port writes
+the JAX per-pixel formulas, batched with gathers where the JAX package
+selects lanes one-hot; XLA contracts multiply-adds into FMAs and its
+rsqrt, cos, sin and atan2 round apart from torch's). Samples agree for
+>= 99% of random numbers (a sample at a sector or fan boundary may land
+in the neighbour), Arvo's PSA samples for >= 98% (its sector choice
+flips with the rounding, test_torch_arvo_psa_gap.py). The
 error estimates of the iterative PSA inversion are rounding residuals of
 the sampled area at the sampler's own samples: there they agree in size
 (within 2^-14 of the projected solid angle), and the forward error's
@@ -20,7 +21,7 @@ factor, the norm of the inversion's derivative, agrees by value (1e-3
 relative for >= 99%). Handed one set of directions rotated off the samples,
 so that the residual is a few percent of the projected solid angle, every
 error component agrees by value: PSA within 1e-4 relative, Arvo's PSA for
->= 99% within 5e-3 (its azimuths come from another atan2 formula)."""
+>= 99% within 5e-3 (its azimuths' atan2 rounds apart)."""
 
 import functools
 
@@ -124,8 +125,8 @@ def test_cubic_matches_reference():
     roots, three = cubic.solve_cubic(t(coeffs))
     np.testing.assert_array_equal(three.numpy(), np.asarray(want_three))
     assert 0.2 < three.float().mean() < 0.8
-    # atan2/cos/sin and the cube root are other float32 formulas (Cephes
-    # atan, exp(log / 3)): 1e-4 relative to the roots' scale.
+    # atan2/cos/sin round apart and the cube root is another float32
+    # formula (|x|^(1/3)): 1e-4 relative to the roots' scale.
     scale = np.abs(np.asarray(want_roots)).max(axis=-1, keepdims=True)
     assert np.all(np.abs(roots.numpy() - np.asarray(want_roots))
                   <= 1e-4 * np.maximum(scale, 1.0))
@@ -237,10 +238,11 @@ def test_sampling_matches_reference(n):
         psa = sampling.prepare_projected_solid_angle_polygon_sampling(
             t(clipped[:, :n + 1]), t(count), biased)
         want_psa = np.asarray(jpsa.projected_solid_angle)
-        np.testing.assert_allclose(psa.psa.numpy()[live], want_psa[live],
-                                   rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(
+            psa.projected_solid_angle.numpy()[live], want_psa[live],
+            rtol=1e-5, atol=1e-7)
         np.testing.assert_array_equal(
-            psa.central.numpy()[live],
+            sampling.is_central_case(psa).numpy()[live],
             (np.asarray(jpsa.inner_ellipse_0)[:, 0] > 0.0)[live])
         jdir = jax.vmap(lambda q, r: j_sampling
                         .sample_projected_solid_angle_polygon(
@@ -256,7 +258,7 @@ def test_sampling_matches_reference(n):
                 jpsa, rnd, jdir))
         err = sampling.compute_projected_solid_angle_polygon_sampling_error(
             psa, t(rnd), dirs).numpy()
-        central = psa.central.numpy()
+        central = sampling.is_central_case(psa).numpy()
         assert np.all(err[central] == 0.0)
         assert np.all(jerr[central & live] == 0.0)
         # Backward errors: rounding residuals of the sampled area; the
@@ -361,10 +363,9 @@ def test_arvo_psa_matches_reference(n):
     poly = arvo.prepare_projected_solid_angle_polygon_sampling_arvo(
         t(clipped[:, :n + 1]), t(count))
     want_psa = np.asarray(jpoly.projected_solid_angle)
-    # The azimuths come from another atan2 formula (the port's Cephes
-    # atan2_soa, XLA's arctan2): 98% within 1e-4.
-    assert close_share(poly.psa.numpy()[live], want_psa[live], 1e-4,
-                       1e-7) >= 0.98
+    # The azimuths' atan2 rounds apart (torch's, XLA's): 98% within 1e-4.
+    assert close_share(poly.projected_solid_angle.numpy()[live],
+                       want_psa[live], 1e-4, 1e-7) >= 0.98
     jd = jax.vmap(functools.partial(
         j_arvo.sample_projected_solid_angle_polygon_arvo,
         iteration_count=3))(jpoly, rnd)
@@ -376,7 +377,7 @@ def test_arvo_psa_matches_reference(n):
             jpoly, rnd, jd))
     err = arvo.compute_projected_solid_angle_polygon_sampling_error_arvo(
         poly, t(rnd), d).numpy()
-    central = poly.central.numpy()
+    central = arvo.is_central_case_arvo(poly).numpy()
     assert np.all(err[central] == 0.0)
     dec = live & ~central
     assert dec.sum() > 50
@@ -387,11 +388,12 @@ def test_arvo_psa_matches_reference(n):
         assert finite.mean() / dec.mean() >= 0.98
         assert np.quantile(np.abs(e[finite, 1]) / want_psa[finite],
                            0.95) <= 1e-3
-    np.testing.assert_allclose(err[dec, 0] * poly.psa.numpy()[dec],
-                               err[dec, 1], rtol=1e-5, atol=1e-12)
+    np.testing.assert_allclose(
+        err[dec, 0] * poly.projected_solid_angle.numpy()[dec], err[dec, 1],
+        rtol=1e-5, atol=1e-12)
     # Off the samples (rotated by 0.03 rad: residuals ~5% of the PSA),
     # both components agree by value: >= 99% within 5e-3 relative, all
-    # within 5e-2 (the azimuths' atan2 formulas differ by ~1e-4 of the
+    # within 5e-2 (the azimuths' atan2 roundings differ by ~1e-4 of the
     # PSA).
     off = rotated(np.asarray(jd), 0.03)
     jerr = np.asarray(jax.vmap(

@@ -7,6 +7,18 @@ helpers reproduce the JAX package's float32 formulas operation by
 operation (the Cephes atan, the biased-PSA polynomial atan and the
 Veltkamp two_product), so the plain versions and the CUDA kernels can be
 held against the reference with tight tolerances.
+
+The lane helpers (cumsum_lanes, first_true_lane, pick_lane) are the JAX
+package's, on a leading pixel axis P: a lane axis is dim 1 of a (P, m,
+...) tensor. The float helpers take their type from their inputs:
+
+- atan is the Cephes polynomial at float32 (the JAX package's atan_f32,
+  which exists there because jnp.arctan has no Mosaic lowering; every
+  float32 path of both packages evaluates it) and torch.atan at any wider
+  type, whose rounding the float32 coefficients would otherwise set;
+- two_product splits at 2^12 + 1 in float32 and 2^27 + 1 in float64
+  (Veltkamp's split at half the significand, so p + e == a*b stays
+  exact in both).
 """
 
 from __future__ import annotations
@@ -128,16 +140,20 @@ def normalize(v: torch.Tensor) -> torch.Tensor:
     return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
 
 
-_SPLIT = 4097.0  # 2**12 + 1 for float32 Veltkamp splitting
+# Veltkamp's split constant, 2^ceil(significand bits / 2) + 1.
+_SPLIT = {torch.float32: 4097.0, torch.float64: 134217729.0}
 
 
 def two_product(a: torch.Tensor, b: torch.Tensor):
-    """(p, e) with p = fl(a*b) and p + e == a*b exactly (float32)."""
+    """(p, e) with p = fl(a*b) and p + e == a*b exactly, in float32 or
+    float64, wherever the split's products neither overflow nor lose
+    bits below the smallest normal."""
+    split = _SPLIT[a.dtype]
     p = a * b
-    a_hi = a * _SPLIT
+    a_hi = a * split
     a_hi = a_hi - (a_hi - a)
     a_lo = a - a_hi
-    b_hi = b * _SPLIT
+    b_hi = b * split
     b_hi = b_hi - (b_hi - b)
     b_lo = b - b_hi
     e = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo
@@ -179,3 +195,106 @@ def fast_positive_atan(y: torch.Tensor) -> torch.Tensor:
     rz = torch.where(ay > 1.0, rz, torch.zeros_like(rz))
     rx = rx * ry + rz
     return torch.where(y < 0.0, M_PI - rx, rx)
+
+
+def atan(x: torch.Tensor) -> torch.Tensor:
+    """arctan at the input's precision: atan_f32 for float32 (the JAX
+    package's formula), torch.atan for wider types."""
+    return atan_f32(x) if x.dtype == torch.float32 else torch.atan(x)
+
+
+def constant_like(value: float, like: torch.Tensor):
+    """value for torch.where beside `like`: the Python float at float32
+    (where two Python floats give a float32 tensor), a tensor of like's
+    type otherwise, so that a float64 run adds pi, not float32(pi)."""
+    if like.dtype == torch.float32:
+        return value
+    return torch.full_like(like, value)
+
+
+def positive_atan(tangent: torch.Tensor) -> torch.Tensor:
+    """atan offset into [0, pi]: the angle whose tangent is `tangent`."""
+    return atan(tangent) + torch.where(tangent < 0.0,
+                                       constant_like(M_PI, tangent), 0.0)
+
+
+def kahan(a, b, c, d):
+    """a*b - c*d with ~1.5 ulp error (polygon_sampling.glsl:261-268),
+    through the error-free two_product."""
+    p1, e1 = two_product(a, b)
+    p2, e2 = two_product(c, d)
+    return (p1 - p2) + (e1 - e2)
+
+
+def cross_stable(lhs, rhs):
+    """Cross product over the last axis with per-entry <= 1.5 ulp error
+    (polygon_sampling.glsl:273-279)."""
+    return torch.stack([
+        kahan(lhs[..., 1], rhs[..., 2], lhs[..., 2], rhs[..., 1]),
+        kahan(lhs[..., 2], rhs[..., 0], lhs[..., 0], rhs[..., 2]),
+        kahan(lhs[..., 0], rhs[..., 1], lhs[..., 1], rhs[..., 0])], dim=-1)
+
+
+def mix_fma(x, y, a):
+    """Stable lerp (polygon_sampling.glsl:183-185)."""
+    return a * y + (x - a * x)
+
+
+def dot2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis of size 2."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+
+
+def rotate_90(v: torch.Tensor) -> torch.Tensor:
+    return torch.stack([-v[..., 1], v[..., 0]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Lane helpers: (P, m, ...) tensors, lanes on dim 1
+# ---------------------------------------------------------------------------
+
+
+def cumsum_lanes(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over dim 1 by log2(m) shift-adds, the JAX
+    package's cumsum_lanes (its order of additions)."""
+    m = x.shape[1]
+    offset = 1
+    while offset < m:
+        shifted = torch.cat([torch.zeros_like(x[:, :offset]),
+                             x[:, :m - offset]], dim=1)
+        x = x + shifted
+        offset *= 2
+    return x
+
+
+def first_true_lane(mask: torch.Tensor, fallback: torch.Tensor):
+    """Index (P,) of the first True lane of mask (P, m), else fallback."""
+    m = mask.shape[1]
+    lanes = torch.arange(m, device=mask.device, dtype=torch.int32)
+    idx = torch.min(torch.where(mask, lanes, m), dim=1).values
+    return torch.where(idx < m, idx, fallback.to(torch.int32))
+
+
+def pick_lane(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """arr (P, m, ...) at lane idx (P,): (P, ...), zeros (False) where
+    idx is outside [0, m), as the JAX package's one-hot pick_lane."""
+    m = arr.shape[1]
+    inside = (idx >= 0) & (idx < m)
+    safe = torch.clamp(idx, 0, m - 1).long()
+    tail = arr.shape[2:]
+    index = safe.view((-1, 1) + (1,) * len(tail)).expand(
+        (arr.shape[0], 1) + tail)
+    got = torch.gather(arr, 1, index).squeeze(1)
+    inside = inside.view((-1,) + (1,) * len(tail))
+    if arr.dtype == torch.bool:
+        return got & inside
+    return torch.where(inside, got, 0)
+
+
+def gather_lanes(arr: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """arr (P, m, ...) permuted along dim 1 by order (P, m) int, plus 0:
+    the JAX package's one-hot masked sums, which turn -0.0 into +0.0."""
+    tail = arr.shape[2:]
+    index = order.long().view(order.shape + (1,) * len(tail)).expand(
+        order.shape + tail)
+    return torch.gather(arr, 1, index) + 0.0

@@ -12,7 +12,9 @@ operation by operation:
 The CUDA kernel runs the same operations in the same order on scalars
 (one thread per pixel), so the two agree to rounding on the card. The
 atan here is the Cephes polynomial of the JAX package (math_utils.atan_f32),
-not torch.atan, so the port and the reference share one formula.
+not torch.atan, so the port and the reference share one formula. Run on
+float64 planes (a test's float64 evaluation, never the frame), the
+functions take math_utils.atan's torch.atan instead.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .math_utils import (M_HALF_PI, M_PI, atan_f32, fast_positive_atan,
+from .math_utils import (M_HALF_PI, M_PI, atan, constant_like,
+                         fast_positive_atan, mix_fma, positive_atan,
                          two_product)
 
 # 0.5 - acceptable error, rounded in float32 as the reference computes it.
@@ -87,28 +90,26 @@ def rot90(v):
     return (-v[1], v[0])
 
 
-def mix_fma(x, y, a):
-    return a * y + (x - a * x)
-
-
 def positive_atan_soa(t, biased: bool):
     if biased:
         return fast_positive_atan(t)
-    return atan_f32(t) + torch.where(t < 0.0, M_PI, 0.0)
+    return positive_atan(t)
 
 
 def atan2_soa(y, x):
     """arctan2 built on the Cephes atan, as the JAX package's atan2_soa:
     every azimuth of the port comes through one formula."""
-    base = atan_f32(y / torch.where(x != 0.0, x, 1.0))
+    base = atan(y / torch.where(x != 0.0, x, 1.0))
+    pi = constant_like(M_PI, base)
+    half_pi = constant_like(M_HALF_PI, base)
     # x < 0: shift by +/- pi toward y's sign (atan2(+-0, -1) = +-pi).
     neg_y = (y < 0.0) | (torch.signbit(y) & (y == 0.0))
-    shifted = base + torch.where(neg_y, -M_PI, M_PI)
+    shifted = base + torch.where(neg_y, -pi, pi)
     res = torch.where(x > 0.0, base, shifted)
     on_axis = torch.where(
         y == 0.0,
-        torch.where(x >= 0.0, 0.0, torch.where(neg_y, -M_PI, M_PI)),
-        torch.where(y > 0.0, M_HALF_PI, -M_HALF_PI))
+        torch.where(x >= 0.0, 0.0, torch.where(neg_y, -pi, pi)),
+        torch.where(y > 0.0, half_pi, -half_pi))
     return torch.where(x == 0.0,
                        torch.where(y == 0.0, torch.zeros_like(base),
                                    on_axis),

@@ -32,13 +32,13 @@ from ..core.settings import (ErrorDisplay, MisHeuristic,
 from ..ops import sampling
 from ..ops import sampling_arvo_psa as arvo_psa
 from ..ops import sampling_related
-from ..ops import soa_techniques as st
 from ..ops.brdf import (evaluate_brdf, ggx_reflected_direction_density,
                         sample_ggx_reflected_direction)
 from ..ops.clipping import clip_polygon
 from ..ops.intersect import polygonal_light_ray_intersection
 from ..ops.ltc import evaluate_ltc_density
-from ..ops.math_utils import M_PI, dot, normalize
+from ..ops.math_utils import (M_PI, dot, first_true_lane, normalize,
+                              pick_lane)
 from ..ops.mis import MisHeuristic as OpsMis
 from ..ops.mis import mis_estimate, mis_weight_over_density
 from .texture import sample_texture_grad, sample_texture_lod0
@@ -292,6 +292,8 @@ def radiance_brdf_deferred(scene, light_index: int, texturing: int,
 # ---------------------------------------------------------------------------
 
 _HEURISTICS = {h: OpsMis(h.value) for h in MisHeuristic}
+# Arvo's PSA drops samples this close to the horizon (a float32 value).
+_HORIZON_Z = float(np.float32(1e-5))
 Tech = PolygonSamplingTechnique
 _DIFFUSE_ERRORS = {ErrorDisplay.DIFFUSE_BACKWARD: 0,
                    ErrorDisplay.DIFFUSE_BACKWARD_SCALED: 1,
@@ -336,18 +338,34 @@ def _flip_row_1(matrix, flip):
                       matrix[:, 2:3]], dim=1)
 
 
-def _sample_area_polygon_turk(lights, light_index: int, vertex_count: int,
+def _sample_area_polygon_turk(vertex_count: int, verts_world, fan_areas,
                               random_numbers):
     """Uniform area sampling over the light's triangle fan
-    (polygon_sampling_related_work.glsl:38-64): a world position (P, 3)."""
-    verts = lights.vertices_world_space[light_index]
-    fan = lights.fan_areas[light_index]
-    pos = st.sample_area_turk_soa(
-        [tuple(verts[k, c] for c in range(3)) for k in range(vertex_count)],
-        [fan[k, 0] for k in range(fan.shape[0])],
-        [fan[k, 1] for k in range(fan.shape[0])], vertex_count,
-        random_numbers[:, 0], random_numbers[:, 1])
-    return torch.stack(pos, dim=-1)
+    (polygon_sampling_related_work.glsl:38-64; the JAX package's
+    _sample_area_polygon_turk): a world position (P, 3). verts_world:
+    (MAXL, 3), the first vertex repeated past vertex_count; fan_areas:
+    (MAXL - 2, 2) (area, cumulative area) per fan triangle."""
+    p = random_numbers.shape[0]
+    tri_count = fan_areas.shape[0]
+    target = fan_areas[tri_count - 1, 1] * random_numbers[:, 0]
+    tri = torch.arange(tri_count, device=target.device)
+    valid = (tri + 3 <= max(vertex_count, 3))[None]
+    reached = (fan_areas[None, :, 1] >= target[:, None]) & valid
+    sel = first_true_lane(reached, torch.full_like(
+        target, max(vertex_count - 3, 0), dtype=torch.int32))
+    fans = fan_areas[None].expand(p, -1, -1)
+    verts = verts_world[None].expand(p, -1, -1)
+    sub_area = target - pick_lane(fans[..., 1], sel - 1)  # 0 at sel 0
+    tri_area = pick_lane(fans[..., 0], sel)
+    v0 = pick_lane(verts, sel + 1)
+    v2 = pick_lane(verts, sel + 2)
+    r0 = sub_area / torch.where(tri_area != 0.0, tri_area, 1.0)
+    sqrt_r0 = torch.sqrt(torch.clamp(r0, min=0.0))
+    r1 = random_numbers[:, 1]
+    b0 = (1.0 - sqrt_r0)[:, None]
+    b1 = (sqrt_r0 * r1)[:, None]
+    b2 = (-sqrt_r0 * r1 + sqrt_r0)[:, None]
+    return b0 * v0 + b1 * verts_world[0] + b2 * v2
 
 
 def evaluate_polygonal_light_shading(scene, static: SceneStatic,
@@ -460,8 +478,9 @@ def evaluate_polygonal_light_shading(scene, static: SceneStatic,
         plane = lights.plane[light_index]
 
         def one_sample(rnd):
-            light_sample = _sample_area_polygon_turk(lights, light_index, nv,
-                                                     rnd)
+            light_sample = _sample_area_polygon_turk(
+                nv, lights.vertices_world_space[light_index],
+                lights.fan_areas[light_index], rnd)
             offset = light_sample - data.position
             dist_sq = dot(offset, offset)
             d = offset / torch.sqrt(dist_sq)[:, None]
@@ -611,7 +630,7 @@ def _psa_light_shading(scene, static, settings, light_index, data, ltc,
         # Settings legality: Arvo PSA takes DIFFUSE_ONLY or GGX MIS.
         poly = arvo_psa.prepare_projected_solid_angle_polygon_sampling_arvo(
             clipped, clip_count)
-        psa_d = poly.psa
+        psa_d = poly.projected_solid_angle
         diffuse_ok = diffuse_ok & (psa_d > 0.0)
         if error_display in (ErrorDisplay.DIFFUSE_BACKWARD,
                              ErrorDisplay.DIFFUSE_BACKWARD_SCALED):
@@ -632,12 +651,12 @@ def _psa_light_shading(scene, static, settings, light_index, data, ltc,
             # the lambert/z cancellation breaks down in float32 and
             # fireflies explode, so tiny-z samples are dropped (the
             # unstable baseline the paper compares against).
-            good = diffuse_ok & (d_shading[:, 2] > 1e-5)
+            good = diffuse_ok & (d_shading[:, 2] > _HORIZON_Z)
             return gated(light_splat(d, d_shading[:, 2] * rcp_psa), good)
     else:
         poly_d = sampling.prepare_projected_solid_angle_polygon_sampling(
             clipped, clip_count, biased)
-        psa_d = poly_d.psa
+        psa_d = poly_d.projected_solid_angle
         diffuse_ok = diffuse_ok & (psa_d > 0.0)
         rcp_psa_d = 1.0 / torch.where(psa_d > 0.0, psa_d, 1.0)
 
@@ -670,7 +689,8 @@ def _psa_light_shading(scene, static, settings, light_index, data, ltc,
             _transform_to_local(w2c, verts_world), nv)
         poly_s = sampling.prepare_projected_solid_angle_polygon_sampling(
             clipped_c, clip_count_c, biased)
-        psa_s = torch.where(clip_count_c > 0, poly_s.psa, 0.0)
+        psa_s = torch.where(clip_count_c > 0, poly_s.projected_solid_angle,
+                            0.0)
         specular_ok = psa_s > 0.0
         specular_albedo = ltc.albedo
         specular_weight = specular_albedo * psa_s

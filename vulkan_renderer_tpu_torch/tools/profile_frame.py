@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Profile the bench frame (as tools/bench_frame.py defines it), or one
-harness experiment's frame, on one GPU with torch.profiler:
+"""Profile the bench frame (as tools/bench_frame.py defines it), or the
+frames of harness experiments, on one GPU with torch.profiler:
 
     python3 vulkan_renderer_tpu_torch/tools/profile_frame.py [--data DIR]
-        [--fused off] [--experiment INDEX] [--pixel-chunks N [N ...]]
+        [--root TREE] [--fused off] [--experiment INDEX [INDEX ...]]
+        [--pixel-chunks N [N ...]]
 
 (--fused off: the bench frame on the per-pixel shading path.
---experiment: that experiment's frames through its Application, as the
-harness builds it from the assets or stand-ins in --data. --pixel-chunks:
-profile once per chunk size of the per-pixel path,
-render/pipeline.py::PIXEL_CHUNK, which changes no result.)
+--experiment: each experiment's frames through its Application, as the
+harness builds it from the assets or stand-ins in --data, one line each.
+--pixel-chunks: profile once per chunk size of the per-pixel path,
+render/pipeline.py::PIXEL_CHUNK, which changes no result. --root: profile
+the port of another checkout, e.g. a parent commit unpacked with git
+archive, so that two trees are timed in one call.)
 
 After bench_frame.WARMUP warm-up frames it profiles PROFILED frames
 back to back, then prints one JSON line: the card (nvidia-smi name and
@@ -24,6 +27,7 @@ imports no JAX.
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -40,8 +44,9 @@ def port_kernel(name):
     return next((k for n, k in PORT_KERNELS.items() if n in name), None)
 
 
-def summarize(prof, window_ms: float) -> dict | None:
-    """The profile's per-frame numbers, or None without a device event."""
+def summarize(prof, window_ms: float, frames: int = PROFILED) -> dict | None:
+    """The profile's per-frame numbers over `frames` profiled frames, or
+    None without a device event."""
     from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
@@ -63,21 +68,49 @@ def summarize(prof, window_ms: float) -> dict | None:
     port_ms = {k: 0.0 for k in PORT_KERNELS.values()}
     for us, _, name in rows:
         if port_kernel(name):
-            port_ms[port_kernel(name)] += us / 1e3 / PROFILED
-    device_ms = sum(us for us, _, _ in rows) / 1e3 / PROFILED
+            port_ms[port_kernel(name)] += us / 1e3 / frames
+    device_ms = sum(us for us, _, _ in rows) / 1e3 / frames
     return {
-        "host_ms_per_frame": round(window_ms / PROFILED, 4),
-        "device_busy_ms_per_frame": round(busy_us / 1e3 / PROFILED, 4),
+        "host_ms_per_frame": round(window_ms / frames, 4),
+        "device_busy_ms_per_frame": round(busy_us / 1e3 / frames, 4),
         "busy_share": round(busy_us / 1e3 / window_ms, 4),
-        "device_events_per_frame": len(spans) / PROFILED,
+        "device_events_per_frame": len(spans) / frames,
         "device_ms_per_frame": round(device_ms, 4),
         "port_kernels_ms_per_frame": {k: round(v, 4)
                                       for k, v in port_ms.items()},
         "other_device_ms_per_frame": round(
             device_ms - sum(port_ms.values()), 4),
         "top": [{"name": name[:120], "ms_per_frame": round(
-            us / 1e3 / PROFILED, 4), "calls_per_frame": count / PROFILED}
+            us / 1e3 / frames, 4), "calls_per_frame": count / frames}
             for us, count, name in rows[:TOP]]}
+
+
+def profile_frames(torch, frame, warmup: int, frames: int = PROFILED):
+    """frame() `warmup` times, then `frames` times under torch.profiler:
+    (summarize's dictionary or None, peak device GiB of the profiled
+    frames)."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        for _ in range(warmup):
+            frame()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            for _ in range(frames):
+                frame()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - start) * 1e3
+    summary = summarize(prof, window_ms, frames)
+    del prof
+    return summary, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _experiment_frame(setups, exp, data):
+    """The frame function of experiment `exp`'s Application."""
+    return setups.build_default_application(
+        exp, data, device="cuda").render_frame_sync
 
 
 def main(argv=None) -> int:
@@ -89,18 +122,19 @@ def main(argv=None) -> int:
     parser.add_argument("--fused", default="auto", choices=("auto", "off"),
                         help="the bench frame's shading path "
                              "(SceneStatic.fused)")
-    parser.add_argument("--experiment", type=int, default=None,
-                        help="profile this harness experiment instead of "
-                             "the bench frame")
+    parser.add_argument("--experiment", type=int, nargs="+", default=None,
+                        help="profile these harness experiments instead "
+                             "of the bench frame")
+    parser.add_argument("--root", default=root,
+                        help="the checkout whose port is profiled")
     parser.add_argument("--pixel-chunks", type=int, nargs="+", default=None,
                         help="per-pixel chunk sizes to profile in turn")
     args = parser.parse_args(argv)
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("profile_frame: needs a CUDA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, root)
+    sys.path.insert(0, os.path.abspath(args.root))
     from vulkan_renderer_tpu_torch.core.device import get_device
     from vulkan_renderer_tpu_torch.experiments import harness, setups
     from vulkan_renderer_tpu_torch.kernels import build
@@ -114,41 +148,32 @@ def main(argv=None) -> int:
         build.build_many(bench.kernel_jobs(s))
         scene, static = bench.load_city(data, get_device("cuda"))
         static = dataclasses.replace(static, fused=args.fused)
-        label = {"frame": "bench", "fused": args.fused}
 
-        def frame():
+        def bench_frame():
             return bench.render(scene, static, s)
+        jobs = [({"frame": "bench", "fused": args.fused},
+                 lambda: bench_frame)]
     else:
-        exp = harness.create_experiment_list()[args.experiment]
-        app = setups.build_default_application(exp, data, device="cuda")
-        label = {"frame": f"experiment {args.experiment}",
-                 "size": [exp.width, exp.height]}
-        frame = app.render_frame_sync
-    for chunk in args.pixel_chunks or [pipeline.PIXEL_CHUNK]:
-        pipeline.PIXEL_CHUNK = chunk
-        with torch.no_grad():
-            for _ in range(bench.WARMUP):
-                frame()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                start = time.perf_counter()
-                for _ in range(PROFILED):
-                    frame()
-                torch.cuda.synchronize()
-                window_ms = (time.perf_counter() - start) * 1e3
-        summary = summarize(prof, window_ms)
-        if summary is None:
-            print("profile_frame: the profiler recorded no device event",
-                  file=sys.stderr)
-            return 1
-        print(json.dumps({
-            "card": card, "frames": PROFILED, **label, "pixel_chunk": chunk,
-            "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
-            **summary}), flush=True)
-        del prof
-        torch.cuda.empty_cache()
+        experiments = harness.create_experiment_list()
+        jobs = [({"frame": f"experiment {i}",
+                  "size": [experiments[i].width, experiments[i].height]},
+                 functools.partial(_experiment_frame, setups, experiments[i],
+                                   data)) for i in args.experiment]
+    for label, make_frame in jobs:
+        frame = make_frame()
+        for chunk in args.pixel_chunks or [pipeline.PIXEL_CHUNK]:
+            pipeline.PIXEL_CHUNK = chunk
+            summary, peak = profile_frames(torch, frame, bench.WARMUP)
+            if summary is None:
+                print("profile_frame: the profiler recorded no device event",
+                      file=sys.stderr)
+                return 1
+            print(json.dumps({
+                "card": card, "frames": PROFILED, **label,
+                "pixel_chunk": chunk, "peak_gib": round(peak, 3),
+                **summary}), flush=True)
+            torch.cuda.empty_cache()
+        del frame
     return 0
 
 
