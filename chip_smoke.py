@@ -48,8 +48,11 @@ It
 8. runs those 26 timing-sweep experiments through the port's harness
    (3 warm-up and 7 measured frames each; the harness's defaults of
    110/100 stay for real sweeps) with every launch counter reset before
-   and read after: K5 must run, K4 must not; each frame is checked and each
-   cell's median ms printed beside the card;
+   and read after: K5 must run, K4 must not; each frame is checked, and
+   the median of its few stamp deltas is printed beside the window
+   ms/frame of the same Application (tools/bench_frame.py window_ms: 40
+   frames with 3 in flight) and the card; phase 22 measures the frame
+   time at the reference protocol;
 9. renders the bench frame on the per-pixel shading path (SceneStatic
    fused="off": K1-K3 and plain PyTorch shading) with every launch counter
    reset before and read after (K1, K2 and K3 must run, K4 and K5 must
@@ -127,7 +130,23 @@ It
    beside prune_check's edge-on triangles, slivers and flat slivers
    (98,304); 0 mismatches, and 0 rays where the float32 model of K1's
    grown gate parts from the plain version; it prints the rays where a
-   bare slab test of the sub-box (K1's gate before) would part.
+   bare slab test of the sub-box (K1's gate before) would part;
+22. runs the port's bench entry (python -m vulkan_renderer_tpu_torch.bench,
+   its defaults) in its own process and checks its record (bench.py's
+   keys and the card, uncertain=0, overflow=0, exit 0), whose value must
+   lie within 10% of the bench frame's window measured here; drives the
+   entry's pipelined run in this process with every launch counter reset
+   before and read after (K1-K4 must run, K5 must not) and logs the
+   cumulative ms a frame of each stop_after stage (the median of 5
+   rounds, the stages taking turns, of 40 pipelined frames each), beside
+   the median ms the host takes to dispatch one cut frame to an idle card
+   and to see it finished (10 frames a round); holds K2 (primitive and
+   t) and K1 against their plain versions exactly on 65,536 primary and
+   live shadow rays of the bench city built with clusters of 32 and of
+   128 triangles; and measures PSA in each sweep cell (experiments 113 and
+   204) at the reference protocol (110 warm-up frames and >= 1 s, 100
+   measured; tools/sweep_check.py), counters reset before and read after
+   (K5 must run), whose harness median must lie within 5% of its window.
 
 The line before the last is a JSON object listing the kernels, each with
 its launches on the main path, time, plain version's time and bound
@@ -192,6 +211,20 @@ RMSE_SPP, RMSE_REF_SPP = 8, 64
 LTC_CPU_TEXELS, LTC_READ_STEPS = 16, (1, 50, 600)
 LTC_STEP1_ATOL, LTC_STEP1_RTOL = 2e-6, 1e-5
 LTC_LOSS_RTOL = 0.03
+# Phase 22: the bench entry's value against the bench frame's window; the
+# harness median at the reference protocol against the window; the
+# cluster sizes K1 and K2 are held at besides 64, on this many rays; the
+# sweep experiments (PSA in each sweep cell) measured at the protocol;
+# the rounds of stop_after stages, and the frames of each stage timed one
+# at a time in a round.
+ENTRY_WINDOW_RTOL = 0.10
+STAGE_ROUNDS, STAGE_FRAMES = 5, 10
+PROTOCOL_RTOL = 0.05
+CLUSTER_SIZES, CLUSTER_SUBSET = (32, 128), 65536
+PROTOCOL_EXPERIMENTS = (113, 204)
+# bench.py's record (bench.py:270-289) and the card.
+RECORD_KEYS = {"metric", "value", "unit", "vs_baseline", "loadavg",
+               "pipelined_reps_ms", "sync_latency_ms", "card"}
 
 
 class SmokeFailure(RuntimeError):
@@ -626,6 +659,168 @@ def run_gate_phase(device, card):
     check(rows["city_20x3_vertices"]["slab_gate_parts"] > 0,
           "the vertex rays no longer probe the sub-box gate")
     print(json.dumps({"anyhit_gate": rows, "card": card}), flush=True)
+
+
+def run_entry_phase(torch, np, device, data_dir, card, settings, counters):
+    """Phase 22: the measuring entry points: the bench entry, its stages,
+    its cluster sizes, and the harness at the reference protocol."""
+    import subprocess
+
+    from vulkan_renderer_tpu_torch import bench as entry
+    from vulkan_renderer_tpu_torch.experiments import harness
+    from vulkan_renderer_tpu_torch.render import pipeline
+    from vulkan_renderer_tpu_torch.render import trace_kernel as tk
+    from vulkan_renderer_tpu_torch.tools import bench_frame as bench
+    from vulkan_renderer_tpu_torch.tools import sweep_check
+
+    # --- 22a. the bench entry with its defaults, in its own process -------
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vulkan_renderer_tpu_torch.bench", "--data",
+         data_dir], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    entry_s = time.perf_counter() - start
+    check(proc.returncode == 0, f"the bench entry exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    record = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"bench entry record ({entry_s:.1f} s in its own process): "
+        f"{json.dumps(record)}")
+    check(RECORD_KEYS <= set(record) and record["card"] == card
+          and "uncertain=0, overflow=0" in record["metric"]
+          and "exactness_failed" not in record,
+          "the bench entry's record is not bench.py's")
+    window = bench.window_ms(torch, bench.application(data_dir, "cuda"),
+                             bench.WARMUP)
+    torch.cuda.empty_cache()
+    ratio = record["value"] / window
+    log(f"bench entry value {record['value']} ms against the bench frame's "
+        f"window {window:.3f} ms ({bench.WINDOW_FRAMES} frames, 3 in "
+        f"flight): ratio {ratio:.4f} (tolerance: within "
+        f"{ENTRY_WINDOW_RTOL:.0%}) [{card}]")
+    check(abs(ratio - 1.0) <= ENTRY_WINDOW_RTOL,
+          "the bench entry's value parts from the window")
+
+    # --- 22b. the entry's main path counted, and its stages ---------------
+    frame = entry.BenchFrame(entry.parse_args(["--data", data_dir]))
+    frame.sync_latency_ms(1)
+    for fn in counters.values():
+        fn.launches = 0
+    pipelined = frame.pipelined_ms(10, 3124705)
+    entry_launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"bench entry, 10 pipelined frames in this process: {pipelined:.3f} "
+        f"ms/frame, launches {entry_launches} [{card}]")
+    for name in ("K1", "K2", "K3", "K4"):
+        check(entry_launches[name] > 0,
+              f"{name} was not launched by the bench entry")
+    check(entry_launches["K5"] == 0, "the bench entry launched K5")
+    # The stages take turns, STAGE_ROUNDS rounds of each, so that a drift
+    # of the shared host's speed falls on every stage alike.
+    stages = {stage or "whole frame": stage
+              for stage in pipeline.STAGES + (None,)}
+    taken = {name: ([], [], []) for name in stages}
+    for _ in range(STAGE_ROUNDS):
+        for name, stage in stages.items():
+            pipelined_reps, dispatch, sync = taken[name]
+            frame.stop_after = stage
+            sync += frame.sync_latency_ms(STAGE_FRAMES)
+            for _ in range(STAGE_FRAMES):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                frame.render(bench.noise_numbers())
+                dispatch.append((time.perf_counter() - start) * 1e3)
+            torch.cuda.synchronize()
+            pipelined_reps.append(
+                frame.pipelined_ms(bench.WINDOW_FRAMES, 3124705))
+
+    def medians(i):
+        return {name: round(float(np.median(t[i])), 4)
+                for name, t in taken.items()}
+
+    stage_ms, stage_dispatch_ms, stage_sync_ms = medians(0), medians(1), \
+        medians(2)
+    stage_range_ms = {name: [round(min(t[0]), 4), round(max(t[0]), 4)]
+                      for name, t in taken.items()}
+    log(f"bench entry, cumulative ms/frame to the end of each stop_after "
+        f"stage, median of {STAGE_ROUNDS} rounds of {bench.WINDOW_FRAMES} "
+        f"pipelined frames: {stage_ms} (least and most {stage_range_ms}); "
+        f"median host dispatch of one cut frame to an idle card "
+        f"({STAGE_ROUNDS} x {STAGE_FRAMES} frames): {stage_dispatch_ms}; "
+        f"median to its synchronize: {stage_sync_ms} [{card}]")
+    del frame
+    torch.cuda.empty_cache()
+
+    # --- 22c. K1 and K2 at other cluster sizes ----------------------------
+    cluster_rows = {}
+    for size in CLUSTER_SIZES:
+        scene, static = bench.load_city(data_dir, device, cluster_size=size)
+        with torch.no_grad():
+            captured = bench.capture_inputs(scene, static, settings)
+        clusters, origins, dirs, t_max = captured["trace_closest"]
+        idx = subset_indices(torch, CLUSTER_SUBSET, dirs.shape[0], device)
+        _, rays, hits, p_bad, t_bad, dt = compare_closest(torch, tk, (
+            clusters, origins[idx].contiguous(), dirs[idx].contiguous(),
+            t_max[idx].contiguous()))
+        _, s_orig, s_dirs, s_tmax = captured["trace_anyhit"]
+        live = torch.nonzero(s_tmax >= 0.0)[:, 0]
+        sidx = live[subset_indices(torch, CLUSTER_SUBSET, live.numel(),
+                                   device)]
+        ssub = [a[sidx].contiguous() for a in (s_orig, s_dirs, s_tmax)]
+        occ_k = tk.trace_anyhit(clusters, *ssub)
+        occ_p = tk.trace_anyhit_plain(clusters, *ssub)
+        k1_bad = int((occ_k != occ_p).sum())
+        cluster_rows[size] = dict(
+            clusters=clusters.cluster_count, k2_rays=rays, k2_hits=hits,
+            k2_prim_mismatches=p_bad, k2_t_bit_mismatches=t_bad,
+            k1_rays=sidx.numel(), k1_occluded=int(occ_p.sum()),
+            k1_mismatches=k1_bad)
+        log(f"clusters of {size} ({clusters.cluster_count} clusters): K2 vs "
+            f"plain on {rays} primary rays: hits {hits}, primitive "
+            f"mismatches {p_bad}, t bit mismatches {t_bad}; K1 vs plain on "
+            f"{sidx.numel()} live shadow rays: occluded "
+            f"{int(occ_k.sum())}/{int(occ_p.sum())}, mismatches {k1_bad} "
+            f"(tolerance 0)")
+        check(p_bad == 0 and t_bad == 0,
+              f"K2 disagrees with its plain version at cluster size {size}")
+        check(k1_bad == 0,
+              f"K1 disagrees with its plain version at cluster size {size}")
+        del scene, captured, clusters, origins, dirs, t_max, ssub
+        torch.cuda.empty_cache()
+
+    # --- 22d. the harness at the reference protocol -----------------------
+    experiments = harness.create_experiment_list(
+        output_dir=os.path.join(data_dir, "smoke"))
+    csv_path = os.path.join(data_dir, "smoke", "results_protocol.csv")
+    os.makedirs(os.path.dirname(csv_path), exist_ok=True)
+    if os.path.exists(csv_path):
+        os.remove(csv_path)
+    for fn in counters.values():
+        fn.launches = 0
+    protocol_rows = []
+    for index in PROTOCOL_EXPERIMENTS:
+        row = sweep_check.measure(index, experiments[index], csv_path, card,
+                                  data_dir)
+        row.pop("deltas_ms")
+        protocol_rows.append(row)
+        log(f"experiment {index} ({row['cell']} {row['technique']}) at the "
+            f"reference protocol (110 warm-up frames and >= 1 s, 100 "
+            f"measured): harness median {row['harness_ms']} ms, window "
+            f"{row['window_ms']} ms, ratio {row['ratio']} (tolerance: "
+            f"within {PROTOCOL_RTOL:.0%}), stamp deltas {row['stamps_ms']} "
+            f"[{card}]")
+        check(abs(row["ratio"] - 1.0) <= PROTOCOL_RTOL,
+              f"experiment {index}: the harness median parts from the "
+              f"window")
+    protocol_launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"reference-protocol runs' launches: {protocol_launches}")
+    check(protocol_launches["K5"] > 0 and protocol_launches["K4"] == 0,
+          "the reference-protocol sweep runs did not launch K5 alone")
+    print(json.dumps({"bench_entry": record, "bench_entry_window_ms":
+                      round(window, 4), "bench_entry_launches":
+                      entry_launches, "stop_after_ms": stage_ms,
+                      "stop_after_dispatch_ms": stage_dispatch_ms,
+                      "stop_after_sync_ms": stage_sync_ms,
+                      "stop_after_range_ms": stage_range_ms,
+                      "cluster_sizes": cluster_rows,
+                      "protocol": protocol_rows, "card": card}), flush=True)
 
 
 def run():
@@ -1127,6 +1322,7 @@ def run():
 
     def build_app(exp):
         app = setups.build_default_application(exp, data_dir, device="cuda")
+        last["app"] = app
         render_sync = app.render_frame_sync
 
         def keep_frame():
@@ -1160,20 +1356,24 @@ def run():
             mean = float(frame.mean())
             check(1e-4 < mean < 0.95,
                   f"sweep frame {first + t} mean {mean:.4f} is implausible")
-            sweep_ms[(cell, tech.value)] = result.frame_time_ms
-            log(f"sweep {first + t:03d} {cell} {tech.value}: median "
-                f"{result.frame_time_ms:.3f} ms/frame ({SWEEP_WARMUP} "
-                f"warm-up, "
-                f"{SWEEP_MEASURED} measured, pipelined), mean {mean:.4f} "
-                f"[{card}]")
+            window = bench.window_ms(torch, last.pop("app"), SWEEP_WARMUP)
+            last.pop("image")
+            sweep_ms[(cell, tech.value)] = (result.frame_time_ms, window)
+            log(f"sweep {first + t:03d} {cell} {tech.value}: harness median "
+                f"of the stamp deltas of {SWEEP_MEASURED} measured frames "
+                f"after {SWEEP_WARMUP} warm-up {result.frame_time_ms:.3f} ms, "
+                f"window {window:.3f} ms/frame ({bench.WINDOW_FRAMES} frames, "
+                f"3 in flight), mean {mean:.4f} [{card}]")
             torch.cuda.empty_cache()
     sweep_launches = {name: fn.launches for name, fn in counters.items()}
     log(f"timing sweep launches: {sweep_launches}")
     check(sweep_launches["K5"] > 0, "the timing sweep did not launch K5")
     check(sweep_launches["K4"] == 0, "the timing sweep launched K4")
-    print(json.dumps({"sweep_ms": {f"{c}/{t}": round(v, 4)
-                                   for (c, t), v in sweep_ms.items()},
-                      "card": card}), flush=True)
+    print(json.dumps({"sweep_harness_median_ms": {
+        f"{c}/{t}": round(v[0], 4) for (c, t), v in sweep_ms.items()},
+        "sweep_window_ms": {f"{c}/{t}": round(v[1], 4)
+                            for (c, t), v in sweep_ms.items()},
+        "card": card}), flush=True)
 
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1256,6 +1456,7 @@ def run():
         profiled, _ = profile_frame.profile_frames(
             torch, build_app(exp).render_frame_sync, 1, 1)
         last.pop("image")
+        last.pop("app")
         check(profiled is not None,
               f"the profiler saw no launch of experiment {index}")
         profiled = {k: profiled[k] for k in PROFILE_KEYS}
@@ -1300,6 +1501,7 @@ def run():
     run_closing_phases(torch, device, data_dir, card, scene, static,
                        settings)
     run_gate_phase(device, card)
+    run_entry_phase(torch, np, device, data_dir, card, settings, counters)
 
     sources = {
         "K1": ("vulkan_renderer_tpu_torch/csrc/anyhit.cu",

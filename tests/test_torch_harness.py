@@ -317,3 +317,135 @@ def test_generated_stand_in_stays_tagged(tmp_path):
     from vulkan_renderer_tpu_torch.experiments.registry import resolve_scene
     assert resolve_scene("attic", str(tmp_path)).stand_in
     assert resolve_scene("cornell_box", str(tmp_path)).stand_in
+
+
+# --- the timing gate: _timing_cell, _cell_band and main's re-measurement
+# (the JAX harness's, with the card as part of a cell) ----------------------
+
+def test_timing_cell_matches_reference():
+    ours = harness.create_experiment_list()
+    ref = j_harness.create_experiment_list()
+    cells = [harness._timing_cell(e.screenshot_path) for e in ours]
+    assert cells == [j_harness._timing_cell(e.screenshot_path)
+                     for e in ref]
+    assert [i for i, c in enumerate(cells) if c] == list(range(50, 310))
+    assert len(set(c for c in cells if c)) == 20
+
+
+def _sweep_rows(seed, card, count=150):
+    """Seeded CSV rows of timing-sweep experiments measured on `card`:
+    random indices, ms and sizes (the sweep's own or a scaled one)."""
+    rng = np.random.default_rng(seed)
+    experiments = harness.create_experiment_list()
+    rows = []
+    for i in rng.choice(np.arange(50, 310), count, replace=False):
+        e = experiments[int(i)]
+        width, height = (e.width, e.height) if rng.random() < 0.8 \
+            else (960, 540)
+        ms = float(rng.uniform(5.0, 90.0))
+        s = e.settings
+        rows.append([int(i), e.scene, s.polygon_sampling_technique.value,
+                     s.sampling_strategy.value, s.sample_count, width,
+                     height, f"{ms:.3f}", "cuda", card, 1, 0, 0,
+                     e.screenshot_path % ms])
+    return rows
+
+
+def _write_csv(path, rows):
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(harness.CSV_HEADER)
+        writer.writerows(rows)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cell_band_matches_reference(tmp_path, seed):
+    """On a seeded CSV of one card the band equals the JAX package's for
+    every experiment (None for the figures and for cells of fewer than 4
+    rows)."""
+    path = str(tmp_path / "r.csv")
+    _write_csv(path, _sweep_rows(seed, "card A"))
+    ours = harness.create_experiment_list()
+    ref = j_harness.create_experiment_list()
+    bands = [harness._cell_band(path, a, "card A") for a in ours]
+    assert bands == [j_harness._cell_band(path, b) for b in ref]
+    assert sum(b is not None for b in bands) > 100
+
+
+def test_cell_band_leaves_out_other_cards(tmp_path):
+    """Rows of another card are no siblings: the band of card A on a CSV
+    that also holds card B's rows (10x slower) is the JAX band of card
+    A's rows alone, and card B's band is of its own rows."""
+    a_rows = _sweep_rows(2, "card A")
+    b_rows = [row[:7] + [f"{10.0 * float(row[7]):.3f}"] + row[8:9]
+              + ["card B"] + row[10:] for row in _sweep_rows(3, "card B")]
+    both, only_a, only_b = (str(tmp_path / n) for n in ("ab", "a", "b"))
+    _write_csv(both, a_rows + b_rows)
+    _write_csv(only_a, a_rows)
+    _write_csv(only_b, b_rows)
+    ref = j_harness.create_experiment_list()
+    for e, j in zip(harness.create_experiment_list(), ref):
+        assert harness._cell_band(both, e, "card A") == \
+            j_harness._cell_band(only_a, j)
+        assert harness._cell_band(both, e, "card B") == \
+            j_harness._cell_band(only_b, j)
+        assert harness._cell_band(both, e, "card C") is None
+
+
+def _stub_runs(monkeypatch, tmp_path, times):
+    """Replace run_experiments by a stub whose i-th call measures times[i]
+    ms and writes its screenshot; returns the screenshots written."""
+    shots = []
+
+    def run_experiments(experiments, build_application=None, **kwargs):
+        e = experiments[0]
+        ms = times[len(shots)]
+        path = str(tmp_path / "out" / (os.path.basename(
+            e.screenshot_path) % ms))
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(b"frame")
+        shots.append(path)
+        return [harness.ExperimentResult(e, ms, path)]
+
+    monkeypatch.setattr(harness, "run_experiments", run_experiments)
+    return shots
+
+
+@pytest.mark.parametrize("times, written, note", [
+    ((12.0,), 12.0, None),
+    ((35.0, 34.0), 34.0, "reproduced"),
+    ((35.0, 10.5), 10.5, "outlier replaced"),
+    ((3.0, 11.0), 11.0, "outlier replaced")])
+def test_gate_measures_an_outlier_again(monkeypatch, tmp_path, capsys,
+                                        times, written, note):
+    """Four rows of experiment 106's cell on this card at 10 ms: a result
+    within 3x of their median is written as it is; one further off is
+    measured again after its screenshot is removed, and the re-run's
+    result is written, whether it reproduced the first within 1.5x (kept)
+    or not (replaced), as the JAX harness's main does."""
+    csv_path = str(tmp_path / "r.csv")
+    experiments = harness.create_experiment_list()
+    siblings = []
+    for i in (102, 103, 104, 105):
+        e, s = experiments[i], experiments[i].settings
+        siblings.append([i, e.scene, s.polygon_sampling_technique.value,
+                         s.sampling_strategy.value, s.sample_count, 32, 16,
+                         "10.000", "cpu", "cpu", 1, 0, 0,
+                         e.screenshot_path % 10.0])
+    _write_csv(csv_path, siblings)
+    shots = _stub_runs(monkeypatch, tmp_path, times)
+    assert harness.main(["-e", "106", "--device", "cpu", "--width", "32",
+                         "--height", "16", "--results-csv", csv_path]) == 0
+    assert len(shots) == len(times)
+    out = capsys.readouterr().out
+    if note is None:
+        assert "re-measur" not in out
+    else:
+        assert f"({note})" in out
+        assert not os.path.exists(shots[0])
+    assert os.path.exists(shots[-1])
+    with open(csv_path, newline="") as f:
+        rows = {r["index"]: r for r in csv.DictReader(f)}
+    assert float(rows["106"]["frame_ms"]) == written
+    assert rows["106"]["screenshot"] == shots[-1]

@@ -7,7 +7,8 @@ path), a per-pixel frame (DIFFUSE_SPECULAR_SEPARATELY with shadows) and a
 linear-light frame on the CPU, run a timing-sweep experiment through the
 harness, run the modules ported last (the two-frame HDR capture, image-row
 bands, the RMSE table, the report, texture conversion, an LTC fit and the
-viewer's headless orbit) at tiny sizes, and check that sys.modules holds
+viewer's headless orbit) and the bench entry (bench.py's counterpart) at
+tiny sizes, and check that sys.modules holds
 no jax and no module of vulkan_renderer_tpu (data files of the JAX
 package are read by path, not by import)."""
 
@@ -101,6 +102,10 @@ fit_ltc.main(["--output", d + "/fits", "--resolution", "2",
 assert viewer.main(["--orbit", "--device", "cpu", "--width", "8",
                     "--height", "8", "--data-directory", d + "/data",
                     "--output-dir", d + "/orbit"]) == 0
+from vulkan_renderer_tpu_torch import bench
+assert bench.main(["--device", "cpu", "--width", "16", "--height", "8",
+                   "--buildings", "4", "--detail", "2", "--frames", "1",
+                   "--pipelined-reps", "1", "--data", d + "/bench"]) == 0
 print("JAX_IMPORTED", "jax" in sys.modules)
 used = {m for m in sys.modules if m.split(".")[0] == "vulkan_renderer_tpu"}
 print("REFERENCE_MODULES", sorted(used))

@@ -29,13 +29,16 @@ class FrameTimer:
             self._stamps.pop(0)
         self.frame_index += 1
 
+    def deltas(self) -> np.ndarray:
+        """The consecutive frame-to-frame deltas in seconds."""
+        return np.diff(np.asarray(self._stamps, dtype=np.float64))
+
     def median_frame_time(self) -> float:
         """Median of consecutive frame-to-frame deltas (frame_timer.c:47-72);
         returns 0.0 with fewer than 2 samples."""
         if len(self._stamps) < 2:
             return 0.0
-        deltas = np.diff(np.asarray(self._stamps))
-        return float(np.median(deltas))
+        return float(np.median(self.deltas()))
 
     def reset(self) -> None:
         self._stamps.clear()

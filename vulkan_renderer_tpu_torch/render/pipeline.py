@@ -24,6 +24,8 @@ with the Pallas tracers, stage by stage:
    (frame_bits, :587-594 and _postprocess :181-199).
 
 A frame may be one band of image rows (row_offset; parallel/tiles.py).
+stop_after ends a frame after one of STAGES, for timing its stages
+(render_frame_constants says what each cut includes).
 
 Everything between the kernels is plain PyTorch on the scene's device.
 """
@@ -177,22 +179,60 @@ def use_fused(static: SceneStatic, settings: RenderSettings) -> bool:
     return supported
 
 
+# The stages after which stop_after cuts a frame (pipeline.py
+# render_frame_jit), in the order a frame passes them.
+STAGES = ("rays", "trace", "noise", "preamble", "shade", "shadowrays",
+          "shadow")
+
+
 def render_frame_constants(scene, static: SceneStatic,
                            settings: RenderSettings,
                            constants: FrameConstants, width: int,
                            height: int,
                            kernels: FrameKernels = KERNELS,
-                           row_offset: int = 0) -> torch.Tensor:
+                           row_offset: int = 0,
+                           stop_after: str | None = None) -> torch.Tensor:
     """One frame: (height, width, 3) float32 in output color space.
 
     With row_offset, the image is the band of rows row_offset..row_offset
     +height-1 of a frame whose constants were made for its full height:
     rays and noise read global pixel rows, so the bands of a frame
-    concatenate to the whole frame bit for bit (parallel/tiles.py)."""
+    concatenate to the whole frame bit for bit (parallel/tiles.py).
+
+    stop_after, for timing a frame's stages (the JAX package's stage
+    names), ends the frame after that stage and returns _stage_stub of
+    the exit's outputs: the tensors that hold what the JAX exit sums, as
+    the port holds them. Each cut includes, from the start of the frame,
+    and its stub sums:
+    - "rays": the camera rays; ray_dirs;
+    - "trace": K2 and K3 (the port fetches the attributes with the hit,
+      as the JAX Pallas path does); prim;
+    - "noise": the frame's noise fetches (K3 ran before them, where the
+      JAX package runs its attribute fetch after); prim and the fetches
+      (FrameNoise.fetches, from which noise_pairs gives the JAX pairs);
+    - "preamble": the per-pixel preamble, on the fused path only; base0
+      and every field of the ShadingData and LtcCoefficients;
+    - "shade": K4 with shadows, K5 without, or the per-pixel shading;
+      base0 and K4's planes (the JAX base is base0 plus their first
+      three, its b, dirs and t_max the slots'), without shadows the
+      colors (the JAX base);
+    - "shadowrays": the shadow megabatch, with shadows only; base0, the
+      planes and the megabatch's origins, directions and t_max;
+    - "shadow": K1; base0, the planes and occluded (without shadows: the
+      colors, as after "shade").
+    A stage the frame does not pass, "preamble" on the per-pixel path and
+    "shadowrays" without shadows, does not cut it: the frame runs on to
+    the end, as in the JAX package. stop_after=None renders the whole
+    frame."""
     check_settings_class(settings)
+    if stop_after is not None and stop_after not in STAGES:
+        raise ValueError(f"stop_after {stop_after!r} is none of {STAGES}")
     fused = use_fused(static, settings)
+
     cam = constants.camera_position
     ray_dirs = camera_rays(constants, width, height, row_offset)
+    if stop_after == "rays":
+        return _stage_stub(width, height, ray_dirs)
     p = ray_dirs.shape[0]
     origins = cam.expand(p, 3).contiguous()
     prim, t_hit = kernels.trace_closest(
@@ -200,59 +240,116 @@ def render_frame_constants(scene, static: SceneStatic,
         torch.full((p,), float("inf"), device=ray_dirs.device))
     dcam = constants.pixel_to_ray[:, :2].T.contiguous()
     attrs = kernels.closest_attrs(scene.clusters, prim, origins, ray_dirs, dcam)
+    if stop_after == "trace":
+        return _stage_stub(width, height, prim)
+
+    if fused:
+        noise = frame_noise(
+            scene.noise_table, width, row_offset + height,
+            max(pairs_per_light(settings) * static.light_count, 1),
+            scene.noise_texture_index_mask, constants.noise_random_numbers)
+        if row_offset:
+            # The band's frame pixels (FrameNoise.pixels): K4 and K5 read
+            # the noise at these, as their plain versions do.
+            noise = noise.subset(torch.arange(
+                row_offset * width, (row_offset + height) * width,
+                device=ray_dirs.device))
+    else:
+        noise = frame_noise(
+            scene.noise_table, width, row_offset + height,
+            max(pairs_per_light(settings) * static.light_count
+                + linear_pairs_per_light(settings)
+                * static.linear_light_count, 1),
+            scene.noise_texture_index_mask, constants.noise_random_numbers)
+    if stop_after == "noise":
+        return _stage_stub(width, height, prim, noise.fetches)
+
     hit = prim != -1
     t_safe = torch.where(hit & torch.isfinite(t_hit), t_hit, 0.0)
     position = cam + t_safe[:, None] * ray_dirs
     data, ltc, base0 = pixel_preamble(scene, static, settings, constants,
                                       hit, ray_dirs, attrs, position)
-    if not fused:
-        return _render_per_pixel(scene, static, settings, constants, width,
-                                 height, kernels, hit, data, ltc, base0,
-                                 row_offset)
+    if fused and stop_after == "preamble":
+        return _stage_stub(width, height, base0, *_fields(data),
+                           *_fields(ltc))
 
-    noise = frame_noise(
-        scene.noise_table, width, row_offset + height,
-        max(pairs_per_light(settings) * static.light_count, 1),
-        scene.noise_texture_index_mask, constants.noise_random_numbers)
-    if row_offset:
-        # The band's frame pixels (FrameNoise.pixels): K4 and K5 read the
-        # noise at these, as their plain versions do.
-        noise = noise.subset(torch.arange(
-            row_offset * width, (row_offset + height) * width,
-            device=ray_dirs.device))
-    light_scalars = pack_light_scalars(scene.lights, static.light_count)
-    planes = pack_planes(data, ltc, hit)
-    if not settings.trace_shadow_rays:
-        # No shadow rays: every slot's visibility is 1, so K5 accumulates
-        # the color in registers and no slot plane is stored (:503-514).
-        colors = base0 + kernels.fused_resolved(planes, noise, light_scalars,
-                                                static, settings)
+    if fused:
+        light_scalars = pack_light_scalars(scene.lights, static.light_count)
+        planes = pack_planes(data, ltc, hit)
+        shadows = settings.trace_shadow_rays
+        slots = static.light_count * rays_per_light(settings)
+        if shadows:
+            out = kernels.fused_shading(planes, noise, light_scalars, static,
+                                        settings)
+        else:
+            # No shadow rays: every slot's visibility is 1, so K5
+            # accumulates the color in registers and no slot plane is
+            # stored (:503-514).
+            colors = base0 + kernels.fused_resolved(
+                planes, noise, light_scalars, static, settings)
+    else:
+        slots = rays_per_light(settings) * static.light_count \
+            + linear_rays_per_light(settings) * static.linear_light_count
+        shadows = settings.trace_shadow_rays and slots > 0
+        out = _shade_per_pixel(scene, static, settings, constants, hit, data,
+                               ltc, noise, slots, shadows, row_offset * width)
+        if not shadows:
+            colors = base0 + out
+
+    if not shadows:
+        if stop_after in ("shade", "shadow"):
+            return _stage_stub(width, height, colors)
         return _resolve(colors, constants, settings, width, height)
-
-    out = kernels.fused_shading(planes, noise, light_scalars, static,
-                                settings)
-    slots = static.light_count * rays_per_light(settings)
-    colors = _shadow_resolve(scene, kernels, out, slots, hit, data.position,
-                             cam, base0)
+    if stop_after == "shade":
+        return _stage_stub(width, height, base0, out)
+    rays = _shadow_megabatch(out, slots, hit, data.position, cam)
+    if stop_after == "shadowrays":
+        return _stage_stub(width, height, base0, out, *rays)
+    occluded = kernels.trace_anyhit(scene.clusters, *rays)
+    if stop_after == "shadow":
+        return _stage_stub(width, height, base0, out, occluded)
+    colors = _shadow_combine(out, slots, occluded, base0)
     return _resolve(colors, constants, settings, width, height)
 
 
-def _shadow_resolve(scene, kernels: FrameKernels, out, slots: int, hit,
-                    position, cam, base0):
-    """Trace the shadow megabatch of out (3 + 7 slots, P) (base RGB, then
-    per ray slot b RGB, direction, t_max) with K1 and return
-    base0 + base + sum_slot b V as (P, 3)."""
+def _fields(record):
+    """The tensors of a ShadingData or LtcCoefficients."""
+    return [getattr(record, f.name) for f in dataclasses.fields(record)]
+
+
+def _stage_stub(width: int, height: int, *outputs) -> torch.Tensor:
+    """The image of a frame cut by stop_after (pipeline.py _stage_stub):
+    0 + acc 1e-30 in every pixel and channel, acc the float32 sum of the
+    exit's outputs, so that the image depends on all of them. They are
+    summed in one reduction, so that the stub adds little to the stage's
+    time. A non-finite value (a miss pixel's NaN frame) adds 0, so that
+    the image is finite."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in outputs])
+    acc = flat.nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0).sum()
+    return torch.zeros((height, width, 3), dtype=torch.float32,
+                       device=acc.device) + acc * 1e-30
+
+
+def _shadow_megabatch(out, slots: int, hit, position, cam):
+    """The sample-major shadow megabatch of out (3 + 7 slots, P) (base RGB,
+    then per ray slot b RGB, direction, t_max): (origins, directions,
+    t_max), every pixel's ray of slot 0, then of slot 1, ...; a ray whose
+    b is zero gets t_max = -1 and is dead (:537-552)."""
     p = out.shape[1]
     rest = out[3:].reshape(slots, 7, p)     # slot-major: (S, 7, P)
-    b = rest[:, 0:3]                        # (S, 3, P)
-    # Sample-major megabatch: every pixel's ray of slot 0, then slot 1...
     shade_origins = torch.where(hit[:, None], position, cam)
     flat_origins = shade_origins.repeat(slots, 1)
     flat_dirs = rest[:, 3:6].permute(0, 2, 1).reshape(-1, 3).contiguous()
-    live = torch.any(b != 0.0, dim=1).reshape(-1)
+    live = torch.any(rest[:, 0:3] != 0.0, dim=1).reshape(-1)
     flat_tmax = torch.where(live, rest[:, 6].reshape(-1), -1.0)
-    occluded = kernels.trace_anyhit(scene.clusters, flat_origins, flat_dirs,
-                                    flat_tmax.contiguous())
+    return flat_origins, flat_dirs, flat_tmax.contiguous()
+
+
+def _shadow_combine(out, slots: int, occluded, base0):
+    """base0 + base + sum_slot b V as (P, 3), V = 1 where K1 found the
+    slot's ray unoccluded."""
+    p = out.shape[1]
+    b = out[3:].reshape(slots, 7, p)[:, 0:3]    # (S, 3, P)
     visibility = torch.where(occluded, 0.0, 1.0).reshape(slots, 1, p)
     return base0 + out[0:3].T + torch.sum(b * visibility, dim=0).T
 
@@ -301,24 +398,14 @@ def shade_pixels(scene, static: SceneStatic, settings: RenderSettings,
             torch.cat(tmax_all, dim=1))
 
 
-def _render_per_pixel(scene, static: SceneStatic, settings: RenderSettings,
-                      constants: FrameConstants, width: int, height: int,
-                      kernels: FrameKernels, hit, data, ltc, base0,
-                      row_offset: int = 0):
-    """Stages 5-8 on the per-pixel path, PIXEL_CHUNK pixels at a time.
-    With shadow rays each chunk's slots are packed as K4 exports them, and
-    the frame's slots go through the one megabatch K1 call. A band's
-    noise pairs are those of its global frame pixels."""
-    total_pairs = max(pairs_per_light(settings) * static.light_count
-                      + linear_pairs_per_light(settings)
-                      * static.linear_light_count, 1)
-    noise = frame_noise(scene.noise_table, width, row_offset + height,
-                        total_pairs, scene.noise_texture_index_mask,
-                        constants.noise_random_numbers)
-    first = row_offset * width
-    slots = rays_per_light(settings) * static.light_count \
-        + linear_rays_per_light(settings) * static.linear_light_count
-    shadows = settings.trace_shadow_rays and slots > 0
+def _shade_per_pixel(scene, static: SceneStatic, settings: RenderSettings,
+                     constants: FrameConstants, hit, data, ltc, noise,
+                     slots: int, shadows: bool, first: int):
+    """Stage 5 on the per-pixel path, PIXEL_CHUNK pixels at a time: with
+    shadows, the frame's slots packed as K4 exports them, (3 + 7 slots,
+    P); without, the shaded color less base0, (P, 3). `first` is the frame
+    pixel of the first row (a band's noise pairs are those of its global
+    frame pixels)."""
     p = hit.shape[0]
     chunks = []
     for start in range(0, p, PIXEL_CHUNK):
@@ -334,13 +421,7 @@ def _render_per_pixel(scene, static: SceneStatic, settings: RenderSettings,
                                      .reshape(7 * slots, -1)], dim=0))
         else:
             chunks.append(base + torch.sum(b, dim=1))
-    if not shadows:
-        colors = base0 + torch.cat(chunks, dim=0)
-        return _resolve(colors, constants, settings, width, height)
-    colors = _shadow_resolve(scene, kernels, torch.cat(chunks, dim=1), slots,
-                             hit, data.position, constants.camera_position,
-                             base0)
-    return _resolve(colors, constants, settings, width, height)
+    return torch.cat(chunks, dim=1 if shadows else 0)
 
 
 def _resolve(colors, constants: FrameConstants, settings: RenderSettings,
@@ -375,12 +456,15 @@ def half_float_byte(colors: torch.Tensor, frame_bits: int) -> torch.Tensor:
 def render_frame(scene, static: SceneStatic, camera: FirstPersonCamera,
                  settings: RenderSettings, width: int, height: int,
                  noise_random_numbers=None,
-                 kernels: FrameKernels = KERNELS) -> torch.Tensor:
-    """Render one frame on the scene's device; returns (H, W, 3)."""
+                 kernels: FrameKernels = KERNELS,
+                 stop_after: str | None = None) -> torch.Tensor:
+    """Render one frame on the scene's device; returns (H, W, 3).
+    stop_after cuts it after a stage (render_frame_constants)."""
     if noise_random_numbers is None:
         noise_random_numbers = (np.arange(4) * 0x123456).astype(np.uint32)
     constants = make_frame_constants(camera, width, height, settings,
                                      noise_random_numbers, scene.device)
     with torch.no_grad():
         return render_frame_constants(scene, static, settings, constants,
-                                      width, height, kernels)
+                                      width, height, kernels,
+                                      stop_after=stop_after)

@@ -3,8 +3,11 @@
 
 The bench frame is 960x540 at 1 spp on the procedural city (300
 buildings, detail 10), lit by four quad street lights, with PSA +
-DIFFUSE_SPECULAR_MIS, clamped-optimal MIS and shadows on. `chip_smoke.py`
-builds its main-path run from the functions below.
+DIFFUSE_SPECULAR_MIS, clamped-optimal MIS and shadows on: the frame of the
+JAX package's bench.py at its defaults. `chip_smoke.py` builds its
+main-path run from the functions below, and the port's bench entry
+(vulkan_renderer_tpu_torch/bench.py) its frame at bench.py's options
+(scene scale, spp, shadows, materials, cluster size).
 
 The two timing-sweep cells that chip_smoke.py runs (SWEEP_CELLS) are
 defined here too.
@@ -49,7 +52,6 @@ import sys
 import time
 
 WIDTH, HEIGHT = 960, 540
-CITY = "city_300x10"
 WARMUP, FRAMES = 3, 15
 # Timing-sweep cells (experiment_list.c:364-409): (name, index of the
 # cell's first technique in the harness's list), at 1920x1080.
@@ -87,13 +89,13 @@ def card_name():
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def settings():
+def settings(spp=1, shadows=True):
     from vulkan_renderer_tpu_torch.render import fused
     return fused.RenderSettings(
         sampling_strategy=fused.SamplingStrategy.DIFFUSE_SPECULAR_MIS,
         polygon_sampling_technique=(
             fused.PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE),
-        sample_count=1, trace_shadow_rays=True)
+        sample_count=spp, trace_shadow_rays=shadows)
 
 
 def light_layout():
@@ -115,19 +117,36 @@ def kernel_defines(s, static, kernel="K4"):
 
 
 def kernel_jobs(s):
-    """build.build_many jobs of the kernels the bench frame launches."""
+    """build.build_many jobs of the kernels the bench frame launches under
+    s: K1-K4 with shadows, K2, K3 and K5 without."""
+    if not s.trace_shadow_rays:
+        return [("closest", {}), ("fused_resolved",
+                                  kernel_defines(s, light_layout(), "K5"))]
     return [("anyhit", {}), ("closest", {}),
             ("fused_shading", kernel_defines(s, light_layout()))]
 
 
-def city_files(data_dir):
-    """Write (once) the bench city: (its .vks path, its texture
-    directory)."""
+def city_stem(scene="city", buildings=300, detail=10, materials=6):
+    """The scale-tagged name of a bench city (bench.py: changing its scale
+    writes a new city instead of reusing a cached one)."""
+    return f"{scene}_{buildings}x{detail}" + (
+        f"_m{materials}" if materials != 6 else "")
+
+
+CITY = city_stem()
+
+
+def city_files(data_dir, scene="city", buildings=300, detail=10,
+               materials=6):
+    """Write (once) a bench city, by default the bench frame's: (its .vks
+    path, its texture directory)."""
     from vulkan_renderer_tpu_torch.tools.city import write_city_scene
-    vks = os.path.join(data_dir, f"{CITY}.vks")
+    stem = city_stem(scene, buildings, detail, materials)
+    vks = os.path.join(data_dir, f"{stem}.vks")
     if not os.path.exists(vks):
-        vks = write_city_scene(data_dir, CITY, n_buildings=300, detail=10)
-    return vks, os.path.join(data_dir, f"{CITY}_textures")
+        vks = write_city_scene(data_dir, stem, n_buildings=buildings,
+                               detail=detail, n_materials=materials)
+    return vks, os.path.join(data_dir, f"{stem}_textures")
 
 
 def lights():
@@ -143,14 +162,16 @@ def lights():
         for i in range(4)]
 
 
-def load_city(data_dir, device):
-    """Write (once) and load the bench city with its four lights: (scene,
-    its SceneStatic)."""
+def load_city(data_dir, device, cluster_size=64, **city):
+    """Write (once) and load a bench city (city_files' keywords; by
+    default the bench frame's) with its four lights: (scene, its
+    SceneStatic)."""
     from vulkan_renderer_tpu_torch.render.shading import SceneStatic
     from vulkan_renderer_tpu_torch.scene import scene as scene_module
-    vks, textures = city_files(data_dir)
+    vks, textures = city_files(data_dir, **city)
     scene = scene_module.load_scene(vks, textures, lights(), device,
-                                    data_directory=data_dir)
+                                    data_directory=data_dir,
+                                    cluster_size=cluster_size)
     return scene, SceneStatic.for_scene(scene)
 
 
@@ -180,13 +201,15 @@ def noise_numbers():
     return (np.arange(4) * 0x123456).astype(np.uint32)
 
 
-def render(scene, static, s, kernels=None, width=WIDTH, height=HEIGHT):
+def render(scene, static, s, kernels=None, width=WIDTH, height=HEIGHT,
+           stop_after=None):
     """One bench frame (H, W, 3) through `kernels` (default: the port's
-    kernels)."""
+    kernels), cut after the stage stop_after if given."""
     from vulkan_renderer_tpu_torch.render import pipeline
-    return pipeline.render_frame(
-        scene, static, camera(), s, width, height, noise_numbers(),
-        pipeline.KERNELS if kernels is None else kernels)
+    kernels = pipeline.KERNELS if kernels is None else kernels
+    return pipeline.render_frame(scene, static, camera(), s, width, height,
+                                 noise_numbers(), kernels,
+                                 stop_after=stop_after)
 
 
 def capture_inputs(scene, static, s, width=WIDTH, height=HEIGHT):
@@ -271,9 +294,9 @@ def test_counts(torch, captured):
     return out
 
 
-def sweep_jobs(techniques):
-    """build.build_many jobs of K5 for the sweep cells' techniques (named)
-    at their vertex counts (4 and 5)."""
+def sweep_jobs(techniques, vertex_counts=(4, 5)):
+    """build.build_many jobs of K5 for the sweep's techniques (named) at
+    the vertex counts given (by default the sweep cells', 4 and 5)."""
     from vulkan_renderer_tpu_torch.render import fused
     from vulkan_renderer_tpu_torch.render.shading import SceneStatic
     jobs = []
@@ -281,7 +304,7 @@ def sweep_jobs(techniques):
         s = fused.RenderSettings(
             sampling_strategy=fused.SamplingStrategy.DIFFUSE_ONLY,
             polygon_sampling_technique=fused.PolygonSamplingTechnique[name])
-        for nv in (4, 5):
+        for nv in vertex_counts:
             static = SceneStatic(light_count=1, light_texturing=(0,),
                                  light_vertex_counts=(nv,))
             jobs.append(("fused_resolved", kernel_defines(s, static, "K5")))
