@@ -9,12 +9,14 @@ It
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the CUDA kernels K1-K5 from vulkan_renderer_tpu_torch/csrc with
    nvcc, one process per library, all at once (K4 and K5 for each of the
-   13 techniques at the timing sweep's vertex counts, both under
-   DIFFUSE_SPECULAR_MIS for PSA and PSA-biased with every heuristic, and
-   the operation-counting builds of K4 and K5, -DVR_COUNT_OPS=1), and
-   prints each build's time and, for every K4 and K5 instantiation, the
-   registers, stack, spills and shared memory ptxas reports with the
-   theoretical resident warps per SM that follow;
+   13 techniques at every light vertex count the timing sweep renders, 3
+   to 7, each count a body of its own; both under DIFFUSE_SPECULAR_MIS
+   for PSA and PSA-biased with every heuristic, and K4 under the arcade's
+   clamped-optimal MIS on a heptagon; the operation-counting builds,
+   -DVR_COUNT_OPS=1, of K4 at the bench frame and of K5 for PSA and Arvo
+   PSA at each vertex count), and prints each build's time and, for every
+   K4 and K5 instantiation, the registers, stack, spills and shared memory
+   ptxas reports with the theoretical resident warps per SM that follow;
 3. writes the procedural bench city (300 buildings, detail 10) into data/
    with the port's own writer and loads it onto the card, as
    vulkan_renderer_tpu_torch/tools/bench_frame.py defines the bench frame;
@@ -37,22 +39,36 @@ It
    for bit on 4,096 of the bench frame's pixels for PSA and PSA-biased
    with each of the 5 heuristics;
 7. for every technique, captures K5's inputs from the harness's own
-   timing-sweep frames at 1920x1080 (the 128-light x 1-spp central
+   timing-sweep frames at 1920x1080 in five cells, one for each light
+   vertex count: the two sweep cells (the 128-light x 1-spp central
    quadrilaterals, experiment 102 + t, and the 1-light x 128-spp decentral
-   pentagon, experiment 193 + t) and holds K5 and K4 under DIFFUSE_ONLY
-   against their plain versions on 4,096 evenly spaced pixels, and K4's
-   slots resolved with visibility 1 against K5; K2 against its plain
-   version on every primary ray of each cell's first frame (exact); each
-   frame's peak device memory and hit share; and K5's float operations on
-   the whole frame for PSA and Arvo PSA with its counting build;
-8. runs those 26 timing-sweep experiments through the port's harness
-   (3 warm-up and 7 measured frames each; the harness's defaults of
-   110/100 stay for real sweeps) with every launch counter reset before
-   and read after: K5 must run, K4 must not; each frame is checked, and
-   the median of its few stamp deltas is printed beside the window
-   ms/frame of the same Application (tools/bench_frame.py window_ms: 40
-   frames with 3 in flight) and the card; phase 22 measures the frame
-   time at the reference protocol;
+   pentagons, 193 + t) and three holding cells (central triangles x 128,
+   50 + t; decentral hexagon x 128 spp, 245 + t; central heptagons x 128,
+   258 + t), and holds K5 and K4 under DIFFUSE_ONLY against their plain
+   versions on 4,096 evenly spaced pixels (bit for bit; Arvo SA and Arvo
+   PSA on at most 0.5% of values), and K4's slots resolved with visibility
+   1 against K5 (bit for bit); K2 against its plain version on every
+   primary ray of each cell's first frame (exact); each frame's peak
+   device memory and hit share; and K5's float operations on the whole
+   frame for PSA and Arvo PSA with its counting build, with their bound;
+7b. captures K4's inputs from the harness's frames of the arcade's
+   heptagon (the cornell stand-in, 1024x1024, shadows on): experiment 312
+   (PSA, DIFFUSE_ONLY) and 314 (PSA, DIFFUSE_SPECULAR_MIS with
+   clamped-optimal MIS), and holds K4 against its plain version bit for
+   bit on 4,096 pixels of each; on 314, K2 on every primary ray and K1 on
+   up to 131,072 live shadow rays against their plain versions (exact),
+   on the one scene of the harness whose triangles are not axis-aligned
+   (30 in one cluster), with their box and triangle tests per ray; each
+   kernel's ms on the frame;
+8. runs those 26 timing-sweep experiments, and PSA and Arvo PSA of each
+   holding cell (6 more), through the port's harness (3 warm-up and 7
+   measured frames each; the harness's defaults of 110/100 stay for real
+   sweeps) with every launch counter reset before and read after: K5
+   must run, K4 must not; each frame is checked, and the median of its
+   few stamp deltas is printed beside the window ms/frame of the same
+   Application (tools/bench_frame.py window_ms: 40 frames with 3 in
+   flight) and the card; phase 22 measures the frame time at the
+   reference protocol;
 9. renders the bench frame on the per-pixel shading path (SceneStatic
    fused="off": K1-K3 and plain PyTorch shading) with every launch counter
    reset before and read after (K1, K2 and K3 must run, K4 and K5 must
@@ -148,6 +164,7 @@ It
    measured; tools/sweep_check.py), counters reset before and read after
    (K5 must run), whose harness median must lie within 5% of its window.
 
+It logs the seconds since its start at each phase, and its wall time.
 The line before the last is a JSON object listing the kernels, each with
 its launches on the main path, time, plain version's time and bound
 (bytes over 3.35 TB/s or float32 operations over 33.5 T/s, whichever is
@@ -155,19 +172,21 @@ larger, and which side binds; for the tracers the operations are the
 least any binary tree over the clusters needs, and the counted tests of
 this design are a separate field; K3's are counted from its source per
 hit, K4's and K5's by their counting builds on these inputs); the last
-line is {"ok": true, "device": {...}}. Any failed
-check, missing GPU or missing package exits non-zero without that line.
+line is {"ok": true, "device": {...}}. Any failed check, missing GPU or
+missing package exits non-zero without that line.
 Neither JAX nor any module of the JAX package (vulkan_renderer_tpu) is
 imported; the script uses only the PyTorch port.
 """
 
 import dataclasses
+import gc
 import json
 import os
 import re
 import sys
 import time
 
+START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SMALL_WIDTH, SMALL_HEIGHT = 128, 64
 SHADOW_SUBSET = 131072
@@ -190,6 +209,20 @@ ANYHIT_SUBBOX_OPS = SLAB_OPS + 6
 # does none.
 K3_OPS_PER_HIT = 216
 SWEEP_SUBSET = 4096
+# The light vertex counts the timing sweep renders (experiments 50-309):
+# K4 and K5 compile one body per count (csrc/techniques.cuh template <int
+# NV>), and phase 2 builds every technique at each.
+VERTEX_COUNTS = (3, 4, 5, 6, 7)
+# Phase 7's holding cells besides the two sweep cells (bench_frame.
+# SWEEP_CELLS): (name, index of the cell's first technique), one for each
+# other vertex count, captured from the harness's own 1920x1080 frames.
+HOLD_CELLS = (("central_3_128", 50), ("decentral_6_1x128spp", 245),
+              ("central_7_128", 258))
+# Phase 7b: the arcade's heptagon frames (1024x1024, shadows on) that take
+# K4: PSA under DIFFUSE_ONLY and under DIFFUSE_SPECULAR_MIS with
+# clamped-optimal MIS; K1 and K2 are held on the second.
+ARCADE_EXPERIMENTS = (312, 314)
+ARCADE_VERTEX_COUNT = 7
 # The techniques whose K5 operations are counted over the whole sweep
 # frame (the PSA row of the kernels line, and the slowest technique).
 COUNTED_TECHNIQUES = ("PROJECTED_SOLID_ANGLE", "PROJECTED_SOLID_ANGLE_ARVO")
@@ -238,6 +271,12 @@ def check(ok, message):
 
 def log(message):
     print(message, flush=True)
+
+
+def mark(phase):
+    """Log the seconds since the script started at the start of a
+    phase."""
+    log(f"[{time.perf_counter() - START:.1f} s] phase {phase}")
 
 
 def cuda_once(torch, fn):
@@ -333,6 +372,122 @@ def op_counts(torch, fn, args, kinds, stages):
     return table, sum(values)
 
 
+def capture_frame(torch, bench, exp, data_dir):
+    """Build experiment exp's Application and render its first frame once
+    through the kernels: (the Application, each kernel's arguments keyed
+    by its pipeline.FrameKernels field, device memory allocated before
+    the frame, the frame's peak)."""
+    app, frame = bench.experiment_frame(torch, data_dir, exp)
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    captured = frame()
+    torch.cuda.synchronize()
+    return app, captured, allocated, torch.cuda.max_memory_allocated()
+
+
+def run_arcade_phase(torch, device, data_dir, card, experiments, results):
+    """Phase 7b: K4 on the arcade's heptagon frames, K1 and K2 on the
+    second (the cornell stand-in's rotated blocks: triangles off the
+    axes)."""
+    mark("7b")
+    from vulkan_renderer_tpu_torch.render import fused
+    from vulkan_renderer_tpu_torch.render import trace_kernel as tk
+    from vulkan_renderer_tpu_torch.tools import bench_frame as bench
+    from vulkan_renderer_tpu_torch.tools import kernel_check
+    rows = {}
+    for index in ARCADE_EXPERIMENTS:
+        exp = experiments[index]
+        app, captured, _, peak = capture_frame(torch, bench, exp, data_dir)
+        args = captured["fused_shading"]
+        planes, st, s = args[0], args[3], args[4]
+        check(st.light_vertex_counts == (ARCADE_VERTEX_COUNT,)
+              and s.trace_shadow_rays
+              and s.polygon_sampling_technique.name
+              == "PROJECTED_SOLID_ANGLE",
+              f"experiment {index} is not PSA on one heptagon with shadows")
+        idx = subset_indices(torch, SWEEP_SUBSET, planes.shape[1], device)
+        sub = subset_args(args, idx)
+        r4 = kernel_check.compare(fused.fused_light_shading(*sub),
+                                  fused.fused_light_shading_plain(*sub))
+        ms4 = bench.cuda_ms(torch, lambda: fused.fused_light_shading(*args),
+                            5)
+        plain4_ms, _ = cuda_once(
+            torch, lambda: fused.fused_light_shading_plain(*sub))
+        row = dict(strategy=s.sampling_strategy.value,
+                   heuristic=s.mis_heuristic.value,
+                   pixels=planes.shape[1],
+                   triangles=int(app.scene.triangle_positions.shape[0]),
+                   clusters=app.scene.clusters.cluster_count,
+                   hit_share=round(float(bench.hit_mask(planes).mean()), 6),
+                   frame_peak_gib=round(peak / 2**30, 4),
+                   k4_ms=round(ms4, 4), k4_plain_ms_subset=round(plain4_ms, 4),
+                   k4_exact=round(r4["exact"], 6),
+                   k4_max_abs_err=r4["max_abs_err"])
+        log(f"arcade {index} ({s.sampling_strategy.value}, "
+            f"{exp.width}x{exp.height}, one {ARCADE_VERTEX_COUNT}-gon, "
+            f"{row['triangles']} triangles in {row['clusters']} clusters): "
+            f"K4 vs plain on {idx.numel()} of {planes.shape[1]} px exact "
+            f"{r4['exact']:.6f} (tolerance: bit for bit), max |d| "
+            f"{r4['max_abs_err']:.3g}; K4 {ms4:.3f} ms on the frame, plain "
+            f"{plain4_ms:.1f} ms on {idx.numel()} px [{card}]")
+        check(r4["exact"] == 1.0 and r4["nonfinite_mismatch"] == 0,
+              f"K4 disagrees with its plain version (experiment {index})")
+        results["K4"]["max_abs_err"] = max(results["K4"]["max_abs_err"],
+                                           r4["max_abs_err"])
+        if index == ARCADE_EXPERIMENTS[-1]:
+            c_args = captured["trace_closest"]
+            plain2_ms, rays, hits, p_bad, t_bad, dt = compare_closest(
+                torch, tk, c_args)
+            ms2 = bench.cuda_ms(torch, lambda: tk.trace_closest(*c_args), 5)
+            clusters, s_orig, s_dirs, s_tmax = captured["trace_anyhit"]
+            live = torch.nonzero(s_tmax >= 0.0)[:, 0]
+            check(live.numel() > 0, f"experiment {index} emitted no live "
+                  "shadow ray")
+            sidx = live[subset_indices(torch, SHADOW_SUBSET, live.numel(),
+                                       device)]
+            ssub = [a[sidx].contiguous() for a in (s_orig, s_dirs, s_tmax)]
+            occ_k = tk.trace_anyhit(clusters, *ssub)
+            plain1_ms, occ_p = cuda_once(
+                torch, lambda: tk.trace_anyhit_plain(clusters, *ssub))
+            k1_bad = int((occ_k != occ_p).sum())
+            a_args = captured["trace_anyhit"]
+            ms1 = bench.cuda_ms(torch, lambda: tk.trace_anyhit(*a_args), 5)
+            tests = bench.test_counts(torch, captured)
+            row.update(k2_ms=round(ms2, 4), k2_plain_ms=round(plain2_ms, 4),
+                       k2_rays=rays, k2_hits=hits,
+                       k2_prim_mismatches=p_bad, k2_t_bit_mismatches=t_bad,
+                       k1_ms=round(ms1, 4), k1_plain_ms_subset=round(
+                           plain1_ms, 4), k1_rays=s_tmax.numel(),
+                       k1_live=live.numel(), k1_compared=sidx.numel(),
+                       k1_occluded=int(occ_p.sum()), k1_mismatches=k1_bad,
+                       tests=tests)
+            log(f"arcade {index} K2 vs plain on all {rays} primary rays: "
+                f"hits {hits}, primitive mismatches {p_bad}, t bit "
+                f"mismatches {t_bad} (tolerance 0), max |dt| {dt:.3g}; K2 "
+                f"{ms2:.3f} ms, plain {plain2_ms:.1f} ms [{card}]")
+            log(f"arcade {index} K1 vs plain on {sidx.numel()} of "
+                f"{live.numel()} live shadow rays ({s_tmax.numel()} in "
+                f"all): occluded {int(occ_k.sum())}/{int(occ_p.sum())}, "
+                f"mismatches {k1_bad} (tolerance 0); K1 {ms1:.3f} ms on all "
+                f"rays, plain {plain1_ms:.1f} ms on {sidx.numel()} [{card}]")
+            for name, c in tests.items():
+                log(f"arcade {index} {name} BVH tests per live ray "
+                    f"({c['rays']} rays): child boxes "
+                    f"{c['boxes'] / max(c['rays'], 1):.2f}, sub-boxes "
+                    f"{c['subboxes'] / max(c['rays'], 1):.2f}, triangles "
+                    f"{c['triangles'] / max(c['rays'], 1):.2f}")
+            check(p_bad == 0 and t_bad == 0,
+                  f"K2 disagrees with its plain version (experiment {index})")
+            check(k1_bad == 0,
+                  f"K1 disagrees with its plain version (experiment {index})")
+            results["K2"]["max_abs_err"] = max(results["K2"]["max_abs_err"],
+                                               dt)
+        rows[index] = row
+        del app, captured, args, sub
+        torch.cuda.empty_cache()
+    print(json.dumps({"arcade": rows, "card": card}), flush=True)
+
+
 def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
                      static, settings, counters, build_app, last):
     """Phases 12-17: the modules ported last, at full size."""
@@ -350,6 +505,7 @@ def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
           == "PROJECTED_SOLID_ANGLE", "experiment 113 is not the PSA cell")
 
     # --- 12. no host wait in a frame's dispatch -----------------------------
+    mark("12")
     bench_app = bench.application(data_dir, "cuda")
     for label, app in (("bench frame (K4 + K1)", bench_app),
                        ("central_4_128 PSA (K5)",
@@ -375,6 +531,7 @@ def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
     torch.cuda.empty_cache()
 
     # --- 13. two-frame HDR capture at full size -----------------------------
+    mark("13")
     def app_render(exp):
         app = setups.build_default_application(exp, data_dir, device="cuda")
 
@@ -417,6 +574,7 @@ def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
         torch.cuda.empty_cache()
 
     # --- 14. the harness with --hdr -----------------------------------------
+    mark("14")
     hdr_exp = harness.create_experiment_list(
         take_hdr_screenshots=True)[PSA_SWEEP_EXPERIMENT]
     hdr_exp = dataclasses.replace(hdr_exp, screenshot_path=os.path.join(
@@ -439,6 +597,7 @@ def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
           "the harness's .hdr does not read back as the frame")
 
     # --- 15. image-row bands: the bench frame as 4 bands on one card --------
+    mark("15")
     whole = bench.render(scene, static, settings)
     for fn in counters.values():
         fn.launches = 0
@@ -463,6 +622,7 @@ def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
     del whole, banded
 
     # --- 16. RMSE table, configurations 1-3 at full size --------------------
+    mark("16")
     # Cut: RMSE_SPP / RMSE_REF_SPP in place of the table's 128 / 1,024.
     rmse_rows = {}
     for config in (1, 2, 3):
@@ -479,6 +639,7 @@ def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
         torch.cuda.empty_cache()
 
     # --- 17. LTC fit, the default table on the card -------------------------
+    mark("17")
     torch.cuda.synchronize()
     start = time.perf_counter()
     records = fit_ltc.fit_ltc_tables(device="cuda")
@@ -552,6 +713,7 @@ def run_closing_phases(torch, device, data_dir, card, scene, static,
                                                  two_product_probe)
 
     # --- 18. blue-noise and dithered tables on K4 and K5 --------------------
+    mark("18")
     start = time.perf_counter()
     generate_noise.write_blob(data_dir, "dithered_2d",
                               generate_noise.generate_blob(
@@ -604,6 +766,7 @@ def run_closing_phases(torch, device, data_dir, card, scene, static,
     torch.cuda.empty_cache()
 
     # --- 19. K2 where pruning decides ---------------------------------------
+    mark("19")
     prune_rows = {}
     for name in prune_check.SCENES:
         row = prune_check.measure(device, scene=name)
@@ -621,6 +784,7 @@ def run_closing_phases(torch, device, data_dir, card, scene, static,
               f"K2 disagrees with its plain version on {name}")
 
     # --- 20. two_product outside the FMA's exact range on K4 and K5 ---------
+    mark("20")
     probe_inputs = two_product_probe.base_inputs(data_dir)
     probe_rows = two_product_probe.measure(probe_inputs, device)
     for row in probe_rows:
@@ -639,6 +803,7 @@ def run_closing_phases(torch, device, data_dir, card, scene, static,
 
 def run_gate_phase(device, card):
     """Phase 21: K1 where a sub-box gate decides."""
+    mark("21")
     from vulkan_renderer_tpu_torch.tools import anyhit_gate_check
 
     rows = {}
@@ -674,6 +839,7 @@ def run_entry_phase(torch, np, device, data_dir, card, settings, counters):
     from vulkan_renderer_tpu_torch.tools import sweep_check
 
     # --- 22a. the bench entry with its defaults, in its own process -------
+    mark("22a")
     start = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "vulkan_renderer_tpu_torch.bench", "--data",
@@ -688,6 +854,11 @@ def run_entry_phase(torch, np, device, data_dir, card, settings, counters):
           and "uncertain=0, overflow=0" in record["metric"]
           and "exactness_failed" not in record,
           "the bench entry's record is not bench.py's")
+    start = time.perf_counter()
+    garbage = gc.collect()
+    log(f"the process's garbage before the window: {garbage} unreachable "
+        f"objects, collected in {time.perf_counter() - start:.3f} s "
+        f"(bench_frame.window_ms collects before its clock starts)")
     window = bench.window_ms(torch, bench.application(data_dir, "cuda"),
                              bench.WARMUP)
     torch.cuda.empty_cache()
@@ -700,6 +871,7 @@ def run_entry_phase(torch, np, device, data_dir, card, settings, counters):
           "the bench entry's value parts from the window")
 
     # --- 22b. the entry's main path counted, and its stages ---------------
+    mark("22b")
     frame = entry.BenchFrame(entry.parse_args(["--data", data_dir]))
     frame.sync_latency_ms(1)
     for fn in counters.values():
@@ -749,6 +921,7 @@ def run_entry_phase(torch, np, device, data_dir, card, settings, counters):
     torch.cuda.empty_cache()
 
     # --- 22c. K1 and K2 at other cluster sizes ----------------------------
+    mark("22c")
     cluster_rows = {}
     for size in CLUSTER_SIZES:
         scene, static = bench.load_city(data_dir, device, cluster_size=size)
@@ -786,6 +959,7 @@ def run_entry_phase(torch, np, device, data_dir, card, settings, counters):
         torch.cuda.empty_cache()
 
     # --- 22d. the harness at the reference protocol -----------------------
+    mark("22d")
     experiments = harness.create_experiment_list(
         output_dir=os.path.join(data_dir, "smoke"))
     csv_path = os.path.join(data_dir, "smoke", "results_protocol.csv")
@@ -842,8 +1016,6 @@ def run():
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from vulkan_renderer_tpu_torch.assets.noise import \
-        advance_noise_random_numbers
     from vulkan_renderer_tpu_torch.core.device import get_device
     from vulkan_renderer_tpu_torch.experiments import harness, setups
     from vulkan_renderer_tpu_torch.kernels import build
@@ -875,6 +1047,7 @@ def run():
     settings = bench.settings()
 
     # --- 2. kernel builds ------------------------------------------------
+    mark("2")
     bench_static = bench.light_layout()
     # The tracers also in their counting builds (box and triangle tests).
     jobs = bench.kernel_jobs(settings) + [
@@ -886,18 +1059,24 @@ def run():
                  **(extra or {})})
     # K4's counting build at the bench frame's settings.
     jobs.append(shading_job("K4", settings, bench_static, count_defines))
+    def one_light(nv):
+        return SceneStatic(light_count=1, light_texturing=(0,),
+                           light_vertex_counts=(nv,))
+
     for tech in PolygonSamplingTechnique:
         tech_settings = RenderSettings(
             sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
             polygon_sampling_technique=tech)
-        for nv in (4, 5):
-            static_nv = SceneStatic(light_count=1, light_texturing=(0,),
-                                    light_vertex_counts=(nv,))
-            jobs += [shading_job(k, tech_settings, static_nv)
+        for nv in VERTEX_COUNTS:
+            jobs += [shading_job(k, tech_settings, one_light(nv))
                      for k in ("K4", "K5")]
             if tech.name in COUNTED_TECHNIQUES:
-                jobs.append(shading_job("K5", tech_settings, static_nv,
+                jobs.append(shading_job("K5", tech_settings, one_light(nv),
                                         count_defines))
+    # K4 under the arcade's clamped-optimal MIS on its heptagon (phase 7b).
+    jobs.append(shading_job("K4", dataclasses.replace(
+        settings, mis_heuristic=MisHeuristic.OPTIMAL_CLAMPED),
+        one_light(ARCADE_VERTEX_COUNT)))
     # K5 and K4 under DIFFUSE_SPECULAR_MIS (the default settings; K5 takes
     # it with shadows off): the PSA pair with every heuristic, at the
     # bench layout.
@@ -938,6 +1117,7 @@ def run():
     print(json.dumps({"ptxas": ptxas_rows}), flush=True)
 
     # --- 3. the bench city ---------------------------------------------------
+    mark("3")
     data_dir = os.path.join(ROOT, "data")
     start = time.perf_counter()
     scene, static = bench.load_city(data_dir, device)
@@ -962,6 +1142,7 @@ def run():
     results = {}
 
     # --- 4. kernels against their plain versions -----------------------------
+    mark("4")
     # K2 on every primary ray of the bench frame. Tolerance: exact. The
     # kernel walks the BVH in another order than the plain version scans,
     # and both return the lexicographic minimum of (t, primitive id).
@@ -1023,6 +1204,7 @@ def run():
                          compared=sidx.numel())
 
     # --- 4b. box and triangle tests per ray ----------------------------------
+    mark("4b")
     # Rays are live where t_max >= 0 (the kernels return the others at once).
     test_counts = bench.test_counts(torch, captured)
     for name, c in test_counts.items():
@@ -1032,6 +1214,7 @@ def run():
             f"triangles {c['triangles'] / rays:.2f}")
 
     # --- 4c. K4's float operations on the bench frame ------------------------
+    mark("4c")
     k4_ops_table, k4_ops = op_counts(torch, fused.fused_light_shading,
                                      f_args, kinds, stages)
     k4_hit_lights = int(bench.hit_mask(planes).sum()) * static.light_count
@@ -1041,6 +1224,7 @@ def run():
         f"pixel-light; by stage and kind {json.dumps(k4_ops_table)}")
 
     # --- 5. small frame: kernels vs plain versions ---------------------------
+    mark("5")
     with torch.no_grad():
         small = {}
         for name, kernels in (("kernels", pipeline.KERNELS),
@@ -1063,6 +1247,7 @@ def run():
           "small frame through the kernels differs from the plain versions")
 
     # --- 6. the bench frame: counted main-path run ---------------------------
+    mark("6")
     counters = {"K1": tk.trace_anyhit, "K2": tk.trace_closest,
                 "K3": tk.closest_attrs, "K4": fused.fused_light_shading,
                 "K5": fused.fused_light_shading_resolved}
@@ -1128,6 +1313,7 @@ def run():
             f"{where} [{card}]")
 
     # --- 6b. K5 under DIFFUSE_SPECULAR_MIS against its plain version --------
+    mark("6b")
     # The default settings with shadows off take K5 in MIS mode: the bench
     # frame's inputs, the PSA pair with every heuristic. Tolerance: bit for
     # bit (the same float32 operations in the same order).
@@ -1174,50 +1360,29 @@ def run():
         check(float(want5.abs().max()) > 0, f"K5 MIS {variant} is all zero")
 
     # --- 7. K5 and K4 DIFFUSE_ONLY against their plain versions -------------
+    mark("7")
     experiments = harness.create_experiment_list()
     arvo = (PolygonSamplingTechnique.SOLID_ANGLE_ARVO,
             PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE_ARVO)
     technique_rows = []
     k5_main = None
-    for cell, first in SWEEP_CELLS:
+    for cell, first in SWEEP_CELLS + HOLD_CELLS:
+        cell_nv = int(cell.split("_")[1])
         for t, tech in enumerate(PolygonSamplingTechnique):
             exp = experiments[first + t]
             check(exp.settings.polygon_sampling_technique == tech
                   and (exp.width, exp.height) == (SWEEP_WIDTH, SWEEP_HEIGHT),
                   f"experiment {first + t} is not the {tech.value} sweep "
                   f"cell at {SWEEP_WIDTH}x{SWEEP_HEIGHT}")
-            app = setups.build_default_application(exp, data_dir,
-                                                   device="cuda")
-            _, randoms = advance_noise_random_numbers(
-                app.noise_seed, app.settings.animate_noise)
-            sweep_constants = pipeline.make_frame_constants(
-                app.scene_spec.camera, exp.width, exp.height, app.settings,
-                randoms, device)
-            k5_args = {}
-
-            def record_k5(*args):
-                k5_args["args"] = args
-                return fused.fused_light_shading_resolved(*args)
-
-            def record_k2(*args):
-                k5_args["closest"] = args
-                return tk.trace_closest(*args)
-
-            allocated = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            with torch.no_grad():
-                pipeline.render_frame_constants(
-                    app.scene, app.static, app.settings, sweep_constants,
-                    exp.width, exp.height, dataclasses.replace(
-                        pipeline.KERNELS, fused_resolved=record_k5,
-                        trace_closest=record_k2))
-            torch.cuda.synchronize()
-            frame_peak = torch.cuda.max_memory_allocated()
+            app, k5_args, allocated, frame_peak = capture_frame(
+                torch, bench, exp, data_dir)
+            check(set(app.static.light_vertex_counts) == {cell_nv},
+                  f"experiment {first + t}'s lights are not {cell_nv}-gons")
             if t == 0:
                 # K2 on every primary ray of the cell's frame: exact, ties
                 # included, as on the bench frame.
                 _, rays, hits, p_bad, t_bad, dt = compare_closest(
-                    torch, tk, k5_args["closest"])
+                    torch, tk, k5_args["trace_closest"])
                 log(f"{cell} K2 closest vs plain (all {rays} primary rays, "
                     f"{app.scene.clusters.cluster_count} clusters): hits "
                     f"{hits}, primitive mismatches {p_bad}, t bit mismatches "
@@ -1226,7 +1391,7 @@ def run():
                       f"K2 disagrees with its plain version ({cell})")
                 results["K2"]["max_abs_err"] = max(
                     results["K2"]["max_abs_err"], dt)
-            args = k5_args["args"]
+            args = k5_args["fused_resolved"]
             planes, noise, ls, st, s = args
             hits = float(bench.hit_mask(planes).mean())
             idx = subset_indices(torch, SWEEP_SUBSET, planes.shape[1], device)
@@ -1265,7 +1430,8 @@ def run():
             # to 0.5% of their values (ROADMAP Queue 3).
             limit = 5e-3 if tech in arvo else 0.0
             row = dict(cell=cell, technique=tech.value,
-                       pixels=planes.shape[1], lights=st.light_count,
+                       vertex_count=cell_nv, pixels=planes.shape[1],
+                       lights=st.light_count,
                        spp=s.sample_count, hit_share=round(hits, 6),
                        frame_allocated_gib=round(allocated / 2**30, 4),
                        frame_peak_gib=round(frame_peak / 2**30, 4),
@@ -1284,8 +1450,9 @@ def run():
                 row.update(k5_ops=k5_ops, k5_bound_ms=round(k5_bound[0], 5),
                            k5_bound_by=k5_bound[1])
             technique_rows.append(row)
-            log(f"{cell} {tech.value}: K5 {ms5:.3f} ms ({planes.shape[1]} px "
-                f"x {st.light_count} lights x {s.sample_count} spp, hit share "
+            log(f"{cell} {tech.value} (NV={cell_nv}): K5 {ms5:.3f} ms "
+                f"({planes.shape[1]} px x {st.light_count} lights x "
+                f"{s.sample_count} spp, hit share "
                 f"{hits:.4f}, frame peak {frame_peak / 2**30:.3f} GiB of "
                 f"which {allocated / 2**30:.3f} allocated before), plain "
                 f"{plain5_ms:.1f} ms on {idx.numel()} px; K5 vs plain exact "
@@ -1316,8 +1483,10 @@ def run():
             del app, planes, noise, args, sub, k5_args
             torch.cuda.empty_cache()
     print(json.dumps({"techniques": technique_rows}), flush=True)
+    run_arcade_phase(torch, device, data_dir, card, experiments, results)
 
     # --- 8. the timing sweep through the port's harness: counted run --------
+    mark("8")
     last = {}
 
     def build_app(exp):
@@ -1334,37 +1503,43 @@ def run():
     for fn in counters.values():
         fn.launches = 0
     sweep_ms = {}
-    for cell, first in SWEEP_CELLS:
-        for t, tech in enumerate(PolygonSamplingTechnique):
-            exp = experiments[first + t]
-            exp = dataclasses.replace(exp, screenshot_path=os.path.join(
-                data_dir, "smoke", os.path.basename(exp.screenshot_path)))
-            result = harness.run_experiments(
-                [exp], build_app, min_warmup_seconds=0.0,
-                min_warmup_frames=SWEEP_WARMUP, measure_frames=SWEEP_MEASURED,
-                data_directory=data_dir, device="cuda")[0]
-            frame = last.pop("image")
-            check(tuple(frame.shape) == (exp.height, exp.width, 3),
-                  f"sweep frame shape {tuple(frame.shape)}")
-            check(bool(torch.isfinite(frame).all()),
-                  f"sweep frame {first + t} is not finite")
-            sentinels = int((frame == pink).all(dim=-1).sum())
-            check(sentinels == 0,
-                  f"sweep frame {first + t} has {sentinels} NaN sentinels")
-            # The 128-light cells divide both the flux and the exposure by
-            # 128 (experiment_list.c:364-409), so their frames are dark.
-            mean = float(frame.mean())
-            check(1e-4 < mean < 0.95,
-                  f"sweep frame {first + t} mean {mean:.4f} is implausible")
-            window = bench.window_ms(torch, last.pop("app"), SWEEP_WARMUP)
-            last.pop("image")
-            sweep_ms[(cell, tech.value)] = (result.frame_time_ms, window)
-            log(f"sweep {first + t:03d} {cell} {tech.value}: harness median "
-                f"of the stamp deltas of {SWEEP_MEASURED} measured frames "
-                f"after {SWEEP_WARMUP} warm-up {result.frame_time_ms:.3f} ms, "
-                f"window {window:.3f} ms/frame ({bench.WINDOW_FRAMES} frames, "
-                f"3 in flight), mean {mean:.4f} [{card}]")
-            torch.cuda.empty_cache()
+    # Every technique of the two sweep cells; PSA and Arvo PSA of the
+    # holding cells.
+    sweep_runs = [(cell, first + t, tech) for cell, first in SWEEP_CELLS
+                  for t, tech in enumerate(PolygonSamplingTechnique)] + [
+        (cell, first + t, tech) for cell, first in HOLD_CELLS
+        for t, tech in enumerate(PolygonSamplingTechnique)
+        if tech.name in COUNTED_TECHNIQUES]
+    for cell, index, tech in sweep_runs:
+        exp = experiments[index]
+        exp = dataclasses.replace(exp, screenshot_path=os.path.join(
+            data_dir, "smoke", os.path.basename(exp.screenshot_path)))
+        result = harness.run_experiments(
+            [exp], build_app, min_warmup_seconds=0.0,
+            min_warmup_frames=SWEEP_WARMUP, measure_frames=SWEEP_MEASURED,
+            data_directory=data_dir, device="cuda")[0]
+        frame = last.pop("image")
+        check(tuple(frame.shape) == (exp.height, exp.width, 3),
+              f"sweep frame shape {tuple(frame.shape)}")
+        check(bool(torch.isfinite(frame).all()),
+              f"sweep frame {index} is not finite")
+        sentinels = int((frame == pink).all(dim=-1).sum())
+        check(sentinels == 0,
+              f"sweep frame {index} has {sentinels} NaN sentinels")
+        # The 128-light cells divide both the flux and the exposure by
+        # 128 (experiment_list.c:364-409), so their frames are dark.
+        mean = float(frame.mean())
+        check(1e-4 < mean < 0.95,
+              f"sweep frame {index} mean {mean:.4f} is implausible")
+        window = bench.window_ms(torch, last.pop("app"), SWEEP_WARMUP)
+        last.pop("image")
+        sweep_ms[(cell, tech.value)] = (result.frame_time_ms, window)
+        log(f"sweep {index:03d} {cell} {tech.value}: harness median "
+            f"of the stamp deltas of {SWEEP_MEASURED} measured frames "
+            f"after {SWEEP_WARMUP} warm-up {result.frame_time_ms:.3f} ms, "
+            f"window {window:.3f} ms/frame ({bench.WINDOW_FRAMES} frames, "
+            f"3 in flight), mean {mean:.4f} [{card}]")
+        torch.cuda.empty_cache()
     sweep_launches = {name: fn.launches for name, fn in counters.items()}
     log(f"timing sweep launches: {sweep_launches}")
     check(sweep_launches["K5"] > 0, "the timing sweep did not launch K5")
@@ -1379,6 +1554,7 @@ def run():
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # --- 9. the bench frame on the per-pixel path: counted run --------------
+    mark("9")
     pp_static = dataclasses.replace(static, fused="off")
     for fn in counters.values():
         fn.launches = 0
@@ -1432,6 +1608,7 @@ def run():
     torch.cuda.empty_cache()
 
     # --- 10. the experiments only the per-pixel path renders ----------------
+    mark("10")
     for fn in counters.values():
         fn.launches = 0
     experiment_rows = {}
@@ -1481,6 +1658,7 @@ def run():
                       "card": card}), flush=True)
 
     # --- 11. the per-pixel classes, card against CPU -------------------------
+    mark("11")
     files = per_pixel_check.write_scene_files(
         os.path.join(data_dir, "per_pixel"))
     scenes_card = per_pixel_check.load_scenes(files, "cuda")
@@ -1586,6 +1764,8 @@ def run():
             entry.update(plain_shape=plain_shape)
         kernels.append(entry)
     check_no_reference_modules()
+    log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s "
+        f"[{card}]")
     print(json.dumps({"kernels": kernels, "frame_ms_median":
                       round(frame_median, 4), "card": card}))
     print(json.dumps({"ok": True, "device": {

@@ -137,10 +137,14 @@ def test_frame_kernels_match_plain_versions(city):
 # --- K4 DIFFUSE_ONLY and K5, every technique -------------------------------
 
 
+PLANES_VERTEX_COUNTS = (3, 4, 5, 6, 7)
+
+
 @pytest.fixture(scope="module")
 def planes_scene(tmp_path_factory):
-    """The roughness-planes stand-in lit by four lights of 3, 4, 5 and 7
-    vertices (mixed vertex counts: one launch per group)."""
+    """The roughness-planes stand-in lit by five lights of 3, 4, 5, 6 and 7
+    vertices, every count the timing sweep and the arcade figures render
+    (mixed vertex counts: one launch per group)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
     d = str(tmp_path_factory.mktemp("gpu_planes"))
@@ -153,7 +157,7 @@ def planes_scene(tmp_path_factory):
         scaling_x=1.0, scaling_y=1.0,
         radiant_flux=np.array([20.0, 18.0, 16.0], np.float32) / 4,
         **({} if nv == 4 else {"vertices_plane_space": _regular_polygon(nv)}))
-        for i, nv in enumerate((3, 4, 5, 7))]
+        for i, nv in enumerate(PLANES_VERTEX_COUNTS)]
     scene = load_scene(vks, d + "/roughness_planes_textures", lights, "cuda",
                        noise=white_noise_table(64, 64, 8))
     return scene, _scene_default_camera("roughness_planes")
@@ -223,6 +227,38 @@ def test_resolved_mis_kernel_matches_plain(planes_scene, tech, heuristic):
     r = kernel_check.compare(got.T, want.T)
     assert r["exact"] == 1.0 and r["nonfinite_mismatch"] == 0, r
     assert float(want.abs().max()) > 0
+
+
+@pytest.mark.parametrize("tech", [Tech.PROJECTED_SOLID_ANGLE,
+                                  Tech.PROJECTED_SOLID_ANGLE_BIASED],
+                         ids=lambda t: t.value)
+def test_fused_mis_kernel_matches_plain_at_every_vertex_count(planes_scene,
+                                                              tech):
+    """K4 under DIFFUSE_SPECULAR_MIS with clamped-optimal MIS (the arcade's
+    experiments 314 and 316 light a heptagon so) against its plain
+    version on the five lights of 3-7 vertices, one launch per vertex
+    count: bit for bit, miss pixels' dead slots included."""
+    scene, camera = planes_scene
+    settings = RenderSettings(polygon_sampling_technique=tech,
+                              mis_heuristic=MisHeuristic.OPTIMAL_CLAMPED,
+                              sample_count=1, trace_shadow_rays=True)
+    captured = {}
+
+    def record(*args):
+        captured["args"] = args
+        return fused.fused_light_shading_plain(*args)
+
+    kernels = dataclasses.replace(pipeline.KERNELS, fused_shading=record)
+    pipeline.render_frame(scene, SceneStatic.for_scene(scene), camera,
+                          settings, 64, 32, kernels=kernels)
+    static = captured["args"][3]
+    assert [nv for nv, _ in fused.vertex_groups(static)] == \
+        list(PLANES_VERTEX_COUNTS)
+    got = fused.fused_light_shading(*captured["args"])
+    want = fused.fused_light_shading_plain(*captured["args"])
+    r = kernel_check.compare(got, want)
+    assert r["exact"] == 1.0 and r["nonfinite_mismatch"] == 0, r
+    assert float(want[3:].abs().max()) > 0
 
 
 # --- the per-pixel path ------------------------------------------------------

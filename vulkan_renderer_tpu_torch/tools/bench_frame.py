@@ -45,6 +45,7 @@ was first ported, and imports no JAX.
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -212,12 +213,10 @@ def render(scene, static, s, kernels=None, width=WIDTH, height=HEIGHT,
                                  stop_after=stop_after)
 
 
-def capture_inputs(scene, static, s, width=WIDTH, height=HEIGHT):
-    """Render one frame (the bench frame's camera, at width x height) and
-    return each kernel's arguments, keyed by the pipeline.FrameKernels
-    field that took them."""
+def recording_kernels(captured):
+    """The port's kernels as a pipeline.FrameKernels whose every call also
+    records its arguments into `captured`, keyed by the field called."""
     from vulkan_renderer_tpu_torch.render import pipeline
-    captured = {}
 
     def recorder(name, fn):
         def call(*args):
@@ -225,9 +224,17 @@ def capture_inputs(scene, static, s, width=WIDTH, height=HEIGHT):
             return fn(*args)
         return call
 
-    render(scene, static, s, pipeline.FrameKernels(*(
+    return pipeline.FrameKernels(*(
         recorder(f.name, getattr(pipeline.KERNELS, f.name))
-        for f in dataclasses.fields(pipeline.FrameKernels))), width, height)
+        for f in dataclasses.fields(pipeline.FrameKernels)))
+
+
+def capture_inputs(scene, static, s, width=WIDTH, height=HEIGHT):
+    """Render one frame (the bench frame's camera, at width x height) and
+    return each kernel's arguments, keyed by the pipeline.FrameKernels
+    field that took them."""
+    captured = {}
+    render(scene, static, s, recording_kernels(captured), width, height)
     return captured
 
 
@@ -250,9 +257,14 @@ def window_ms(torch, app, warmup):
     """ms a frame of `app` (core/app.py Application) over WINDOW_FRAMES
     frames with its frames in flight: the host clock from the first
     dispatch until the last frame retires, over WINDOW_FRAMES, after
-    `warmup` frames rendered one at a time."""
+    `warmup` frames rendered one at a time. The garbage of earlier work in
+    the process is collected before the clock starts: a full collection
+    of a long run's backlog (millions of objects, a profiler's events
+    among them) takes long enough to move a 40-frame window by several
+    ms a frame."""
     for _ in range(warmup):
         app.render_frame_sync()
+    gc.collect()
     torch.cuda.synchronize()
     start = time.perf_counter()
     for _ in range(WINDOW_FRAMES):
@@ -294,20 +306,27 @@ def test_counts(torch, captured):
     return out
 
 
-def sweep_jobs(techniques, vertex_counts=(4, 5)):
-    """build.build_many jobs of K5 for the sweep's techniques (named) at
-    the vertex counts given (by default the sweep cells', 4 and 5)."""
+def vertex_count(experiment) -> int:
+    """The light vertex count of a timing-sweep experiment's layout
+    ('timing:<vertex count>:<case>:<light count>')."""
+    return int(experiment.light_layout.split(":")[1])
+
+
+def sweep_jobs(experiments):
+    """build.build_many jobs of K5 for the timing-sweep experiments given:
+    one library per distinct technique and light vertex count among
+    them."""
     from vulkan_renderer_tpu_torch.render import fused
     from vulkan_renderer_tpu_torch.render.shading import SceneStatic
     jobs = []
-    for name in techniques:
+    for name, nv in sorted({(e.settings.polygon_sampling_technique.name,
+                             vertex_count(e)) for e in experiments}):
         s = fused.RenderSettings(
             sampling_strategy=fused.SamplingStrategy.DIFFUSE_ONLY,
             polygon_sampling_technique=fused.PolygonSamplingTechnique[name])
-        for nv in vertex_counts:
-            static = SceneStatic(light_count=1, light_texturing=(0,),
-                                 light_vertex_counts=(nv,))
-            jobs.append(("fused_resolved", kernel_defines(s, static, "K5")))
+        static = SceneStatic(light_count=1, light_texturing=(0,),
+                             light_vertex_counts=(nv,))
+        jobs.append(("fused_resolved", kernel_defines(s, static, "K5")))
     return jobs
 
 
@@ -327,10 +346,10 @@ def sweep_experiments(data_dir, techniques):
     return out
 
 
-def capture_sweep(torch, data_dir, exp):
-    """Build the experiment's application and render its first frame once
-    with K5's arguments recorded: (a function rendering that frame again,
-    K5's arguments)."""
+def experiment_frame(torch, data_dir, exp):
+    """Build the experiment's Application: (it, a function that renders its
+    first frame through the kernels and returns each kernel's arguments,
+    keyed by the pipeline.FrameKernels field that took them)."""
     from vulkan_renderer_tpu_torch.assets.noise import \
         advance_noise_random_numbers
     from vulkan_renderer_tpu_torch.experiments import setups
@@ -341,22 +360,15 @@ def capture_sweep(torch, data_dir, exp):
     constants = pipeline.make_frame_constants(
         app.scene_spec.camera, exp.width, exp.height, app.settings, randoms,
         torch.device("cuda"))
-    captured = {}
-
-    def record(*args):
-        captured["args"] = args
-        return pipeline.KERNELS.fused_resolved(*args)
-
-    kernels = dataclasses.replace(pipeline.KERNELS, fused_resolved=record)
 
     def frame():
+        captured = {}
         with torch.no_grad():
-            return pipeline.render_frame_constants(
+            pipeline.render_frame_constants(
                 app.scene, app.static, app.settings, constants, exp.width,
-                exp.height, kernels)
-    frame()
-    torch.cuda.synchronize()
-    return frame, captured["args"]
+                exp.height, recording_kernels(captured))
+        return captured
+    return app, frame
 
 
 def sweep_measurements(torch, data_dir, techniques):
@@ -368,7 +380,9 @@ def sweep_measurements(torch, data_dir, techniques):
     from vulkan_renderer_tpu_torch.render import pipeline
     rows = {}
     for cell, exp in sweep_experiments(data_dir, techniques):
-        frame, args = capture_sweep(torch, data_dir, exp)
+        app, frame = experiment_frame(torch, data_dir, exp)
+        args = frame()["fused_resolved"]
+        torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         frame()
@@ -376,7 +390,7 @@ def sweep_measurements(torch, data_dir, techniques):
         peak = torch.cuda.max_memory_allocated()
         k5 = cuda_ms(torch, lambda: pipeline.KERNELS.fused_resolved(*args), 3)
         hit = float(hit_mask(args[0]).mean())
-        del frame, args
+        del app, frame, args
         torch.cuda.empty_cache()
         result = harness.run_experiments(
             [exp], min_warmup_seconds=0.0, min_warmup_frames=SWEEP_WARMUP,
@@ -453,8 +467,8 @@ def main(argv=None) -> int:
             "PROJECTED_SOLID_ANGLE,PROJECTED_SOLID_ANGLE_ARVO"
         techniques = [t.name for t in fused.PolygonSamplingTechnique] \
             if names == "all" else names.split(",")
-        line["sweep_build_wall_s"] = round(build.build_many(
-            sweep_jobs(techniques)), 2)
+        line["sweep_build_wall_s"] = round(build.build_many(sweep_jobs(
+            [exp for _, exp in sweep_experiments(data_dir, techniques)])), 2)
         line["sweep"] = sweep_measurements(torch, data_dir, techniques)
     line["ptxas"] = {tag: build.register_report(report)
                      for tag, (_, report) in sorted(

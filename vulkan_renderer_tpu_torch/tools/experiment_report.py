@@ -8,17 +8,22 @@ the timing sweep pivot (experiment_list.c:364-409: technique rows x
 {central, decentral} x {128 lights 1 spp, 1 light 128 spp} columns), the
 vertex-count scaling pivot, the RMSE table of tools/rmse_table.py and the
 table of all experiments — with the device beside each number. The JAX
-tool's prose on what its TPU rows show is not repeated.
+tool's prose on what its TPU rows show is not repeated. It adds a summary
+by vertex count (per light configuration the median over the techniques,
+PSA, Arvo PSA and PSA over the baseline; per technique the steps up in
+vertex count at which its cost rose) and, with --windows, each timing
+cell's harness medians against their windows (tools/sweep_check.py).
 
     python -m vulkan_renderer_tpu_torch.tools.experiment_report \
         [data/results_torch.csv] [-o data/experiments/RESULTS_torch.md] \
-        [--rmse-csv results/rmse_torch.csv]
+        [--rmse-csv results/rmse_torch.csv] [--windows FILE.jsonl]
 """
 
 from __future__ import annotations
 
 import argparse
 import csv
+import json
 import os
 import re
 
@@ -35,10 +40,125 @@ def _timing_key(row):
     return tech, int(nv), case, "128L 1spp" if lights128 else "1L 128spp"
 
 
+# The timing sweep's light configurations (experiment_list.c:364-409).
+CELLS = (("central", "128L 1spp"), ("central", "1L 128spp"),
+         ("decentral", "128L 1spp"), ("decentral", "1L 128spp"))
+# The techniques of the per-vertex-count summary, beside the median.
+SUMMARY_TECHNIQUES = ("projected_solid_angle", "projected_solid_angle_arvo")
+
+
+def _ms(row) -> float:
+    return float(row["frame_ms"])
+
+
+def _vertex_count_summary(timing: dict, nv_list: list) -> list:
+    """The port's summary of the sweep by vertex count: per light
+    configuration the median over the techniques measured, PSA, Arvo PSA
+    and PSA over the baseline; and per technique the steps up in vertex
+    count at which its cost rose."""
+    header = "| " + " | ".join(f"{nv}-gon" for nv in nv_list) + " |"
+    lines = [
+        "### Per-vertex-count summary",
+        "",
+        "ms/frame for each light configuration and vertex count: the "
+        "median over the techniques measured there, PSA and Arvo PSA, and "
+        "PSA over the baseline technique (the frame outside the sampler).",
+        "",
+        "| configuration | statistic " + header,
+        "|---|---|" + "---|" * len(nv_list),
+    ]
+    techs = sorted({t for t, _, _, _ in timing})
+    for case, lcfg in CELLS:
+        def cell(nv, tech=None):
+            if tech is not None:
+                r = timing.get((tech, nv, case, lcfg))
+                return None if r is None else _ms(r)
+            values = sorted(_ms(r) for (t, n, c, l), r in timing.items()
+                            if (n, c, l) == (nv, case, lcfg))
+            if not values:
+                return None
+            mid = len(values) // 2
+            return values[mid] if len(values) % 2 else \
+                (values[mid - 1] + values[mid]) / 2
+
+        def fmt(v, digits=3):
+            return "—" if v is None else f"{v:.{digits}f}"
+
+        stats = [("median", [cell(nv) for nv in nv_list])]
+        stats += [(t, [cell(nv, t) for nv in nv_list])
+                  for t in SUMMARY_TECHNIQUES]
+        ratios = [None if cell(nv, "baseline") in (None, 0.0)
+                  or cell(nv, "projected_solid_angle") is None
+                  else cell(nv, "projected_solid_angle")
+                  / cell(nv, "baseline") for nv in nv_list]
+        for name, values in stats:
+            lines.append(f"| {case} {lcfg} | {name} | "
+                         + " | ".join(fmt(v) for v in values) + " |")
+        lines.append(f"| {case} {lcfg} | PSA / baseline | "
+                     + " | ".join(fmt(v, 4) for v in ratios) + " |")
+    lines += [
+        "",
+        "Steps up in vertex count (from each count to the next) at which "
+        "a technique's ms/frame rose, of the steps measured:",
+        "",
+        "| technique | " + " | ".join(f"{c} {l}" for c, l in CELLS) + " |",
+        "|---|" + "---|" * len(CELLS),
+    ]
+    for tech in techs:
+        cells = []
+        for case, lcfg in CELLS:
+            ms = [timing.get((tech, nv, case, lcfg)) for nv in nv_list]
+            steps = [(a, b) for a, b in zip(ms, ms[1:])
+                     if a is not None and b is not None]
+            rose = sum(_ms(b) > _ms(a) for a, b in steps)
+            cells.append(f"{rose}/{len(steps)}" if steps else "—")
+        lines.append(f"| {tech} | " + " | ".join(cells) + " |")
+    lines.append("")
+    return lines
+
+
+def _window_summary(windows_path: str) -> list:
+    """The harness median against the window of the same Application
+    (tools/sweep_check.py's JSON lines; the latest line per experiment):
+    per timing cell the rows, the least and largest ratio, and the rows
+    more than 5% off."""
+    latest = {}
+    with open(windows_path) as f:
+        for line in f:
+            if line.strip():
+                row = json.loads(line)
+                latest[row["index"]] = row
+    cells: dict = {}
+    for index in sorted(latest):
+        cells.setdefault(latest[index]["cell"], []).append(latest[index])
+    lines = [
+        "### Harness median against the window",
+        "",
+        "Each sweep row's harness median over the window ms/frame of the "
+        "same Application (tools/sweep_check.py: 40 frames, 3 in flight, "
+        "host clock until the last retires), by timing cell.",
+        "",
+        "| cell | rows | least | largest | more than 5% off | device |",
+        "|---|---|---|---|---|---|",
+    ]
+    for cell, rows in cells.items():
+        ratios = [r["ratio"] for r in rows]
+        off = [str(r["index"]) for r in rows if abs(r["ratio"] - 1) > 0.05]
+        devices = sorted({r["card"] for r in rows})
+        lines.append(f"| {cell.removeprefix('timings_').strip('_')} | "
+                     f"{len(rows)} | "
+                     f"{min(ratios):.4f} | {max(ratios):.4f} | "
+                     f"{', '.join(off) or 'none'} | {'; '.join(devices)} |")
+    lines.append("")
+    return lines
+
+
 def write_report(csv_path: str, out_path: str,
-                 rmse_path: str | None = None) -> int:
+                 rmse_path: str | None = None,
+                 windows_path: str | None = None) -> int:
     """Write the report of csv_path (and of rmse_path, default rmse.csv
-    beside it, where it exists) to out_path; returns the experiments
+    beside it, where it exists; and of windows_path, tools/sweep_check.py's
+    JSON lines, where given) to out_path; returns the experiments
     reported."""
     with open(csv_path) as f:
         rows = list(csv.DictReader(f))
@@ -145,6 +265,11 @@ def write_report(csv_path: str, out_path: str,
                 lines.append(f"| {tech} | " + " | ".join(cells) + " |")
             lines.append("")
 
+    if timing and len(nvs) > 1:
+        lines += _vertex_count_summary(timing, sorted(nvs))
+    if windows_path:
+        lines += _window_summary(windows_path)
+
     # --- RMSE self-reference table (BASELINE configs 1-3) -----------------
     if rmse_path is None:
         rmse_path = os.path.join(os.path.dirname(csv_path) or ".",
@@ -231,8 +356,11 @@ def main(argv=None) -> int:
         "data", "experiments", "RESULTS_torch.md"))
     parser.add_argument("--rmse-csv", default=os.path.join(
         "results", "rmse_torch.csv"))
+    parser.add_argument("--windows", default=None,
+                        help="tools/sweep_check.py's --jsonl lines: each "
+                        "sweep row's harness median against its window")
     args = parser.parse_args(argv)
-    n = write_report(args.csv, args.output, args.rmse_csv)
+    n = write_report(args.csv, args.output, args.rmse_csv, args.windows)
     print(f"{n} experiments -> {args.output}")
     return 0
 

@@ -41,12 +41,6 @@ from ..kernels import build
 from . import bench_frame
 
 
-def vertex_count(experiment) -> int:
-    """The light vertex count of a timing-sweep experiment's layout
-    ('timing:<vertex count>:<case>:<light count>')."""
-    return int(experiment.light_layout.split(":")[1])
-
-
 def stamp_quantiles(deltas_s) -> dict:
     """Quantiles, least and largest of the stamp deltas, in ms."""
     ms = np.asarray(deltas_s, dtype=np.float64) * 1e3
@@ -111,13 +105,10 @@ def main(argv=None) -> int:
             raise SystemExit(f"experiment {i} is not a timing-sweep one")
     card = harness.card_description(device)
     os.makedirs(os.path.dirname(args.results_csv) or ".", exist_ok=True)
-    techniques = sorted({e.settings.polygon_sampling_technique.name
-                         for _, e in picked})
-    counts = sorted({vertex_count(e) for _, e in picked})
-    wall = build.build_many(bench_frame.sweep_jobs(techniques, counts))
-    print(json.dumps({"card": card, "k5_libraries": len(techniques)
-                      * len(counts), "build_wall_s": round(wall, 2)}),
-          flush=True)
+    jobs = bench_frame.sweep_jobs([e for _, e in picked])
+    wall = build.build_many(jobs)
+    print(json.dumps({"card": card, "k5_libraries": len(jobs),
+                      "build_wall_s": round(wall, 2)}), flush=True)
     beyond = []
     worst = 0.0
     for i, e in picked:

@@ -51,7 +51,8 @@ def main(argv=None) -> int:
     cases = [("K4", "bench", bench.capture_inputs(scene, static, s)
               ["fused_shading"])]
     for cell, exp in bench.sweep_experiments(data_dir, SWEEP_TECHNIQUES):
-        _, k5_args = bench.capture_sweep(torch, data_dir, exp)
+        _, frame = bench.experiment_frame(torch, data_dir, exp)
+        k5_args = frame()["fused_resolved"]
         tech = exp.settings.polygon_sampling_technique.value
         cases.append(("K5", f"{cell}/{tech}", k5_args))
     jobs = []

@@ -92,19 +92,10 @@ def base_inputs(data_dir: str) -> dict:
     for i, run in enumerate(RUNS):
         s = run_settings(*run[1:])
         captured = {}
-
-        def recorder(name, fn):
-            def call(*args):
-                captured[name] = args
-                return fn(*args)
-            return call
-
         with torch.no_grad():
             pipeline.render_frame(
                 scene, static, bench.camera(), s, WIDTH, HEIGHT,
-                bench.noise_numbers(), pipeline.FrameKernels(*(
-                    recorder(f.name, getattr(pipeline.KERNELS, f.name))
-                    for f in dataclasses.fields(pipeline.FrameKernels))))
+                bench.noise_numbers(), bench.recording_kernels(captured))
         planes, noise, lights, st, s = captured[
             "fused_shading" if run[0] == "K4" else "fused_resolved"]
         idx = torch.nonzero(bench.hit_mask(planes))[:, 0]
