@@ -489,8 +489,9 @@ def run_arcade_phase(torch, device, data_dir, card, experiments, results):
 
 
 def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
-                     static, settings, counters, build_app, last):
+                     static, settings, build_app, last):
     """Phases 12-17: the modules ported last, at full size."""
+    from vulkan_renderer_tpu_torch.core import trace
     from vulkan_renderer_tpu_torch.experiments import harness, setups
     from vulkan_renderer_tpu_torch.parallel.tiles import render_frame_bands
     from vulkan_renderer_tpu_torch.render.screenshot import (
@@ -599,8 +600,7 @@ def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
     # --- 15. image-row bands: the bench frame as 4 bands on one card --------
     mark("15")
     whole = bench.render(scene, static, settings)
-    for fn in counters.values():
-        fn.launches = 0
+    trace.reset_counters()
     torch.cuda.synchronize()
     start = time.perf_counter()
     banded = render_frame_bands(["cuda:0"] * BANDS, scene, static,
@@ -608,7 +608,7 @@ def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
                                 bench.HEIGHT, bench.noise_numbers())
     torch.cuda.synchronize()
     band_ms = (time.perf_counter() - start) * 1e3
-    band_launches = {name: fn.launches for name, fn in counters.items()}
+    band_launches = trace.launch_counts()
     equal = bool(torch.equal(banded, whole))
     log(f"bench frame as {BANDS} bands of {bench.HEIGHT // BANDS} rows on "
         f"cuda:0: bit-equal to the whole frame {equal}, launches "
@@ -826,12 +826,13 @@ def run_gate_phase(device, card):
     print(json.dumps({"anyhit_gate": rows, "card": card}), flush=True)
 
 
-def run_entry_phase(torch, np, device, data_dir, card, settings, counters):
+def run_entry_phase(torch, np, device, data_dir, card, settings):
     """Phase 22: the measuring entry points: the bench entry, its stages,
     its cluster sizes, and the harness at the reference protocol."""
     import subprocess
 
     from vulkan_renderer_tpu_torch import bench as entry
+    from vulkan_renderer_tpu_torch.core import trace
     from vulkan_renderer_tpu_torch.experiments import harness
     from vulkan_renderer_tpu_torch.render import pipeline
     from vulkan_renderer_tpu_torch.render import trace_kernel as tk
@@ -874,10 +875,9 @@ def run_entry_phase(torch, np, device, data_dir, card, settings, counters):
     mark("22b")
     frame = entry.BenchFrame(entry.parse_args(["--data", data_dir]))
     frame.sync_latency_ms(1)
-    for fn in counters.values():
-        fn.launches = 0
+    trace.reset_counters()
     pipelined = frame.pipelined_ms(10, 3124705)
-    entry_launches = {name: fn.launches for name, fn in counters.items()}
+    entry_launches = trace.launch_counts()
     log(f"bench entry, 10 pipelined frames in this process: {pipelined:.3f} "
         f"ms/frame, launches {entry_launches} [{card}]")
     for name in ("K1", "K2", "K3", "K4"):
@@ -966,8 +966,7 @@ def run_entry_phase(torch, np, device, data_dir, card, settings, counters):
     os.makedirs(os.path.dirname(csv_path), exist_ok=True)
     if os.path.exists(csv_path):
         os.remove(csv_path)
-    for fn in counters.values():
-        fn.launches = 0
+    trace.reset_counters()
     protocol_rows = []
     for index in PROTOCOL_EXPERIMENTS:
         row = sweep_check.measure(index, experiments[index], csv_path, card,
@@ -983,7 +982,7 @@ def run_entry_phase(torch, np, device, data_dir, card, settings, counters):
         check(abs(row["ratio"] - 1.0) <= PROTOCOL_RTOL,
               f"experiment {index}: the harness median parts from the "
               f"window")
-    protocol_launches = {name: fn.launches for name, fn in counters.items()}
+    protocol_launches = trace.launch_counts()
     log(f"reference-protocol runs' launches: {protocol_launches}")
     check(protocol_launches["K5"] > 0 and protocol_launches["K4"] == 0,
           "the reference-protocol sweep runs did not launch K5 alone")
@@ -1016,6 +1015,7 @@ def run():
     sys.path.insert(0, ROOT)
     import numpy as np
 
+    from vulkan_renderer_tpu_torch.core import trace
     from vulkan_renderer_tpu_torch.core.device import get_device
     from vulkan_renderer_tpu_torch.experiments import harness, setups
     from vulkan_renderer_tpu_torch.kernels import build
@@ -1248,15 +1248,11 @@ def run():
 
     # --- 6. the bench frame: counted main-path run ---------------------------
     mark("6")
-    counters = {"K1": tk.trace_anyhit, "K2": tk.trace_closest,
-                "K3": tk.closest_attrs, "K4": fused.fused_light_shading,
-                "K5": fused.fused_light_shading_resolved}
-    for fn in counters.values():
-        fn.launches = 0
+    trace.reset_counters()
     with torch.no_grad():
         image = bench.render(scene, static, settings)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = trace.launch_counts()
     log(f"bench frame launches: {launches}")
     for name in ("K1", "K2", "K3", "K4"):
         check(launches[name] > 0,
@@ -1500,8 +1496,7 @@ def run():
         app.render_frame_sync = keep_frame
         return app
 
-    for fn in counters.values():
-        fn.launches = 0
+    trace.reset_counters()
     sweep_ms = {}
     # Every technique of the two sweep cells; PSA and Arvo PSA of the
     # holding cells.
@@ -1540,7 +1535,7 @@ def run():
             f"window {window:.3f} ms/frame ({bench.WINDOW_FRAMES} frames, "
             f"3 in flight), mean {mean:.4f} [{card}]")
         torch.cuda.empty_cache()
-    sweep_launches = {name: fn.launches for name, fn in counters.items()}
+    sweep_launches = trace.launch_counts()
     log(f"timing sweep launches: {sweep_launches}")
     check(sweep_launches["K5"] > 0, "the timing sweep did not launch K5")
     check(sweep_launches["K4"] == 0, "the timing sweep launched K4")
@@ -1556,12 +1551,11 @@ def run():
     # --- 9. the bench frame on the per-pixel path: counted run --------------
     mark("9")
     pp_static = dataclasses.replace(static, fused="off")
-    for fn in counters.values():
-        fn.launches = 0
+    trace.reset_counters()
     with torch.no_grad():
         pp_image = bench.render(scene, pp_static, settings)
     torch.cuda.synchronize()
-    pp_launches = {name: fn.launches for name, fn in counters.items()}
+    pp_launches = trace.launch_counts()
     log(f"per-pixel bench frame launches: {pp_launches}")
     for name in ("K1", "K2", "K3"):
         check(pp_launches[name] > 0,
@@ -1609,8 +1603,7 @@ def run():
 
     # --- 10. the experiments only the per-pixel path renders ----------------
     mark("10")
-    for fn in counters.values():
-        fn.launches = 0
+    trace.reset_counters()
     experiment_rows = {}
     for index in (6, 7, 8, 46, 315, 324, 325, 326, 327):
         exp = experiments[index]
@@ -1647,7 +1640,7 @@ def run():
             f"{pink_share:.6f}, one profiled frame {profiled} [{card}]")
         check(peak < 40.0, f"experiment {index} took {peak:.1f} GiB")
         torch.cuda.empty_cache()
-    exp_launches = {name: fn.launches for name, fn in counters.items()}
+    exp_launches = trace.launch_counts()
     log(f"per-pixel experiments launches: {exp_launches}")
     for name in ("K1", "K2", "K3"):
         check(exp_launches[name] > 0,
@@ -1675,11 +1668,11 @@ def run():
               "the CPU's")
 
     run_later_phases(torch, np, device, data_dir, card, experiments,
-                     scene, static, settings, counters, build_app, last)
+                     scene, static, settings, build_app, last)
     run_closing_phases(torch, device, data_dir, card, scene, static,
                        settings)
     run_gate_phase(device, card)
-    run_entry_phase(torch, np, device, data_dir, card, settings, counters)
+    run_entry_phase(torch, np, device, data_dir, card, settings)
 
     sources = {
         "K1": ("vulkan_renderer_tpu_torch/csrc/anyhit.cu",

@@ -2,8 +2,10 @@
 (K1-K5 and a whole frame), on a tiny city, the roughness-planes stand-in
 and K2 on a floor built to provoke its prune; the per-pixel shading path
 on the card against the same frame on the CPU, one configuration of each
-class (tools/per_pixel_check.py, which states that tolerance); and the
-shading-path dispatch by the launch counters. Marked gpu: they skip where
+class (tools/per_pixel_check.py, which states that tolerance); the
+shading-path dispatch by the launch counters (core/trace.py); and the
+program's spans: their device time against the frame's, and no device
+operation of their own. Marked gpu: they skip where
 torch.cuda.is_available() is False. This file imports only the port (no
 JAX, nothing of the JAX package), so on a machine with a card and no JAX
 it runs without the repository's conftest:
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 from vulkan_renderer_tpu_torch.assets.noise import white_noise_table
+from vulkan_renderer_tpu_torch.core import trace
 from vulkan_renderer_tpu_torch.core.settings import (
     MisHeuristic, PolygonSamplingTechnique as Tech, RenderSettings,
     SamplingStrategy)
@@ -284,14 +287,10 @@ def test_per_pixel_frame_matches_cpu(per_pixel_scenes, name):
 
 
 def _launches(scene, static, settings, camera, w=32, h=16):
-    counters = {"K1": tk.trace_anyhit, "K2": tk.trace_closest,
-                "K3": tk.closest_attrs, "K4": fused.fused_light_shading,
-                "K5": fused.fused_light_shading_resolved}
-    for fn in counters.values():
-        fn.launches = 0
+    trace.reset_counters()
     pipeline.render_frame(scene, static, camera, settings, w, h)
     torch.cuda.synchronize()
-    return {name: fn.launches for name, fn in counters.items()}
+    return trace.launch_counts()
 
 
 @pytest.mark.parametrize("shadows", [False, True])
@@ -352,11 +351,62 @@ def test_dispatch_has_no_host_wait(tmp_path, shadows):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
     app = _sweep_application(tmp_path, shadows)
-    kernel = fused.fused_light_shading if shadows \
-        else fused.fused_light_shading_resolved
-    kernel.launches = 0
+    kernel = "K4" if shadows else "K5"
+    trace.reset_counters()
     host_waits.dispatch_without_host_wait(app, 2)
-    assert kernel.launches >= 3
+    assert trace.launch_counts()[kernel] >= 3
+
+
+def test_stage_spans_sum_to_the_frame_device_interval(tmp_path):
+    """With tracing on (core/trace.py), the 1-light 1920x1080 sweep frame
+    (experiment 282, whose device paces the frame loop) is bit-equal to
+    the untraced frame, and the device ms of the spans directly inside
+    each frame's frame.dispatch (frame.constants and the stages) sum to
+    the frame's device interval, its end event since the frame before's,
+    within 5%."""
+    from vulkan_renderer_tpu_torch.experiments import harness, setups
+    from vulkan_renderer_tpu_torch.tools import frame_spans
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    exp = harness.create_experiment_list()[282]
+    app = setups.build_default_application(exp, str(tmp_path), device="cuda")
+    seed = app.noise_seed
+    untraced = app.render_frame_sync()
+    trace.RECORDER.clear()
+    trace.enable()
+    try:
+        app.noise_seed = seed
+        traced = app.render_frame_sync()
+        for _ in range(16):
+            app.render_frame_async()
+        app.render_frame_sync()
+    finally:
+        trace.disable()
+    assert torch.equal(traced, untraced)
+    intervals = list(trace.RECORDER.intervals)[4:]
+    ratios = frame_spans.stage_interval_ratios(list(trace.RECORDER.spans),
+                                               intervals)
+    trace.RECORDER.clear()
+    assert len(ratios) == len(intervals) >= 10
+    assert all(0.95 <= r <= 1.05 for r in ratios), ratios
+
+
+def test_tracing_adds_no_device_operation(tmp_path):
+    """Under torch.profiler, frames make as many device operations with
+    tracing on as off (the program's ranges, which the profiler also shows
+    on the device, are no operation), and off, none of the program's
+    ranges shows."""
+    from vulkan_renderer_tpu_torch.tools import frame_spans
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    app = _sweep_application(tmp_path, False)
+    app.render_frame_sync()
+    ops, ranges = {}, {}
+    for traced in (False, True):
+        ops[traced], ranges[traced] = frame_spans.profiled(
+            torch, app, trace, 2, traced)
+    assert len(ops[True]) == len(ops[False]) > 0
+    assert not ranges[False] and ranges[True]
 
 
 @pytest.mark.parametrize("case", ["k4", "k5", "per_pixel"])
@@ -393,16 +443,14 @@ def test_bands_on_card(planes_scene):
     settings = RenderSettings(trace_shadow_rays=True)
     static = SceneStatic.for_scene(scene)
     whole = pipeline.render_frame(scene, static, camera, settings, 64, 32)
-    counters = {"K1": tk.trace_anyhit, "K2": tk.trace_closest,
-                "K3": tk.closest_attrs, "K4": fused.fused_light_shading}
-    for fn in counters.values():
-        fn.launches = 0
+    trace.reset_counters()
     banded = render_frame_bands(["cuda:0"] * 4, scene, static, camera,
                                 settings, 64, 32)
     torch.cuda.synchronize()
     assert torch.equal(banded, whole)
     groups = len(fused.vertex_groups(static))
-    assert {n: fn.launches for n, fn in counters.items()} == \
+    launches = trace.launch_counts()
+    assert {n: launches[n] for n in ("K1", "K2", "K3", "K4")} == \
         {"K1": 4, "K2": 4, "K3": 4, "K4": 4 * groups}
 
 

@@ -11,11 +11,13 @@ application layer):
 - The frame loop keeps N frames in flight (main.h:359-390 fence ring):
   PyTorch launches asynchronously, so after each frame a CUDA event is
   recorded, and the event of the frame N frames old is waited on before
-  the frame timer is stamped.
+  the frame timer is stamped. Each dispatched frame gets an index, which
+  its spans carry (core/trace.py: frame.dispatch, frame.constants and
+  frame.retire here, the stages in render/pipeline.py).
 
-The JAX Application's autotune_exactness and its uncertain/overflow
-counters have no counterpart: the CUDA tracers are exact by construction.
-frame_stats stays at zeros so the harness's CSV columns are kept.
+The JAX Application's autotune_exactness and its frame_stats
+(uncertain/overflow counters) have no counterpart: the CUDA tracers are
+exact by construction, and the harness's CSV writes those columns as 0.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..render.pipeline import make_frame_constants, render_frame_constants
 from ..render.shading import SceneStatic
 from ..scene.camera import FirstPersonCamera
 from ..scene.scene import load_scene
+from . import trace
 from .device import get_device
 from .settings import RenderSettings
 from .timer import FrameTimer
@@ -85,8 +88,7 @@ class Application:
         self.noise_seed = INITIAL_RANDOM_SEED
         self.scene = None
         self.static: SceneStatic | None = None
-        self.frame_stats = {"primary_uncertain": 0, "shadow_overflow": 0,
-                            "frames": 0}
+        self.frame_index = 0  # the index of the next frame dispatched
         self._in_flight: deque = deque()
         self.update(ApplicationUpdates(startup=True))
 
@@ -138,27 +140,34 @@ class Application:
     # -- frame loop --------------------------------------------------------
 
     def _dispatch(self):
-        self.noise_seed, randoms = advance_noise_random_numbers(
-            self.noise_seed,
-            self.settings.animate_noise and self.settings.frame_bits == 0)
-        constants = make_frame_constants(
-            self.scene_spec.camera, self.width, self.height, self.settings,
-            randoms, self.device)
-        with torch.no_grad():
-            frame = render_frame_constants(self.scene, self.static,
-                                           self.settings, constants,
-                                           self.width, self.height)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        self._in_flight.append((frame, event))
+        index = self.frame_index
+        self.frame_index += 1
+        with trace.span("frame.dispatch", frame=index, device=self.device):
+            with trace.span("frame.constants"):
+                self.noise_seed, randoms = advance_noise_random_numbers(
+                    self.noise_seed, self.settings.animate_noise
+                    and self.settings.frame_bits == 0)
+                constants = make_frame_constants(
+                    self.scene_spec.camera, self.width, self.height,
+                    self.settings, randoms, self.device)
+            # Called through this module's name, which a measuring harness
+            # may wrap.
+            with torch.no_grad():
+                frame = render_frame_constants(self.scene, self.static,
+                                               self.settings, constants,
+                                               self.width, self.height)
+            event = None
+            if self.device.type == "cuda":
+                event = trace.frame_end_event(index)
+                event.record(torch.cuda.current_stream(self.device))
+        self._in_flight.append((index, frame, event))
 
     def _retire(self):
-        frame, event = self._in_flight.popleft()
-        if event is not None:
-            event.synchronize()
-        self.frame_stats["frames"] += 1
+        index, frame, event = self._in_flight.popleft()
+        with trace.span("frame.retire", frame=index):
+            if event is not None:
+                event.synchronize()
+        trace.frame_retired(index)
         return frame
 
     def render_frame_async(self):

@@ -390,11 +390,8 @@ def run_experiments(experiments, build_application=None, *,
         path = root + (".hdr" if experiment.hdr else ext)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         take_screenshot(path, image.detach().cpu().numpy())
-        stats = getattr(app, "frame_stats", None) or {}
-        results.append(ExperimentResult(
-            experiment, frame_ms, path, stand_in,
-            primary_uncertain=int(stats.get("primary_uncertain", 0)),
-            shadow_overflow=int(stats.get("shadow_overflow", 0))))
+        results.append(ExperimentResult(experiment, frame_ms, path,
+                                        stand_in))
     return results
 
 

@@ -32,6 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.device import to_device_async
 from ..core.settings import (ErrorDisplay, MisHeuristic,
                              PolygonSamplingTechnique, RenderSettings,
@@ -658,9 +659,8 @@ def launch_kernel(kernel: str, lib, planes, noise: FrameNoise,
                   op_counts=None) -> None:
     """Launch K4 or K5 (`kernel`) from library `lib` over every vertex-count
     group: the first launch writes `out`, the others add to it. Each
-    launch adds one to the kernel's wrapper's `launches`."""
+    launch adds one to the counter f"{kernel}.launches" (core/trace.py)."""
     entry = getattr(lib, _KERNELS[kernel][1])
-    counter = _COUNTERS[kernel]
     table = noise.table
     for first, (nv, ids) in enumerate(vertex_groups(static)):
         ids_t = to_device_async(torch.tensor(ids, dtype=torch.int32),
@@ -676,7 +676,7 @@ def launch_kernel(kernel: str, lib, planes, noise: FrameNoise,
                 None if op_counts is None else build.ptr(op_counts),
                 build.stream(planes.device))
         build.check_launch(err, _KERNELS[kernel][1])
-        counter.launches += 1
+        trace.count(f"{kernel}.launches")
 
 
 def load_kernel(kernel: str, static, settings, extra_defines=None):
@@ -726,9 +726,6 @@ def fused_light_shading(planes: torch.Tensor, noise: FrameNoise,
     return out
 
 
-fused_light_shading.launches = 0
-
-
 def fused_light_shading_resolved(planes: torch.Tensor, noise: FrameNoise,
                                  light_scalars: torch.Tensor, static,
                                  settings: RenderSettings,
@@ -752,8 +749,3 @@ def fused_light_shading_resolved(planes: torch.Tensor, noise: FrameNoise,
     launch_kernel("K5", lib, planes, noise, light_scalars, static, settings,
                   out, op_counts)
     return out.T
-
-
-fused_light_shading_resolved.launches = 0
-# The launch counts that launch_kernel adds to, per kernel.
-_COUNTERS = {"K4": fused_light_shading, "K5": fused_light_shading_resolved}

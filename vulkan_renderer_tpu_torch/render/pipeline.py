@@ -25,7 +25,9 @@ with the Pallas tracers, stage by stage:
 
 A frame may be one band of image rows (row_offset; parallel/tiles.py).
 stop_after ends a frame after one of STAGES, for timing its stages
-(render_frame_constants says what each cut includes).
+(render_frame_constants says what each cut includes). Each stage a frame
+passes is a span of core/trace.py under its STAGES name, and the resolve
+one named "resolve".
 
 Everything between the kernels is plain PyTorch on the scene's device.
 """
@@ -38,6 +40,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.device import device_constant, to_device_async
 from ..core.settings import RenderSettings
 from ..ops.intersect import polygonal_light_ray_intersection
@@ -138,29 +141,32 @@ def pixel_preamble(scene, static: SceneStatic, settings: RenderSettings,
     data = finish_shading_data(scene, constants, attrs, position)
     base = torch.zeros_like(ray_dirs)
     if settings.show_polygonal_lights:
-        # Textured lights look their radiance up along the view ray.
-        view_dir = normalize(ray_dirs) if any(static.light_texturing) \
-            else None
-        # Display the light sources themselves (glsl:841-850).
-        ones = torch.ones_like(ray_dirs[:, :1])
-        ray_end = torch.where(hit[:, None],
-                              torch.cat([data.position, ones], dim=1),
-                              torch.cat([ray_dirs, 0.0 * ones], dim=1))
-        lights = scene.lights
-        for i in range(static.light_count):
-            light_hit = polygonal_light_ray_intersection(
-                lights.plane[i], lights.vertices_world_space[i],
-                static.light_vertex_counts[i], constants.camera_position,
-                ray_end)
-            radiance = get_polygon_radiance(
-                scene, i, static.light_texturing[i], view_dir,
-                constants.camera_position)
-            base = base + torch.where(light_hit[:, None], radiance, 0.0)
+        with trace.span("preamble.display"):
+            # Textured lights look their radiance up along the view ray.
+            view_dir = normalize(ray_dirs) if any(static.light_texturing) \
+                else None
+            # Display the light sources themselves (glsl:841-850).
+            ones = torch.ones_like(ray_dirs[:, :1])
+            ray_end = torch.where(hit[:, None],
+                                  torch.cat([data.position, ones], dim=1),
+                                  torch.cat([ray_dirs, 0.0 * ones], dim=1))
+            lights = scene.lights
+            for i in range(static.light_count):
+                light_hit = polygonal_light_ray_intersection(
+                    lights.plane[i], lights.vertices_world_space[i],
+                    static.light_vertex_counts[i], constants.camera_position,
+                    ray_end)
+                radiance = get_polygon_radiance(
+                    scene, i, static.light_texturing[i], view_dir,
+                    constants.camera_position)
+                base = base + torch.where(light_hit[:, None], radiance, 0.0)
     f0 = data.fresnel_0
     fresnel_luminance = f0[:, 0] * 0.2126 + f0[:, 1] * 0.7152 \
         + f0[:, 2] * 0.0722
-    ltc = get_ltc_coefficients(scene.ltc, fresnel_luminance, data.roughness,
-                               data.position, data.normal, data.outgoing)
+    with trace.span("preamble.ltc"):
+        ltc = get_ltc_coefficients(scene.ltc, fresnel_luminance,
+                                   data.roughness, data.position,
+                                   data.normal, data.outgoing)
     return data, ltc, base
 
 
@@ -230,86 +236,102 @@ def render_frame_constants(scene, static: SceneStatic,
     fused = use_fused(static, settings)
 
     cam = constants.camera_position
-    ray_dirs = camera_rays(constants, width, height, row_offset)
+    with trace.span("rays"):
+        ray_dirs = camera_rays(constants, width, height, row_offset)
     if stop_after == "rays":
         return _stage_stub(width, height, ray_dirs)
     p = ray_dirs.shape[0]
-    origins = cam.expand(p, 3).contiguous()
-    prim, t_hit = kernels.trace_closest(
-        scene.clusters, origins, ray_dirs,
-        torch.full((p,), float("inf"), device=ray_dirs.device))
-    dcam = constants.pixel_to_ray[:, :2].T.contiguous()
-    attrs = kernels.closest_attrs(scene.clusters, prim, origins, ray_dirs, dcam)
+    with trace.span("trace"):
+        origins = cam.expand(p, 3).contiguous()
+        prim, t_hit = kernels.trace_closest(
+            scene.clusters, origins, ray_dirs,
+            torch.full((p,), float("inf"), device=ray_dirs.device))
+        dcam = constants.pixel_to_ray[:, :2].T.contiguous()
+        attrs = kernels.closest_attrs(scene.clusters, prim, origins,
+                                      ray_dirs, dcam)
     if stop_after == "trace":
         return _stage_stub(width, height, prim)
 
-    if fused:
-        noise = frame_noise(
-            scene.noise_table, width, row_offset + height,
-            max(pairs_per_light(settings) * static.light_count, 1),
-            scene.noise_texture_index_mask, constants.noise_random_numbers)
-        if row_offset:
-            # The band's frame pixels (FrameNoise.pixels): K4 and K5 read
-            # the noise at these, as their plain versions do.
-            noise = noise.subset(torch.arange(
-                row_offset * width, (row_offset + height) * width,
-                device=ray_dirs.device))
-    else:
-        noise = frame_noise(
-            scene.noise_table, width, row_offset + height,
-            max(pairs_per_light(settings) * static.light_count
-                + linear_pairs_per_light(settings)
-                * static.linear_light_count, 1),
-            scene.noise_texture_index_mask, constants.noise_random_numbers)
+    with trace.span("noise"):
+        if fused:
+            noise = frame_noise(
+                scene.noise_table, width, row_offset + height,
+                max(pairs_per_light(settings) * static.light_count, 1),
+                scene.noise_texture_index_mask,
+                constants.noise_random_numbers)
+            if row_offset:
+                # The band's frame pixels (FrameNoise.pixels): K4 and K5
+                # read the noise at these, as their plain versions do.
+                noise = noise.subset(torch.arange(
+                    row_offset * width, (row_offset + height) * width,
+                    device=ray_dirs.device))
+        else:
+            noise = frame_noise(
+                scene.noise_table, width, row_offset + height,
+                max(pairs_per_light(settings) * static.light_count
+                    + linear_pairs_per_light(settings)
+                    * static.linear_light_count, 1),
+                scene.noise_texture_index_mask,
+                constants.noise_random_numbers)
     if stop_after == "noise":
         return _stage_stub(width, height, prim, noise.fetches)
 
-    hit = prim != -1
-    t_safe = torch.where(hit & torch.isfinite(t_hit), t_hit, 0.0)
-    position = cam + t_safe[:, None] * ray_dirs
-    data, ltc, base0 = pixel_preamble(scene, static, settings, constants,
-                                      hit, ray_dirs, attrs, position)
+    with trace.span("preamble"):
+        hit = prim != -1
+        t_safe = torch.where(hit & torch.isfinite(t_hit), t_hit, 0.0)
+        position = cam + t_safe[:, None] * ray_dirs
+        data, ltc, base0 = pixel_preamble(scene, static, settings, constants,
+                                          hit, ray_dirs, attrs, position)
     if fused and stop_after == "preamble":
         return _stage_stub(width, height, base0, *_fields(data),
                            *_fields(ltc))
 
-    if fused:
-        light_scalars = pack_light_scalars(scene.lights, static.light_count)
-        planes = pack_planes(data, ltc, hit)
-        shadows = settings.trace_shadow_rays
-        slots = static.light_count * rays_per_light(settings)
-        if shadows:
-            out = kernels.fused_shading(planes, noise, light_scalars, static,
-                                        settings)
+    with trace.span("shade"):
+        if fused:
+            with trace.span("shade.pack"):
+                light_scalars = pack_light_scalars(scene.lights,
+                                                   static.light_count)
+                planes = pack_planes(data, ltc, hit)
+            shadows = settings.trace_shadow_rays
+            slots = static.light_count * rays_per_light(settings)
+            if shadows:
+                out = kernels.fused_shading(planes, noise, light_scalars,
+                                            static, settings)
+            else:
+                # No shadow rays: every slot's visibility is 1, so K5
+                # accumulates the color in registers and no slot plane is
+                # stored (:503-514).
+                colors = base0 + kernels.fused_resolved(
+                    planes, noise, light_scalars, static, settings)
         else:
-            # No shadow rays: every slot's visibility is 1, so K5
-            # accumulates the color in registers and no slot plane is
-            # stored (:503-514).
-            colors = base0 + kernels.fused_resolved(
-                planes, noise, light_scalars, static, settings)
-    else:
-        slots = rays_per_light(settings) * static.light_count \
-            + linear_rays_per_light(settings) * static.linear_light_count
-        shadows = settings.trace_shadow_rays and slots > 0
-        out = _shade_per_pixel(scene, static, settings, constants, hit, data,
-                               ltc, noise, slots, shadows, row_offset * width)
-        if not shadows:
-            colors = base0 + out
+            slots = rays_per_light(settings) * static.light_count \
+                + linear_rays_per_light(settings) \
+                * static.linear_light_count
+            shadows = settings.trace_shadow_rays and slots > 0
+            out = _shade_per_pixel(scene, static, settings, constants, hit,
+                                   data, ltc, noise, slots, shadows,
+                                   row_offset * width)
+            if not shadows:
+                colors = base0 + out
 
     if not shadows:
         if stop_after in ("shade", "shadow"):
             return _stage_stub(width, height, colors)
-        return _resolve(colors, constants, settings, width, height)
+        with trace.span("resolve"):
+            return _resolve(colors, constants, settings, width, height)
     if stop_after == "shade":
         return _stage_stub(width, height, base0, out)
-    rays = _shadow_megabatch(out, slots, hit, data.position, cam)
+    with trace.span("shadowrays"):
+        rays = _shadow_megabatch(out, slots, hit, data.position, cam)
     if stop_after == "shadowrays":
         return _stage_stub(width, height, base0, out, *rays)
-    occluded = kernels.trace_anyhit(scene.clusters, *rays)
+    with trace.span("shadow"):
+        occluded = kernels.trace_anyhit(scene.clusters, *rays)
     if stop_after == "shadow":
         return _stage_stub(width, height, base0, out, occluded)
-    colors = _shadow_combine(out, slots, occluded, base0)
-    return _resolve(colors, constants, settings, width, height)
+    with trace.span("resolve"):
+        colors = _shadow_combine(out, slots, occluded, base0)
+        return _resolve(colors, constants, settings, width, height)
 
 
 def _fields(record):

