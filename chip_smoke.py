@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 It
 1. prints the card (nvidia-smi name and power limit) and the versions;
-2. builds the CUDA kernels K1-K5 from vulkan_renderer_tpu_torch/csrc with
+2. builds the CUDA kernels K1-K6 from vulkan_renderer_tpu_torch/csrc with
    nvcc, one process per library, all at once (K4 and K5 for each of the
    13 techniques at every light vertex count the timing sweep renders, 3
    to 7, each count a body of its own; both under DIFFUSE_SPECULAR_MIS
@@ -27,6 +27,11 @@ It
    then counts the BVH tracers' box and triangle tests per ray with their
    counting builds (-DVR_COUNT_TESTS=1) over the whole bench frame, and
    K4's float operations with its counting build;
+4d. holds K6 (the pixel preamble) against its plain version at the bench
+   frame's shapes and at the 1-light 1920x1080 sweep cell's (experiment
+   282): NaN where the plain version is NaN, every other value bit for
+   bit; times K6 (beside its bound, its plane traffic) and the plain
+   version; and counts K6's launches in one frame of that cell (1);
 5. renders a 128x64 frame through the kernels and through the plain
    versions and compares the images;
 6. renders the bench frame (960x540, 1 spp, four quad street lights, PSA
@@ -70,8 +75,8 @@ It
    flight) and the card; phase 22 measures the frame time at the
    reference protocol;
 9. renders the bench frame on the per-pixel shading path (SceneStatic
-   fused="off": K1-K3 and plain PyTorch shading) with every launch counter
-   reset before and read after (K1, K2 and K3 must run, K4 and K5 must
+   fused="off": K1-K3, K6 and plain PyTorch shading) with every launch counter
+   reset before and read after (K1, K2, K3 and K6 must run, K4 and K5 must
    not), holds it against the kernel frame with shadows on (K4) and off
    (K5) at the CPU parity tests' frame tolerance (mean |sRGB difference|
    <= 1e-3, >= 99% of pixels within 1e-2), and times both paths; the
@@ -105,7 +110,7 @@ It
    the frame;
 15. renders the bench frame as 4 bands of 135 rows on cuda:0
    (parallel/tiles.py), counters reset before: bit-equal to the whole
-   frame, K1-K4 launched once per band;
+   frame, K1-K4 and K6 launched once per band;
 16. the RMSE table's configurations 1-3 (tools/rmse_table.py) at full
    size, cut to 8 spp against a 64-spp reference: each RMSE and ms per
    frame;
@@ -202,6 +207,11 @@ SLAB_OPS, ANYHIT_TRI_OPS, CLOSEST_TRI_OPS = 26, 55, 57
 # K1's sub-box gate (csrc/anyhit.cu grown_slab): the slab test plus the
 # two moves of each axis's entry and exit.
 ANYHIT_SUBBOX_OPS = SLAB_OPS + 6
+# K6's plane traffic per pixel, its bound: in, K3's 18 attribute planes,
+# prim, t_hit and the ray direction; out, the 62 shading planes.
+K6_PIXEL_BYTES = 4 * (18 + 1 + 1 + 3) + 4 * 62
+# Phase 4d's sweep frame: the 1-light 1920x1080 heptagon cell.
+PREAMBLE_EXPERIMENT = 282
 # K3's float32 operations per hit ray, counted from csrc/closest.cu
 # attrs_kernel as K4's and K5's counting builds count (csrc/count_ops.cuh:
 # add, sub, mul, div, sqrt, rsqrt, compare, max one each): barycentrics 42,
@@ -383,6 +393,57 @@ def capture_frame(torch, bench, exp, data_dir):
     captured = frame()
     torch.cuda.synchronize()
     return app, captured, allocated, torch.cuda.max_memory_allocated()
+
+
+def run_preamble_phase(torch, bench, captured, data_dir, card):
+    """Phase 4d: K6 against its plain version on the bench frame's inputs
+    (`captured`) and on those of the 1-light sweep cell's first frame;
+    K6's launches in one frame of that cell. Returns K6's entry of the
+    kernels line."""
+    from vulkan_renderer_tpu_torch.core import trace
+    from vulkan_renderer_tpu_torch.experiments import harness
+    from vulkan_renderer_tpu_torch.render import preamble
+    from vulkan_renderer_tpu_torch.tools import kernel_check
+    exp = harness.create_experiment_list()[PREAMBLE_EXPERIMENT]
+    app, sweep, _, _ = capture_frame(torch, bench, exp, data_dir)
+    rows, failed = {}, []
+    for shape, args in (("bench", captured["shading_planes"]),
+                        ("sweep", sweep["shading_planes"])):
+        got = preamble.shading_planes(*args)
+        plain_ms, want = cuda_once(
+            torch, lambda: preamble.shading_planes_plain(*args))
+        r = kernel_check.compare_planes(got, want)
+        pixels, hits = got.shape[1], int((args[3] >= 0).sum())
+        ms = bench.cuda_ms(torch, lambda: preamble.shading_planes(*args), 20)
+        bound = bound_ms(pixels * K6_PIXEL_BYTES, 0)
+        rows[shape] = dict(pixels=pixels, hits=hits, ms=ms,
+                           plain_ms=plain_ms, bound=bound, **r)
+        log(f"K6 preamble vs plain at the {shape} shapes ({pixels} px, "
+            f"{hits} hit): NaN mismatches {r['nan_mismatch']}, bit "
+            f"mismatches {r['bit_mismatch']} (tolerance 0), planes off "
+            f"{json.dumps(r['planes'])}; K6 {ms:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), plain {plain_ms:.2f} ms "
+            f"[{card}]")
+        if r["nan_mismatch"] or r["bit_mismatch"]:
+            failed.append(shape)
+    check(not failed, f"K6 disagrees with its plain version at {failed}")
+    trace.reset_counters()
+    app.render_frame_sync()
+    launches = trace.launch_counts()
+    log(f"one frame of experiment {PREAMBLE_EXPERIMENT}: launches "
+        f"{launches}")
+    check(launches["K6"] == 1, "a frame did not launch K6 once")
+    sweep_row = rows["sweep"]
+    return {"name": "K6", "route": "cuda",
+            "source": "vulkan_renderer_tpu_torch/csrc/preamble.cu",
+            "replaces": None, "launches": launches["K6"],
+            "max_abs_err": 0.0, "ms": round(sweep_row["ms"], 4),
+            "plain_ms": round(sweep_row["plain_ms"], 4),
+            "bound_ms": round(sweep_row["bound"][0], 5),
+            "bound_by": sweep_row["bound"][1], "library_ms": None,
+            "shape": f"{sweep_row['pixels']} pixels",
+            "bytes": sweep_row["pixels"] * K6_PIXEL_BYTES,
+            "bench_shape_ms": round(rows["bench"]["ms"], 4)}
 
 
 def run_arcade_phase(torch, device, data_dir, card, experiments, results):
@@ -615,7 +676,7 @@ def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
         f"{band_launches}, {band_ms:.3f} ms (one frame, host clock) "
         f"[{card}]")
     check(equal, "the banded bench frame differs from the whole frame")
-    for name in ("K1", "K2", "K3", "K4"):
+    for name in ("K1", "K2", "K3", "K4", "K6"):
         check(band_launches[name] == BANDS,
               f"{name} launched {band_launches[name]} times for "
               f"{BANDS} bands")
@@ -1223,6 +1284,10 @@ def run():
         f"{k4_ops} = {k4_ops / max(k4_hit_lights, 1):.1f} per hit "
         f"pixel-light; by stage and kind {json.dumps(k4_ops_table)}")
 
+    # --- 4d. K6 against its plain version ------------------------------------
+    mark("4d")
+    k6_entry = run_preamble_phase(torch, bench, captured, data_dir, card)
+
     # --- 5. small frame: kernels vs plain versions ---------------------------
     mark("5")
     with torch.no_grad():
@@ -1557,7 +1622,7 @@ def run():
     torch.cuda.synchronize()
     pp_launches = trace.launch_counts()
     log(f"per-pixel bench frame launches: {pp_launches}")
-    for name in ("K1", "K2", "K3"):
+    for name in ("K1", "K2", "K3", "K6"):
         check(pp_launches[name] > 0,
               f"{name} was not launched by the per-pixel bench frame")
     check(pp_launches["K4"] == pp_launches["K5"] == 0,
@@ -1642,7 +1707,7 @@ def run():
         torch.cuda.empty_cache()
     exp_launches = trace.launch_counts()
     log(f"per-pixel experiments launches: {exp_launches}")
-    for name in ("K1", "K2", "K3"):
+    for name in ("K1", "K2", "K3", "K6"):
         check(exp_launches[name] > 0,
               f"{name} was not launched by the per-pixel experiments")
     check(exp_launches["K4"] == exp_launches["K5"] == 0,
@@ -1756,6 +1821,7 @@ def run():
         elif plain_shape:
             entry.update(plain_shape=plain_shape)
         kernels.append(entry)
+    kernels.append(k6_entry)
     check_no_reference_modules()
     log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s "
         f"[{card}]")

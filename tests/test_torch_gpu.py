@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1-K5 and a whole frame), on a tiny city, the roughness-planes stand-in
-and K2 on a floor built to provoke its prune; the per-pixel shading path
+(K1-K6 and a whole frame), on a tiny city, the roughness-planes stand-in,
+the 1920x1080 sweep frame and K2 on a floor built to provoke its prune; the per-pixel shading path
 on the card against the same frame on the CPU, one configuration of each
 class (tools/per_pixel_check.py, which states that tolerance); the
 shading-path dispatch by the launch counters (core/trace.py); and the
@@ -32,13 +32,14 @@ from vulkan_renderer_tpu_torch.core.settings import (
     SamplingStrategy)
 from vulkan_renderer_tpu_torch.experiments.setups import (
     _regular_polygon, _scene_default_camera)
-from vulkan_renderer_tpu_torch.render import fused, pipeline
+from vulkan_renderer_tpu_torch.render import fused, pipeline, preamble
 from vulkan_renderer_tpu_torch.render import trace_kernel as tk
 from vulkan_renderer_tpu_torch.render.shading import SceneStatic
 from vulkan_renderer_tpu_torch.scene.camera import FirstPersonCamera
 from vulkan_renderer_tpu_torch.scene.lights import PolygonalLightSpec
 from vulkan_renderer_tpu_torch.scene.scene import load_scene
-from vulkan_renderer_tpu_torch.tools import kernel_check, per_pixel_check
+from vulkan_renderer_tpu_torch.tools import (bench_frame, kernel_check,
+                                             per_pixel_check)
 from vulkan_renderer_tpu_torch.tools.city import write_city_scene
 from vulkan_renderer_tpu_torch.tools.export_scene import write_test_scene
 
@@ -264,6 +265,126 @@ def test_fused_mis_kernel_matches_plain_at_every_vertex_count(planes_scene,
     assert float(want[3:].abs().max()) > 0
 
 
+# --- K6, the pixel preamble ------------------------------------------------
+
+
+def _sweep_frame(tmp_path):
+    """The 1-light 1920x1080 sweep cell's Application (experiment 282) and
+    a function rendering its first frame through given kernels."""
+    from vulkan_renderer_tpu_torch.assets.noise import \
+        advance_noise_random_numbers
+    from vulkan_renderer_tpu_torch.experiments import harness, setups
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    exp = harness.create_experiment_list()[282]
+    app = setups.build_default_application(exp, str(tmp_path), device="cuda")
+    _, randoms = advance_noise_random_numbers(app.noise_seed,
+                                              app.settings.animate_noise)
+    constants = pipeline.make_frame_constants(
+        app.scene_spec.camera, exp.width, exp.height, app.settings, randoms,
+        "cuda")
+
+    def render(kernels):
+        with torch.no_grad():
+            return pipeline.render_frame_constants(
+                app.scene, app.static, app.settings, constants, exp.width,
+                exp.height, kernels)
+    return render
+
+
+def _scene_frame(scene_camera, settings, width, height):
+    scene, camera = scene_camera
+    static = SceneStatic.for_scene(scene)
+
+    def render(kernels):
+        return pipeline.render_frame(scene, static, camera, settings, width,
+                                     height, kernels=kernels)
+    return render
+
+
+@pytest.mark.parametrize("case", ["sweep_1920x1080", "city_960x540",
+                                  "planes_light_display"])
+def test_preamble_kernel_matches_plain(request, tmp_path, case):
+    """K6 against its plain version on the 1-light 1920x1080 sweep frame
+    (roughness planes, central heptagon), the city at 960x540 (several
+    materials and mips, uv outside [0, 1] and negative, the lights shown)
+    and the planes lit by five lights with show_polygonal_lights on: NaN
+    exactly where the plain version is NaN (miss pixels), every other
+    value bit for bit. A frame launches K6 once, K4 or K5 take the plain
+    version's planes, and the frame equals the one whose preamble is the
+    plain version, bit for bit."""
+    if case == "sweep_1920x1080":
+        render = _sweep_frame(tmp_path)
+    elif case == "city_960x540":
+        render = _scene_frame(request.getfixturevalue("city"),
+                              RenderSettings(trace_shadow_rays=True), 960,
+                              540)
+    else:
+        render = _scene_frame(
+            request.getfixturevalue("planes_scene"),
+            RenderSettings(show_polygonal_lights=True,
+                           trace_shadow_rays=False), 256, 128)
+    captured = {}
+    trace.reset_counters()
+    image = render(bench_frame.recording_kernels(captured))
+    torch.cuda.synchronize()
+    assert trace.launch_counts()["K6"] == 1
+    args = captured["shading_planes"]
+    got = preamble.shading_planes(*args)
+    want = preamble.shading_planes_plain(*args)
+    r = kernel_check.compare_planes(got, want)
+    assert r["nan_mismatch"] == 0 and r["bit_mismatch"] == 0, r
+    hit = args[3] >= 0
+    assert 0 < float(hit.float().mean()) < 1
+    assert bool(torch.isfinite(want[:, hit]).all())
+    shaded = (captured.get("fused_shading")
+              or captured["fused_resolved"])[0]
+    r = kernel_check.compare_planes(shaded, want)
+    assert r["nan_mismatch"] == 0 and r["bit_mismatch"] == 0, r
+    plain_preamble = dataclasses.replace(
+        pipeline.KERNELS, shading_planes=preamble.shading_planes_plain)
+    assert torch.equal(image, render(plain_preamble))
+
+
+def test_per_pixel_shading_of_the_views_is_that_of_the_records(city):
+    """On the card the per-pixel path shades K6's views (render/fused.py
+    plane_views, copied contiguous by render/pipeline.py _rows) as it
+    shaded the contiguous records the frame computed before K6, bit for
+    bit: a sum over a vector's components adds in an order its layout
+    sets there."""
+    from vulkan_renderer_tpu_torch.ops.ltc import get_ltc_coefficients
+    from vulkan_renderer_tpu_torch.render.shading import finish_shading_data
+    scene, camera = city
+    settings = RenderSettings(trace_shadow_rays=True)
+    static = SceneStatic.for_scene(scene)
+    captured = {}
+    pipeline.render_frame(scene, static, camera, settings, 128, 64,
+                          kernels=bench_frame.recording_kernels(captured))
+    args = captured["shading_planes"]
+    _, constants, attrs, prim, t_hit, ray_dirs = args
+    hit = prim != -1
+    t_safe = torch.where(hit & torch.isfinite(t_hit), t_hit, 0.0)
+    data = finish_shading_data(scene, constants, attrs, constants.
+                               camera_position + t_safe[:, None] * ray_dirs)
+    f0 = data.fresnel_0
+    ltc = get_ltc_coefficients(
+        scene.ltc, f0[:, 0] * 0.2126 + f0[:, 1] * 0.7152 + f0[:, 2] * 0.0722,
+        data.roughness, data.position, data.normal, data.outgoing)
+    p = hit.shape[0]
+    pairs = torch.rand((p, pipeline.pairs_per_light(settings)
+                        * static.light_count, 2), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(7))
+    views = fused.plane_views(preamble.shading_planes(*args))
+    got = pipeline.shade_pixels(scene, static, settings, constants, hit,
+                                *(pipeline._rows(r, 0, p) for r in views),
+                                pairs)
+    want = pipeline.shade_pixels(scene, static, settings, constants, hit,
+                                 data, ltc, pairs)
+    for g, w in zip(got, want):
+        assert torch.equal(g.contiguous().view(torch.int32),
+                           w.contiguous().view(torch.int32))
+
+
 # --- the per-pixel path ------------------------------------------------------
 
 
@@ -301,7 +422,8 @@ def test_dispatch_launches_fused_kernels_where_supported(planes_scene,
     techniques under DIFFUSE_ONLY, the PSA pair under
     DIFFUSE_SPECULAR_MIS), and neither for a per-pixel configuration or
     under "off", where K2 and K3 (and K1 with shadows) still run; "on"
-    raises where the kernels do not cover the settings."""
+    raises where the kernels do not cover the settings. K6 runs once a
+    frame on either path."""
     scene, camera = planes_scene
     supported = [RenderSettings(
         sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
@@ -316,9 +438,11 @@ def test_dispatch_launches_fused_kernels_where_supported(planes_scene,
         assert fused.fused_supported(static, settings)
         n = _launches(scene, static, settings, camera)
         assert n[fused_kernel] > 0 and n[other] == 0, (settings, n)
+        assert n["K6"] == 1, n
         n = _launches(scene, SceneStatic.for_scene(scene, fused="off"),
                       settings, camera)
-        assert n["K4"] == n["K5"] == 0 and n["K2"] == 1 and n["K3"] == 1
+        assert n["K4"] == n["K5"] == 0 and n["K2"] == n["K3"] == n["K6"] \
+            == 1
         assert (n["K1"] > 0) == shadows, n
     per_pixel = RenderSettings(
         sampling_strategy=SamplingStrategy.DIFFUSE_SPECULAR_SEPARATELY,
@@ -436,7 +560,7 @@ def test_frame_bits_recombine_on_card(planes_scene, case):
 
 def test_bands_on_card(planes_scene):
     """The frame as 4 bands of 8 rows on one card equals the whole frame
-    bit for bit; each band launches K1, K2 and K3 once and K4 once per
+    bit for bit; each band launches K1, K2, K3 and K6 once and K4 once per
     vertex-count group."""
     from vulkan_renderer_tpu_torch.parallel.tiles import render_frame_bands
     scene, camera = planes_scene
@@ -450,8 +574,8 @@ def test_bands_on_card(planes_scene):
     assert torch.equal(banded, whole)
     groups = len(fused.vertex_groups(static))
     launches = trace.launch_counts()
-    assert {n: launches[n] for n in ("K1", "K2", "K3", "K4")} == \
-        {"K1": 4, "K2": 4, "K3": 4, "K4": 4 * groups}
+    assert {n: launches[n] for n in ("K1", "K2", "K3", "K4", "K6")} == \
+        {"K1": 4, "K2": 4, "K3": 4, "K4": 4 * groups, "K6": 4}
 
 
 def test_closest_kernel_exact_where_pruning_decides():

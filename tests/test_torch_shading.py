@@ -1,7 +1,8 @@
 """Parity of the port's per-pixel preamble (render/pipeline.py
-pixel_preamble: texture fetch, material decode, normal mapping, light
-display, LTC coefficients) with the JAX package's _pixel_preamble on the
-same scene, rays and attribute planes."""
+pixel_preamble: K6's plain version for the texture fetch, material decode,
+normal mapping and LTC coefficients, then the light display) with the JAX
+package's _pixel_preamble on the same scene, rays, attribute planes and
+hit positions."""
 
 import functools
 
@@ -52,30 +53,31 @@ def test_preamble_matches_reference(tmp_path):
         camera, w, h, settings, np.zeros(4, np.uint32))
     dirs = pipeline.camera_rays(constants, w, h)
 
-    prim, _ = trace_primary_bruteforce(jscene.triangle_positions,
-                                       jconstants.camera_position,
-                                       jnp.asarray(dirs.numpy()))
+    prim, t_hit = trace_primary_bruteforce(jscene.triangle_positions,
+                                           jconstants.camera_position,
+                                           jnp.asarray(dirs.numpy()))
     prim = np.asarray(prim)
     hit = prim != 0xFFFFFFFF
     assert hit.mean() > 0.5
     safe = jnp.asarray(np.where(hit, prim, 0).astype(np.int32))
-    geom, position = jax.vmap(functools.partial(
+    geom, _ = jax.vmap(functools.partial(
         j_shading.geometry_attributes, jscene, jconstants))(
         safe, jnp.asarray(dirs.numpy()))
     planes = np.asarray(jax.vmap(j_pipeline._pack_geom_planes)(geom))
     planes = np.where(hit[:, None], planes, 0.0).astype(np.float32)
-    position = np.where(hit[:, None], np.asarray(position), 0.0) \
-        .astype(np.float32)
     jgeom = jax.vmap(j_shading.geometry_attributes_from_planes)(
         jnp.asarray(planes))
 
+    _, data, ltc, _, base = pipeline.pixel_preamble(
+        scene, static, to_port(settings), constants,
+        torch.from_numpy(planes.T.copy()),
+        torch.from_numpy(np.where(hit, prim, -1).astype(np.int32)),
+        torch.from_numpy(np.array(t_hit, np.float32)), dirs)
+    # Both packages shade the port's hit positions.
     _, jdata, jltc, jbase = jax.vmap(functools.partial(
         j_pipeline._pixel_preamble, jscene, jstatic, settings, jconstants))(
         jnp.asarray(prim), jnp.asarray(dirs.numpy()), jgeom,
-        jnp.asarray(position))
-    data, ltc, base = pipeline.pixel_preamble(
-        scene, static, to_port(settings), constants, torch.from_numpy(hit), dirs,
-        torch.from_numpy(planes.T.copy()), torch.from_numpy(position))
+        jnp.asarray(data.position.numpy()))
 
     # The light display is exact set logic on the same float inputs.
     np.testing.assert_array_equal(base.numpy(), np.asarray(jbase))

@@ -137,7 +137,7 @@ def test_counters_count_whether_tracing_is_on_or_off():
     trace.count("K5.launches")
     trace.disable()
     assert trace.launch_counts() == {"K1": 0, "K2": 1, "K3": 0, "K4": 0,
-                                     "K5": 4}
+                                     "K5": 4, "K6": 0}
     trace.reset_counters()
     assert set(trace.launch_counts().values()) == {0}
 
@@ -192,7 +192,7 @@ def _application(specs, scene, fused, shadows):
 def _expected_tree(fused, shadows, frame):
     stages = [(1, "frame.constants"), (1, "rays"), (1, "trace"),
               (1, "noise"), (1, "preamble"), (2, "preamble.texture"),
-              (2, "preamble.display"), (2, "preamble.ltc"), (1, "shade")]
+              (2, "preamble.ltc"), (2, "preamble.display"), (1, "shade")]
     stages += [(2, "shade.pack")] if fused else []
     stages += [(1, "shadowrays"), (1, "shadow")] if shadows else []
     stages += [(1, "resolve")]

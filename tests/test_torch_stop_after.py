@@ -14,7 +14,9 @@ packages' exits, not only their stubs (whose values lie below 1e-20):
   _render_frame_body (jitted, with _stage_stub patched for the call);
 - the port's tensors are mapped to what the JAX exit sums (ExitMeaning:
   -1 for the JAX invalid primitive 0xFFFFFFFF, the noise pairs of the
-  port's fetches, K4's planes split into base, b, directions and t_max,
+  port's fetches, K6's shading planes as the fields of the preamble's
+  ShadingData and LtcCoefficients (render/fused.py plane_views), K4's
+  planes split into base, b, directions and t_max,
   occluded as visibility), and each pair must have as many values and
   agree: primitives, noise pairs and visibility exactly (EXACT); every
   other tensor's sum within SUM_RTOL of its sum of |x|. The sums run over the
@@ -50,7 +52,7 @@ from vulkan_renderer_tpu.scene.camera import FirstPersonCamera as JCamera
 from vulkan_renderer_tpu.scene.lights import PolygonalLightSpec as JLight
 from vulkan_renderer_tpu.scene.scene import load_scene as j_load_scene
 from vulkan_renderer_tpu_torch.ops.noise import noise_pairs
-from vulkan_renderer_tpu_torch.render import pipeline
+from vulkan_renderer_tpu_torch.render import fused, pipeline
 from vulkan_renderer_tpu_torch.render.shading import SceneStatic
 from vulkan_renderer_tpu_torch.scene.scene import load_scene
 from vulkan_renderer_tpu_torch.tools import bench_frame
@@ -184,8 +186,13 @@ def exit_meaning(stage, cut: PortExit, shadows=True):
     """The port's exit tensors as the JAX exit's, in its order (see
     render_frame_constants and the JAX _render_frame_body)."""
     t = [x.numpy() for x in cut.tensors]
-    if stage in ("rays", "trace", "preamble"):
+    if stage in ("rays", "trace"):
         return t
+    if stage == "preamble":
+        data, ltc = fused.plane_views(cut.tensors[1])
+        return [t[0]] + [getattr(record, f.name).numpy()
+                         for record in (data, ltc)
+                         for f in dataclasses.fields(record)]
     if stage == "noise":
         return [t[0], noise_pairs(cut.noise, 0, WIDTH * HEIGHT).numpy()]
     if not shadows:
@@ -287,12 +294,13 @@ def test_every_stage_gives_a_finite_stub(scenes, stage, shadows):
 
 # The kernels a cut of the bench frame has run, by path and shadows.
 _TRACE = {"trace_closest": 1, "closest_attrs": 1}
+_PREAMBLE = {**_TRACE, "shading_planes": 1}
 KERNELS_RUN = {
     "rays": {},
-    "trace": _TRACE, "noise": _TRACE, "preamble": _TRACE,
-    "shade": {**_TRACE, "fused_shading": 1},
-    "shadowrays": {**_TRACE, "fused_shading": 1},
-    "shadow": {**_TRACE, "fused_shading": 1, "trace_anyhit": 1},
+    "trace": _TRACE, "noise": _TRACE, "preamble": _PREAMBLE,
+    "shade": {**_PREAMBLE, "fused_shading": 1},
+    "shadowrays": {**_PREAMBLE, "fused_shading": 1},
+    "shadow": {**_PREAMBLE, "fused_shading": 1, "trace_anyhit": 1},
 }
 
 
@@ -300,7 +308,8 @@ KERNELS_RUN = {
     ("auto", True), ("auto", False), ("off", True)])
 def test_kernels_run_to_the_cut(scenes, fused, shadows):
     """Each cut has run the kernels up to its stage and no other: K2 and
-    K3 from "trace" on, K4 (with shadows) or K5 (without) from "shade"
+    K3 from "trace" on, K6 from "preamble" on (the per-pixel path reads
+    its planes too), K4 (with shadows) or K5 (without) from "shade"
     on on the fused path, K1 only at "shadow" with shadows; the per-pixel
     path runs neither K4 nor K5; a stage the frame does not pass runs
     the whole frame's."""

@@ -12,10 +12,11 @@ placed where the work happens:
       rays, trace, noise, preamble, shade, shadowrays, shadow
                            the stages of render/pipeline.py::STAGES that
                            the frame passes
-        preamble.texture   the texture fetch (render/shading.py)
+        preamble.texture   the texture fetch (render/shading.py) and
+        preamble.ltc       ops/ltc.py::get_ltc_coefficients, both in K6's
+                           plain version only (render/preamble.py)
         preamble.display   the light-display loop
-        preamble.ltc       ops/ltc.py::get_ltc_coefficients
-        shade.pack         the fused path's light records and planes
+        shade.pack         the fused path's light records
       resolve              the shadow combine, then the output color
     frame.retire           the wait on the oldest frame, with its index
 
@@ -37,7 +38,7 @@ dropped first and counted in `dropped`. Nothing is written out: a reader
 takes them from the recorder.
 
 Counters are always on: count(name) adds to an integer. The kernel
-wrappers count their launches ("K1.launches" ... "K5.launches",
+wrappers count their launches ("K1.launches" ... "K6.launches",
 launch_counts()).
 """
 
@@ -55,7 +56,7 @@ PREFIX = "vr."
 # spans a frame is 12,000 spans.
 CAPACITY = 1 << 14
 # The hand-written kernels whose launches the wrappers count.
-KERNELS = ("K1", "K2", "K3", "K4", "K5")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
 
 
 @dataclasses.dataclass(slots=True)

@@ -40,10 +40,11 @@ from ..core.settings import (ErrorDisplay, MisHeuristic,
 from ..kernels import build
 from ..ops import soa
 from ..ops import soa_techniques as st
+from ..ops.ltc import LtcCoefficients
 from ..ops.noise import FrameNoise
 from ..ops.soa import vadd, vdot, vscale, vwh
 from ..ops.soa_arvo_psa import prepare_arvo_psa_soa, sample_arvo_psa_soa
-from .shading import rays_per_light
+from .shading import ShadingData, rays_per_light
 
 Tech = PolygonSamplingTechnique
 
@@ -188,6 +189,33 @@ def pack_planes(data, ltc, hit) -> torch.Tensor:
             ltc.shading_to_cosine_space.reshape(-1, 9).T,
             ltc.cosine_to_shading_space.reshape(-1, 9).T]
     return torch.cat(cols, dim=0).to(torch.float32).contiguous()
+
+
+def plane_views(planes: torch.Tensor):
+    """The (62, P) planes of BASE_PLANES -> (ShadingData, LtcCoefficients)
+    whose (P, ...) fields are views of the planes' rows: pack_planes
+    undone without a copy."""
+    def rows(start, count):
+        return planes[start:start + count].T
+
+    def matrices(start, columns):
+        return rows(start, 3 * columns).reshape(-1, 3, columns)
+
+    k = _PLANE_INDEX
+    data = ShadingData(
+        position=rows(k["pos0"], 3), normal=rows(k["nrm0"], 3),
+        outgoing=rows(k["out0"], 3),
+        lambert_outgoing=planes[k["lambert_out"]],
+        diffuse_albedo=rows(k["alb0"], 3), fresnel_0=rows(k["f00"], 3),
+        roughness=planes[k["rough"]])
+    ltc = LtcCoefficients(
+        world_to_shading_space=matrices(k["w2s00"], 4),
+        shading_to_cosine_space=matrices(k["s2c00"], 3),
+        world_to_cosine_space=matrices(k["w2c00"], 4),
+        cosine_to_shading_space=matrices(k["c2s00"], 3),
+        albedo=planes[k["ltc_albedo"]],
+        shading_to_cosine_space_determinant=planes[k["ltc_det"]])
+    return data, ltc
 
 
 def unpack_outputs(out: torch.Tensor, slot_count: int):

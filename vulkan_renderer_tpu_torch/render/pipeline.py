@@ -7,8 +7,9 @@ with the Pallas tracers, stage by stage:
 2. primary closest hit (K2) and attribute fetch (K3);
 3. the frame's noise fetches (ops/noise.py frame_noise: three scalars per
    fetch);
-4. the per-pixel preamble: texture fetch and material decode, light
-   display, LTC coefficients (:78-120);
+4. the per-pixel preamble (:78-120): K6 makes the (62, P) shading planes
+   (texture fetch, material decode, LTC coefficients; render/preamble.py),
+   the light display adds what the rays see of the lights;
 5. light shading, by SceneStatic.fused (_use_fused :160):
    - fused: with shadow rays, K4 exports every ray slot; without them,
      K5 accumulates each pixel's color with visibility 1 (:485-522; the
@@ -44,7 +45,6 @@ from ..core import trace
 from ..core.device import device_constant, to_device_async
 from ..core.settings import RenderSettings
 from ..ops.intersect import polygonal_light_ray_intersection
-from ..ops.ltc import get_ltc_coefficients
 from ..ops.math_utils import normalize
 from ..ops.noise import frame_noise, noise_pairs
 from ..ops.srgb import linear_to_srgb
@@ -53,12 +53,13 @@ from ..scene.camera import (FirstPersonCamera,
 from .fused import (check_settings_class, fused_light_shading,
                     fused_light_shading_plain, fused_light_shading_resolved,
                     fused_light_shading_resolved_plain, fused_supported,
-                    pack_light_scalars, pack_planes)
+                    pack_light_scalars, plane_views)
 from .line_shading import (evaluate_linear_light_shading,
                            linear_pairs_per_light, linear_rays_per_light)
-from .shading import (FrameConstants, SceneStatic,
-                      evaluate_polygonal_light_shading, finish_shading_data,
-                      get_polygon_radiance, pairs_per_light, rays_per_light)
+from .preamble import shading_planes, shading_planes_plain
+from .shading import (INVALID_PRIMITIVE, FrameConstants, SceneStatic,
+                      evaluate_polygonal_light_shading, get_polygon_radiance,
+                      pairs_per_light, rays_per_light)
 from .trace_kernel import (closest_attrs, closest_attrs_plain, trace_anyhit,
                            trace_anyhit_plain, trace_closest,
                            trace_closest_plain)
@@ -73,15 +74,18 @@ class FrameKernels:
     fused_shading: Callable    # K4
     trace_anyhit: Callable     # K1
     fused_resolved: Callable   # K5
+    shading_planes: Callable   # K6 (render/preamble.py)
 
 
 # The frame's kernels: CUDA on CUDA tensors, plain versions on the CPU.
 KERNELS = FrameKernels(trace_closest, closest_attrs, fused_light_shading,
-                       trace_anyhit, fused_light_shading_resolved)
+                       trace_anyhit, fused_light_shading_resolved,
+                       shading_planes)
 # The plain versions on any device: the on-card reference of a frame.
 PLAIN_VERSIONS = FrameKernels(trace_closest_plain, closest_attrs_plain,
                               fused_light_shading_plain, trace_anyhit_plain,
-                              fused_light_shading_resolved_plain)
+                              fused_light_shading_resolved_plain,
+                              shading_planes_plain)
 
 # Pixels the per-pixel path shades at once. It changes no result (frames
 # are bit-equal at every size) and bounds the path's device memory. Each
@@ -134,11 +138,16 @@ def camera_rays(constants: FrameConstants, width: int, height: int,
 
 
 def pixel_preamble(scene, static: SceneStatic, settings: RenderSettings,
-                   constants: FrameConstants, hit, ray_dirs, attrs,
-                   position):
-    """Shading data, light display radiance and LTC coefficients for every
-    pixel (pipeline.py _pixel_preamble). Returns (data, ltc, base0)."""
-    data = finish_shading_data(scene, constants, attrs, position)
+                   constants: FrameConstants, attrs, prim, t_hit, ray_dirs,
+                   kernels: FrameKernels = KERNELS):
+    """The shading planes, shading data, LTC coefficients and light display
+    radiance of every pixel (pipeline.py _pixel_preamble). Returns (planes
+    (62, P), data, ltc, hit, base0): data and ltc are views of the planes
+    (render/fused.py plane_views)."""
+    planes = kernels.shading_planes(scene, constants, attrs, prim, t_hit,
+                                    ray_dirs)
+    data, ltc = plane_views(planes)
+    hit = prim != INVALID_PRIMITIVE
     base = torch.zeros_like(ray_dirs)
     if settings.show_polygonal_lights:
         with trace.span("preamble.display"):
@@ -160,14 +169,7 @@ def pixel_preamble(scene, static: SceneStatic, settings: RenderSettings,
                     scene, i, static.light_texturing[i], view_dir,
                     constants.camera_position)
                 base = base + torch.where(light_hit[:, None], radiance, 0.0)
-    f0 = data.fresnel_0
-    fresnel_luminance = f0[:, 0] * 0.2126 + f0[:, 1] * 0.7152 \
-        + f0[:, 2] * 0.0722
-    with trace.span("preamble.ltc"):
-        ltc = get_ltc_coefficients(scene.ltc, fresnel_luminance,
-                                   data.roughness, data.position,
-                                   data.normal, data.outgoing)
-    return data, ltc, base
+    return planes, data, ltc, hit, base
 
 
 def use_fused(static: SceneStatic, settings: RenderSettings) -> bool:
@@ -217,7 +219,7 @@ def render_frame_constants(scene, static: SceneStatic,
       JAX package runs its attribute fetch after); prim and the fetches
       (FrameNoise.fetches, from which noise_pairs gives the JAX pairs);
     - "preamble": the per-pixel preamble, on the fused path only; base0
-      and every field of the ShadingData and LtcCoefficients;
+      and the shading planes (K6's);
     - "shade": K4 with shadows, K5 without, or the per-pixel shading;
       base0 and K4's planes (the JAX base is base0 plus their first
       three, its b, dirs and t_max the slots'), without shadows the
@@ -277,21 +279,17 @@ def render_frame_constants(scene, static: SceneStatic,
         return _stage_stub(width, height, prim, noise.fetches)
 
     with trace.span("preamble"):
-        hit = prim != -1
-        t_safe = torch.where(hit & torch.isfinite(t_hit), t_hit, 0.0)
-        position = cam + t_safe[:, None] * ray_dirs
-        data, ltc, base0 = pixel_preamble(scene, static, settings, constants,
-                                          hit, ray_dirs, attrs, position)
+        planes, data, ltc, hit, base0 = pixel_preamble(
+            scene, static, settings, constants, attrs, prim, t_hit, ray_dirs,
+            kernels)
     if fused and stop_after == "preamble":
-        return _stage_stub(width, height, base0, *_fields(data),
-                           *_fields(ltc))
+        return _stage_stub(width, height, base0, planes)
 
     with trace.span("shade"):
         if fused:
             with trace.span("shade.pack"):
                 light_scalars = pack_light_scalars(scene.lights,
                                                    static.light_count)
-                planes = pack_planes(data, ltc, hit)
             shadows = settings.trace_shadow_rays
             slots = static.light_count * rays_per_light(settings)
             if shadows:
@@ -334,11 +332,6 @@ def render_frame_constants(scene, static: SceneStatic,
         return _resolve(colors, constants, settings, width, height)
 
 
-def _fields(record):
-    """The tensors of a ShadingData or LtcCoefficients."""
-    return [getattr(record, f.name) for f in dataclasses.fields(record)]
-
-
 def _stage_stub(width: int, height: int, *outputs) -> torch.Tensor:
     """The image of a frame cut by stop_after (pipeline.py _stage_stub):
     0 + acc 1e-30 in every pixel and channel, acc the float32 sum of the
@@ -377,9 +370,13 @@ def _shadow_combine(out, slots: int, occluded, base0):
 
 
 def _rows(fields, start: int, stop: int):
-    """A ShadingData / LtcCoefficients with pixels start..stop-1."""
+    """A ShadingData / LtcCoefficients with pixels start..stop-1, each
+    field contiguous: the fields are views of K6's planes, and on the card
+    a sum over a vector's 3 components adds them in an order set by its
+    layout (csrc/preamble.cu), so the per-pixel path copies them once to
+    shade as it did from contiguous records."""
     return dataclasses.replace(fields, **{
-        f.name: getattr(fields, f.name)[start:stop]
+        f.name: getattr(fields, f.name)[start:stop].contiguous()
         for f in dataclasses.fields(fields)})
 
 

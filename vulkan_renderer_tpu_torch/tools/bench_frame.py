@@ -119,11 +119,11 @@ def kernel_defines(s, static, kernel="K4"):
 
 def kernel_jobs(s):
     """build.build_many jobs of the kernels the bench frame launches under
-    s: K1-K4 with shadows, K2, K3 and K5 without."""
+    s: K1-K4 and K6 with shadows, K2, K3, K5 and K6 without."""
     if not s.trace_shadow_rays:
-        return [("closest", {}), ("fused_resolved",
-                                  kernel_defines(s, light_layout(), "K5"))]
-    return [("anyhit", {}), ("closest", {}),
+        return [("closest", {}), ("preamble", {}),
+                ("fused_resolved", kernel_defines(s, light_layout(), "K5"))]
+    return [("anyhit", {}), ("closest", {}), ("preamble", {}),
             ("fused_shading", kernel_defines(s, light_layout()))]
 
 
@@ -442,7 +442,9 @@ def main(argv=None) -> int:
     s = settings()
     counting = [(name, {"VR_COUNT_TESTS": 1})
                 for name in ("anyhit", "closest")] if args.count_tests else []
-    wall = build.build_many(kernel_jobs(s) + counting)
+    # A tree older than a kernel (--root) builds only the sources it has.
+    wall = build.build_many([job for job in kernel_jobs(s) + counting
+                             if (build.CSRC_DIR / f"{job[0]}.cu").exists()])
     data_dir = os.path.abspath(args.data or os.path.join(root, "data"))
     scene, static = load_city(data_dir, torch.device("cuda"))
     captured = capture_inputs(scene, static, s)

@@ -49,7 +49,9 @@ import time
 
 import numpy as np
 
-# The CUDA kernel names of the hand-written kernels K1-K5.
+# The CUDA kernel names of the hand-written kernels K1-K5. K6, the pixel
+# preamble (preamble_kernel), counts as glue, as in the benchmark's
+# glue.device_ms.
 HAND_WRITTEN = ("anyhit_kernel", "closest_kernel", "attrs_kernel",
                 "fused_shading_kernel", "fused_resolved_kernel")
 WARMUP = 10

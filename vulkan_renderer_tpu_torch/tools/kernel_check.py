@@ -5,14 +5,15 @@ kernels and their plain PyTorch versions run the same float32 operations
 in the same order (the kernels are built with --fmad=false), so most
 values agree bit for bit; where a transcendental or rsqrt instruction
 differs by an ulp, a sample can cross a sector or fan boundary and that
-one value moves. compare() counts both.
+one value moves. compare() counts both; compare_planes() holds K6's
+planes value by value.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..render.fused import rays_per_light, vertex_groups
+from ..render.fused import BASE_PLANES, rays_per_light, vertex_groups
 
 
 def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -33,6 +34,31 @@ def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
             "outside": float(outside.sum()) / count,
             "max_abs_err": float(diff.max()) if diff.numel() else 0.0,
             "nonfinite_mismatch": nonfinite}
+
+
+def compare_planes(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """K6's (62, P) planes against its plain version's: the values whose
+    NaN-ness differs, the values NaN in neither that differ in any bit,
+    and per plane (BASE_PLANES names) the values either way off and the
+    largest distance in ulps between values finite in both."""
+    nan_got, nan_want = torch.isnan(got), torch.isnan(want)
+    nan_off = nan_got != nan_want
+    bits_got = got.view(torch.int32).to(torch.int64)
+    bits_want = want.view(torch.int32).to(torch.int64)
+    bits_off = (bits_got != bits_want) & ~nan_got & ~nan_want
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    # Within one sign the bit patterns count ulps; across signs, add both
+    # distances from zero.
+    ulps = torch.where(
+        (bits_got < 0) == (bits_want < 0), (bits_got - bits_want).abs(),
+        (bits_got & 0x7FFFFFFF) + (bits_want & 0x7FFFFFFF))
+    ulps = torch.where(finite, ulps, 0)
+    off = (nan_off | bits_off).sum(dim=1).tolist()
+    worst = ulps.amax(dim=1).tolist() if ulps.numel() else [0] * len(off)
+    return {"values": got.numel(), "nan_mismatch": int(nan_off.sum()),
+            "bit_mismatch": int(bits_off.sum()),
+            "planes": {BASE_PLANES[k]: {"off": n, "max_ulps": worst[k]}
+                       for k, n in enumerate(off) if n}}
 
 
 def k4_resolved(out: torch.Tensor, static, settings) -> torch.Tensor:

@@ -37,7 +37,8 @@ PROFILED = 5
 TOP = 25
 # CUDA kernel names of the bench frame's hand-written kernels.
 PORT_KERNELS = {"anyhit_kernel": "K1", "closest_kernel": "K2",
-                "attrs_kernel": "K3", "fused_shading_kernel": "K4"}
+                "attrs_kernel": "K3", "fused_shading_kernel": "K4",
+                "preamble_kernel": "K6"}
 
 
 def port_kernel(name):
