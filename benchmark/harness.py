@@ -80,6 +80,10 @@ class Run:
     window_peak_bytes: int
     dispatch_s: list | None = None
     trace: Trace | None = None
+    # ms between successive frames' ends on the device, one per frame
+    # dispatched in the window, the first from the window's start (None
+    # without a card).
+    device_intervals: list | None = None
 
 
 class FrameSample:
@@ -176,6 +180,19 @@ class DispatchSpans:
 
     def __exit__(self, *exc):
         self.module.render_frame_constants = self.original
+
+
+def device_stamp(device):
+    """A timing event recorded on the device's current stream: it completes
+    once everything enqueued on the stream before it has run."""
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def device_intervals(start, ends) -> list[float]:
+    """ms between successive completed events, the first from `start`."""
+    return [a.elapsed_time(b) for a, b in zip([start, *ends], ends)]
 
 
 def profile_stretch(step, frames: int):
@@ -304,13 +321,18 @@ def run(workload: str, entry: dict, config: dict, traffic: dict, seed: int,
         torch.cuda.reset_peak_memory_stats(device)
     window_sample = sample = FrameSample(traffic["check"]["frames"],
                                          np.random.default_rng([seed, 0]))
-    stamps, profiled = [], None
+    stamps, ends, profiled = [], [], None
     with spans or contextlib.nullcontext():
         t0 = time.perf_counter()
         setup_s = t0 - started
+        # The device's own stamps: an event after each dispatch completes
+        # with that frame's work, and none is waited on in the window.
+        start = device_stamp(device) if cuda else None
         while True:
             if step():
                 stamps.append(time.perf_counter())
+            if cuda:
+                ends.append(device_stamp(device))
             if time.perf_counter() - t0 >= seconds:
                 break
         if cuda:
@@ -326,7 +348,8 @@ def run(workload: str, entry: dict, config: dict, traffic: dict, seed: int,
                 step, traffic["profile_frames"]), traffic["profile_frames"])
     attempted = len(stamps)
     record = Run(workload, config, traffic, counts, setup_s, t0, stamps,
-                 window_peak, spans.seconds if spans else None, profiled)
+                 window_peak, spans.seconds if spans else None, profiled,
+                 device_intervals(start, ends) if cuda else None)
 
     kept = [(i, f.cpu()) for i, f in window_sample.kept]
     del app, window_sample

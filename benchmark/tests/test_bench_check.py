@@ -67,9 +67,10 @@ def test_a_sound_run_is_correct(workload, data_dir, monkeypatch):
     assert result["correct"], lines
     assert list(result)[-1] == "check"
     assert result["attempted"] >= 1 and result["failed"] == 0
-    # No peak device memory on the CPU: that reader finds nothing.
+    # No peak device memory and no device stamps on the CPU: those readers
+    # find nothing.
     assert {m["name"] for m in harness.cell_metrics(workload, False)} - \
-        {"peak_mem_gib"} == set(result["metrics"])
+        {"peak_mem_gib", "frame_device_p95_ms"} == set(result["metrics"])
     limits = inputs.read_json("checks", f"{workload}.json")["limits"]
     assert len(lines) == len(limits) and all("limit" in l for l in lines)
 

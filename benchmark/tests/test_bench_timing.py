@@ -12,10 +12,16 @@ def steady(n=100, dt=0.010, t0=5.0):
     return t0, [t0 + dt * (i + 1) for i in range(n)]
 
 
+def device_tail(t0, stamps):
+    """The device tail of frames that end on the device at the stamps."""
+    return timing.frame_device_p95_ms(
+        timing.frame_intervals(t0, stamps) * 1e3)
+
+
 def test_steady_window():
     t0, stamps = steady()
     assert timing.frame_ms(t0, stamps) == pytest.approx(10.0)
-    assert timing.frame_p95_ms(t0, stamps) == pytest.approx(10.0)
+    assert device_tail(t0, stamps) == pytest.approx(10.0)
 
 
 def test_one_stall_moves_the_frame_time_and_the_tail():
@@ -24,20 +30,43 @@ def test_one_stall_moves_the_frame_time_and_the_tail():
     assert timing.frame_ms(t0, stalled) == pytest.approx(15.0)
     # Nine 10 ms intervals and one of 60 ms: linear interpolation puts
     # the 95th percentile 55% of the way from 10 to 60.
-    assert timing.frame_p95_ms(t0, stalled) == pytest.approx(37.5)
+    assert device_tail(t0, stalled) == pytest.approx(37.5)
 
 
 def test_the_tail_is_over_every_interval_of_a_long_window():
     t0, stamps = steady(n=100)
     one = stamps[:50] + [s + 0.5 for s in stamps[50:]]
     assert timing.frame_ms(t0, one) == pytest.approx(15.0)
-    assert timing.frame_p95_ms(t0, one) == pytest.approx(10.0)
+    assert device_tail(t0, one) == pytest.approx(10.0)
     six = list(stamps)
     for k in range(6):
         six = [s + (0.1 if i >= 15 * k + 10 else 0.0)
                for i, s in enumerate(six)]
     assert timing.frame_ms(t0, six) == pytest.approx(16.0)
-    assert timing.frame_p95_ms(t0, six) == pytest.approx(110.0)
+    assert device_tail(t0, six) == pytest.approx(110.0)
+
+
+def test_the_device_tail_of_a_single_frame_is_its_interval():
+    assert timing.frame_device_p95_ms([6.2]) == pytest.approx(6.2)
+
+
+def test_the_device_tail_of_a_short_window_interpolates():
+    # Five intervals: the 95th percentile lies 80% of the way from the
+    # fourth (sorted) to the fifth.
+    assert timing.frame_device_p95_ms([6.0, 6.1, 6.0, 9.0, 6.2]) == \
+        pytest.approx(6.2 + 0.8 * (9.0 - 6.2))
+
+
+@pytest.mark.parametrize("intervals", [None, []])
+def test_the_device_tail_reader_reads_nothing_without_device_stamps(
+        intervals):
+    import harness
+    run = harness.Run("w", {}, {}, {}, 1.0, 0.0, [1.0], 2**30,
+                      device_intervals=intervals)
+    assert harness.load_reader("frame_device_p95_ms")(run) is None
+    run.device_intervals = [6.0, 6.1, 6.2]
+    assert harness.load_reader("frame_device_p95_ms")(run) == \
+        pytest.approx(6.19)
 
 
 def test_intervals_start_at_the_window():

@@ -1,5 +1,6 @@
-"""The benchmark's arithmetic on times: the window's frame time and tail,
-the device's busy time from a trace, and the spread of repeated runs.
+"""The benchmark's arithmetic on times: the window's frame time, the tail of
+its frames' device intervals, the device's busy time from a trace, and the
+spread of repeated runs.
 
 busy_intervals is the interval union of the port's
 tools/profile_frame.py::summarize (commit b4b0e8b), frozen here so that
@@ -25,10 +26,10 @@ def frame_ms(t0: float, stamps) -> float:
     return (stamps[-1] - t0) * 1e3 / len(stamps)
 
 
-def frame_p95_ms(t0: float, stamps) -> float:
-    """The 95th percentile of the intervals between successive
-    retirements, over every frame of the window, in ms."""
-    return float(np.percentile(frame_intervals(t0, stamps), 95)) * 1e3
+def frame_device_p95_ms(intervals) -> float:
+    """The 95th percentile of the intervals, in ms, between successive
+    frames' ends on the device, over every frame of the window."""
+    return float(np.percentile(np.asarray(intervals, np.float64), 95))
 
 
 def busy_intervals(spans) -> list[tuple[float, float]]:
