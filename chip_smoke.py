@@ -23,10 +23,13 @@ It
 4. holds every kernel against its plain PyTorch version on the card at
    the bench frame's shapes: K2 on all 518,400 primary rays (primitive
    and t equal exactly, ties included), K4 on all 518,400 pixels x 4
-   lights (bit for bit), K1 on 131,072 live shadow rays (0 mismatches);
-   then counts the BVH tracers' box and triangle tests per ray with their
-   counting builds (-DVR_COUNT_TESTS=1) over the whole bench frame, and
-   K4's float operations with its counting build;
+   lights (bit for bit), K1's slot entry, which the frame runs, on 4,096
+   pixels x 8 slots (its colors bit for bit), and the ray-list K1, which
+   only the stop_after cuts run, on 131,072 live shadow rays of the
+   frame's ray list (0 mismatches); then counts the BVH tracers' box and
+   triangle tests per ray with their counting builds (-DVR_COUNT_TESTS=1)
+   over the whole bench frame, and K4's float operations with its
+   counting build;
 4d. holds K6 (the pixel preamble) against its plain version at the bench
    frame's shapes and at the 1-light 1920x1080 sweep cell's (experiment
    282): NaN where the plain version is NaN, every other value bit for
@@ -65,6 +68,13 @@ It
    on the one scene of the harness whose triangles are not axis-aligned
    (30 in one cluster), with their box and triangle tests per ray; each
    kernel's ms on the frame;
+7c. captures K1's slot-entry arguments from the harness's frame of
+   experiment 316 (the benchmark's arcade cell: 1024x1024, 64 spp, 128
+   shadow slots a pixel) and holds the entry bit for bit against the
+   ray list (the plain megabatch), the ray-list K1 and the plain combine
+   on every pixel, and against its plain version on 4,096 pixels; its
+   live-ray count against the megabatch's t_max >= 0; and times the entry
+   against that route and against the ray-list K1 alone;
 8. runs those 26 timing-sweep experiments, and PSA and Arvo PSA of each
    holding cell (6 more), through the port's harness (3 warm-up and 7
    measured frames each; the harness's defaults of 110/100 stay for real
@@ -152,14 +162,17 @@ It
    (98,304); 0 mismatches, and 0 rays where the float32 model of K1's
    grown gate parts from the plain version; it prints the rays where a
    bare slab test of the sub-box (K1's gate before) would part;
-22. runs the port's bench entry (python -m vulkan_renderer_tpu_torch.bench,
-   its defaults) in its own process and checks its record (bench.py's
-   keys and the card, uncertain=0, overflow=0, exit 0), whose value must
-   lie within 10% of the bench frame's window measured here; drives the
-   entry's pipelined run in this process with every launch counter reset
-   before and read after (K1-K4 must run, K5 must not) and logs the
-   cumulative ms a frame of each stop_after stage (the median of 5
-   rounds, the stages taking turns, of 40 pipelined frames each), beside
+22. runs the port's bench entry (python -m vulkan_renderer_tpu_torch.bench
+   at 4 spp, which the card paces, with 40 pipelined frames) in its own
+   process and checks its record (bench.py's keys and the card,
+   uncertain=0, overflow=0, exit 0), whose value must lie within 10% of
+   the window of the same frame measured here; drives the entry's
+   pipelined run at its defaults in this process with every launch
+   counter reset before and read after (K1-K4 must run, K5 must not) and
+   logs the cumulative ms a frame of each stop_after stage that is a
+   prefix of the whole frame ("rays" to "shade") and of the whole frame
+   (the median of 5 rounds, the stages taking turns, of 40 pipelined
+   frames each), beside
    the median ms the host takes to dispatch one cut frame to an idle card
    and to see it finished (10 frames a round); holds K2 (primitive and
    t) and K1 against their plain versions exactly on 65,536 primary and
@@ -170,7 +183,8 @@ It
    (K5 must run), whose harness median must lie within 5% of its window.
 
 It logs the seconds since its start at each phase, and its wall time.
-The line before the last is a JSON object listing the kernels, each with
+The line before the last is a JSON object listing the kernels (K1 is its
+slot entry, as the bench frame runs it), each with
 its launches on the main path, time, plain version's time and bound
 (bytes over 3.35 TB/s or float32 operations over 33.5 T/s, whichever is
 larger, and which side binds; for the tracers the operations are the
@@ -207,6 +221,11 @@ SLAB_OPS, ANYHIT_TRI_OPS, CLOSEST_TRI_OPS = 26, 55, 57
 # K1's sub-box gate (csrc/anyhit.cu grown_slab): the slab test plus the
 # two moves of each axis's entry and exit.
 ANYHIT_SUBBOX_OPS = SLAB_OPS + 6
+# K1's slot entry's traffic, its bound: 28 B a slot ray (b, direction,
+# t_max, read in place from K4's planes), and per pixel its shading point,
+# hit flag, base0 and base in and its colors out.
+K1_RAY_BYTES = 4 * 7
+K1_PIXEL_BYTES = 4 * 3 + 1 + 4 * 3 + 4 * 3 + 4 * 3
 # K6's plane traffic per pixel, its bound: in, K3's 18 attribute planes,
 # prim, t_hit and the ray direction; out, the 62 shading planes.
 K6_PIXEL_BYTES = 4 * (18 + 1 + 1 + 3) + 4 * 62
@@ -233,6 +252,11 @@ HOLD_CELLS = (("central_3_128", 50), ("decentral_6_1x128spp", 245),
 # clamped-optimal MIS; K1 and K2 are held on the second.
 ARCADE_EXPERIMENTS = (312, 314)
 ARCADE_VERTEX_COUNT = 7
+# Phase 7c: the benchmark's arcade frame (64 spp, 128 shadow slots a
+# pixel), and the pixels on which K1's slot entry is held against its
+# plain version (whose ray list the plain tracer walks).
+SLOTS_EXPERIMENT = 316
+SLOTS_SUBSET = 4096
 # The techniques whose K5 operations are counted over the whole sweep
 # frame (the PSA row of the kernels line, and the slowest technique).
 COUNTED_TECHNIQUES = ("PROJECTED_SOLID_ANGLE", "PROJECTED_SOLID_ANGLE_ARVO")
@@ -261,6 +285,11 @@ LTC_LOSS_RTOL = 0.03
 # the rounds of stop_after stages, and the frames of each stage timed one
 # at a time in a round.
 ENTRY_WINDOW_RTOL = 0.10
+# Phase 22a's frame: the bench frame at 4 spp, which the card paces (at
+# 1 spp the host's dispatch paces it, and both measures read the host's
+# jitter); --frames 20 gives the entry's run 40 pipelined frames, the
+# window's count.
+ENTRY_SPP, ENTRY_FRAMES = 4, 20
 STAGE_ROUNDS, STAGE_FRAMES = 5, 10
 PROTOCOL_RTOL = 0.05
 CLUSTER_SIZES, CLUSTER_SUBSET = (32, 128), 65536
@@ -500,7 +529,8 @@ def run_arcade_phase(torch, device, data_dir, card, experiments, results):
             plain2_ms, rays, hits, p_bad, t_bad, dt = compare_closest(
                 torch, tk, c_args)
             ms2 = bench.cuda_ms(torch, lambda: tk.trace_closest(*c_args), 5)
-            clusters, s_orig, s_dirs, s_tmax = captured["trace_anyhit"]
+            a_args = bench.anyhit_args(captured)
+            clusters, s_orig, s_dirs, s_tmax = a_args
             live = torch.nonzero(s_tmax >= 0.0)[:, 0]
             check(live.numel() > 0, f"experiment {index} emitted no live "
                   "shadow ray")
@@ -511,7 +541,6 @@ def run_arcade_phase(torch, device, data_dir, card, experiments, results):
             plain1_ms, occ_p = cuda_once(
                 torch, lambda: tk.trace_anyhit_plain(clusters, *ssub))
             k1_bad = int((occ_k != occ_p).sum())
-            a_args = captured["trace_anyhit"]
             ms1 = bench.cuda_ms(torch, lambda: tk.trace_anyhit(*a_args), 5)
             tests = bench.test_counts(torch, captured)
             row.update(k2_ms=round(ms2, 4), k2_plain_ms=round(plain2_ms, 4),
@@ -547,6 +576,82 @@ def run_arcade_phase(torch, device, data_dir, card, experiments, results):
         del app, captured, args, sub
         torch.cuda.empty_cache()
     print(json.dumps({"arcade": rows, "card": card}), flush=True)
+
+
+def slot_args_subset(args, idx):
+    """K1's slot-entry arguments (clusters, out, slots, hit, position,
+    cam, base0) for the pixels idx."""
+    clusters, out, slots, hit, position, cam, base0 = args
+    return (clusters, out[:, idx].contiguous(), slots, hit[idx].contiguous(),
+            position.T[:, idx].contiguous().T, cam, base0[idx].contiguous())
+
+
+def hold_slot_entry(torch, captured, device):
+    """K1's slot entry on SLOTS_SUBSET pixels of a captured frame against
+    its plain version, bit for bit: (kernel_check.compare's row with the
+    bit mismatches, the plain version's ms, the pixels' arguments)."""
+    from vulkan_renderer_tpu_torch.render import trace_kernel as tk
+    from vulkan_renderer_tpu_torch.tools import kernel_check
+    args = captured["trace_anyhit_slots"][:7]
+    idx = subset_indices(torch, SLOTS_SUBSET, args[1].shape[1], device)
+    sub = slot_args_subset(args, idx)
+    got = tk.trace_anyhit_slots(*sub)
+    plain_ms, want = cuda_once(
+        torch, lambda: tk.trace_anyhit_slots_plain(*sub))
+    row = kernel_check.compare(got, want)
+    row["bit_mismatches"] = kernel_check.bit_mismatches(got, want)
+    return row, plain_ms, sub
+
+
+def run_slots_phase(torch, device, data_dir, card, experiments):
+    """Phase 7c: K1's slot entry on the benchmark's arcade frame against
+    the ray-list route and its plain version, and timed beside them."""
+    mark("7c")
+    from vulkan_renderer_tpu_torch.render import trace_kernel as tk
+    from vulkan_renderer_tpu_torch.tools import bench_frame as bench
+    from vulkan_renderer_tpu_torch.tools import kernel_check
+    exp = experiments[SLOTS_EXPERIMENT]
+    app, captured, _, peak = capture_frame(torch, bench, exp, data_dir)
+    args = captured["trace_anyhit_slots"][:7]
+    clusters, out, slots, hit, position, cam, base0 = args
+    rays = tk.shadow_megabatch(out, slots, hit, position, cam)
+
+    def route():
+        return tk.shadow_combine(
+            out, slots, tk.trace_anyhit(clusters, *tk.shadow_megabatch(
+                out, slots, hit, position, cam)), base0)
+
+    live = torch.zeros((), dtype=torch.int32, device=device)
+    got = tk.trace_anyhit_slots(*args, live)
+    bad = kernel_check.bit_mismatches(got, route())
+    live_want = int((rays[2] >= 0.0).sum())
+    held, plain_ms, sub = hold_slot_entry(torch, captured, device)
+    bad_sub = held["bit_mismatches"]
+    ms_entry = bench.cuda_ms(torch, lambda: tk.trace_anyhit_slots(*args), 5)
+    ms_route = bench.cuda_ms(torch, route, 5)
+    ms_k1 = bench.cuda_ms(torch, lambda: tk.trace_anyhit(clusters, *rays), 5)
+    row = dict(pixels=out.shape[1], slots=slots, rays=rays[2].numel(),
+               live=live_want, live_counted=int(live),
+               frame_peak_gib=round(peak / 2**30, 4),
+               mismatches=bad, plain_mismatches=bad_sub,
+               plain_pixels=sub[1].shape[1],
+               plain_ms_subset=round(plain_ms, 2),
+               entry_ms=round(ms_entry, 4), route_ms=round(ms_route, 4),
+               ray_list_k1_ms=round(ms_k1, 4))
+    log(f"arcade {SLOTS_EXPERIMENT} K1 slot entry ({out.shape[1]} px x "
+        f"{slots} slots, {live_want} live rays, counted {int(live)}): bit "
+        f"mismatches {bad} against the ray list + ray-list K1 + combine, "
+        f"{bad_sub} against its plain version on {sub[1].shape[1]} px "
+        f"(tolerance 0); entry {ms_entry:.3f} ms, route {ms_route:.3f} ms "
+        f"(ray-list K1 {ms_k1:.3f} ms) [{card}]")
+    print(json.dumps({"slots": row, "card": card}), flush=True)
+    check(bad == 0 and bad_sub == 0,
+          "K1's slot entry disagrees with the ray-list route or its plain "
+          "version")
+    check(int(live) == live_want,
+          "K1's slot entry counted another number of live rays")
+    del app, captured, args, rays, got, sub, out, position, base0, hit
+    torch.cuda.empty_cache()
 
 
 def run_later_phases(torch, np, device, data_dir, card, experiments, scene,
@@ -900,12 +1005,13 @@ def run_entry_phase(torch, np, device, data_dir, card, settings):
     from vulkan_renderer_tpu_torch.tools import bench_frame as bench
     from vulkan_renderer_tpu_torch.tools import sweep_check
 
-    # --- 22a. the bench entry with its defaults, in its own process -------
+    # --- 22a. the bench entry at ENTRY_SPP, in its own process -----------
     mark("22a")
     start = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "vulkan_renderer_tpu_torch.bench", "--data",
-         data_dir], cwd=ROOT, capture_output=True, text=True, timeout=600)
+         data_dir, "--spp", str(ENTRY_SPP), "--frames", str(ENTRY_FRAMES)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
     entry_s = time.perf_counter() - start
     check(proc.returncode == 0, f"the bench entry exited {proc.returncode}: "
           f"{proc.stderr[-2000:]}")
@@ -921,13 +1027,13 @@ def run_entry_phase(torch, np, device, data_dir, card, settings):
     log(f"the process's garbage before the window: {garbage} unreachable "
         f"objects, collected in {time.perf_counter() - start:.3f} s "
         f"(bench_frame.window_ms collects before its clock starts)")
-    window = bench.window_ms(torch, bench.application(data_dir, "cuda"),
-                             bench.WARMUP)
+    window = bench.window_ms(
+        torch, bench.application(data_dir, "cuda", ENTRY_SPP), bench.WARMUP)
     torch.cuda.empty_cache()
     ratio = record["value"] / window
     log(f"bench entry value {record['value']} ms against the bench frame's "
-        f"window {window:.3f} ms ({bench.WINDOW_FRAMES} frames, 3 in "
-        f"flight): ratio {ratio:.4f} (tolerance: within "
+        f"window {window:.3f} ms ({ENTRY_SPP} spp, {bench.WINDOW_FRAMES} "
+        f"frames, 3 in flight): ratio {ratio:.4f} (tolerance: within "
         f"{ENTRY_WINDOW_RTOL:.0%}) [{card}]")
     check(abs(ratio - 1.0) <= ENTRY_WINDOW_RTOL,
           "the bench entry's value parts from the window")
@@ -946,9 +1052,12 @@ def run_entry_phase(torch, np, device, data_dir, card, settings):
               f"{name} was not launched by the bench entry")
     check(entry_launches["K5"] == 0, "the bench entry launched K5")
     # The stages take turns, STAGE_ROUNDS rounds of each, so that a drift
-    # of the shared host's speed falls on every stage alike.
-    stages = {stage or "whole frame": stage
-              for stage in pipeline.STAGES + (None,)}
+    # of the shared host's speed falls on every stage alike. The cuts up
+    # to "shade" are prefixes of the whole frame; "shadowrays" and
+    # "shadow" build and trace a ray list that the whole frame does not
+    # (K1's slot entry reads its rays in place), so they are left out.
+    prefixes = pipeline.STAGES[:pipeline.STAGES.index("shade") + 1]
+    stages = {stage or "whole frame": stage for stage in prefixes + (None,)}
     taken = {name: ([], [], []) for name in stages}
     for _ in range(STAGE_ROUNDS):
         for name, stage in stages.items():
@@ -993,7 +1102,7 @@ def run_entry_phase(torch, np, device, data_dir, card, settings):
         _, rays, hits, p_bad, t_bad, dt = compare_closest(torch, tk, (
             clusters, origins[idx].contiguous(), dirs[idx].contiguous(),
             t_max[idx].contiguous()))
-        _, s_orig, s_dirs, s_tmax = captured["trace_anyhit"]
+        _, s_orig, s_dirs, s_tmax = bench.anyhit_args(captured)
         live = torch.nonzero(s_tmax >= 0.0)[:, 0]
         sidx = live[subset_indices(torch, CLUSTER_SUBSET, live.numel(),
                                    device)]
@@ -1247,22 +1356,37 @@ def run():
           "K4 disagrees with its plain version")
     results["K4"] = dict(max_abs_err=k4_err, compared=planes.shape[1])
 
-    clusters, s_orig, s_dirs, s_tmax = captured["trace_anyhit"]
+    # K1 as the frame runs it: its slot entry, which reads the rays from
+    # K4's planes and does the combine. Tolerance: bit for bit (the same
+    # occlusion bits, and the slots summed in the same groups and order).
+    slot_args = captured["trace_anyhit_slots"][:7]
+    r1, plain1_ms, psub = hold_slot_entry(torch, captured, device)
+    log(f"K1 slot entry vs plain ({psub[1].shape[1]} of "
+        f"{slot_args[1].shape[1]} pixels x {slot_args[2]} slots): bit "
+        f"mismatches {r1['bit_mismatches']} (tolerance 0), max |d| "
+        f"{r1['max_abs_err']:.3g}")
+    check(r1["bit_mismatches"] == 0,
+          "K1's slot entry disagrees with its plain version")
+    results["K1"] = dict(max_abs_err=r1["max_abs_err"],
+                         compared=psub[1].shape[1])
+    # The ray-list K1 (off the frame's path: the stop_after cuts) on the
+    # frame's rays, built by the plain megabatch.
+    s_args = bench.anyhit_args(captured)
+    clusters, s_orig, s_dirs, s_tmax = s_args
     live = torch.nonzero(s_tmax >= 0.0)[:, 0]
     check(live.numel() > 0, "the bench frame emitted no live shadow ray")
     sidx = live[subset_indices(torch, SHADOW_SUBSET, live.numel(), device)]
     ssub = [a[sidx].contiguous() for a in (s_orig, s_dirs, s_tmax)]
     occ_k = tk.trace_anyhit(clusters, *ssub)
-    plain1_ms, occ_p = cuda_once(
+    plain_list_ms, occ_p = cuda_once(
         torch, lambda: tk.trace_anyhit_plain(clusters, *ssub))
     k1_wrong = int((occ_k != occ_p).sum())
-    log(f"K1 any-hit vs plain ({sidx.numel()} live shadow rays of "
+    log(f"K1 ray-list entry vs plain ({sidx.numel()} live shadow rays of "
         f"{live.numel()} live / {s_tmax.numel()}): occluded "
         f"{int(occ_k.sum())}/{int(occ_p.sum())}, mismatches {k1_wrong} "
         f"(tolerance 0)")
-    check(k1_wrong == 0, "K1 disagrees with its plain version")
-    results["K1"] = dict(max_abs_err=float(k1_wrong > 0),
-                         compared=sidx.numel())
+    check(k1_wrong == 0, "K1's ray-list entry disagrees with its plain "
+          "version")
 
     # --- 4b. box and triangle tests per ray ----------------------------------
     mark("4b")
@@ -1345,7 +1469,6 @@ def run():
     # --- per-kernel times at the bench shapes --------------------------------
     c_args = captured["trace_closest"]
     a_args = captured["closest_attrs"]
-    s_args = captured["trace_anyhit"]
     kernel_ms = bench.kernel_ms(torch, captured)
     timings = {
         "K2": (kernel_ms["K2"], plain2_ms, None,
@@ -1360,11 +1483,12 @@ def run():
                    1),
                None, f"{f_args[0].shape[1]} pixels x "
                f"{static.light_count} lights", None),
-        "K1": (kernel_ms["K1"], plain1_ms,
-               bench.cuda_ms(torch, lambda: tk.trace_anyhit(clusters, *ssub),
+        "K1": (kernel_ms["K1_slots"], plain1_ms,
+               bench.cuda_ms(torch, lambda: tk.trace_anyhit_slots(*psub),
                              5),
-               f"{s_args[2].shape[0]} rays ({live.numel()} live)",
-               f"{ssub[1].shape[0]} live rays"),
+               f"{slot_args[1].shape[1]} pixels x {slot_args[2]} slots "
+               f"({live.numel()} live rays)",
+               f"{psub[1].shape[1]} pixels"),
     }
     for name, (ms, plain_ms, ms_sub, shape, plain_shape) in timings.items():
         where = "" if plain_shape is None else \
@@ -1372,6 +1496,10 @@ def run():
             f" (plain on {plain_shape}; kernel there {ms_sub:.3f} ms)"
         log(f"{name}: kernel {ms:.3f} ms on {shape}; plain {plain_ms:.3f} ms"
             f"{where} [{card}]")
+    log(f"K1 ray-list entry (off the frame's path): kernel "
+        f"{kernel_ms['K1']:.3f} ms on {s_tmax.numel()} rays; plain "
+        f"{plain_list_ms:.3f} ms (plain on {sidx.numel()} live rays) "
+        f"[{card}]")
 
     # --- 6b. K5 under DIFFUSE_SPECULAR_MIS against its plain version --------
     mark("6b")
@@ -1545,6 +1673,7 @@ def run():
             torch.cuda.empty_cache()
     print(json.dumps({"techniques": technique_rows}), flush=True)
     run_arcade_phase(torch, device, data_dir, card, experiments, results)
+    run_slots_phase(torch, device, data_dir, card, experiments)
 
     # --- 8. the timing sweep through the port's harness: counted run --------
     mark("8")
@@ -1771,12 +1900,15 @@ def run():
     tables = 4 * (clusters.planes.numel() + clusters.subboxes.numel()
                   + clusters.bvh_nodes.numel())
     bounds, design_ops_ms = {}, {}
-    for name, args, out_bytes, sub_ops, tri_ops in (
-            ("K1", s_args, 1, ANYHIT_SUBBOX_OPS, ANYHIT_TRI_OPS),
-            ("K2", c_args, 8, SLAB_OPS, CLOSEST_TRI_OPS)):
+    k1_bytes = s_tmax.numel() * K1_RAY_BYTES \
+        + slot_args[1].shape[1] * K1_PIXEL_BYTES
+    k2_bytes = c_args[2].shape[0] * (28 + 8)
+    for name, io_bytes, sub_ops, tri_ops in (
+            ("K1", k1_bytes, ANYHIT_SUBBOX_OPS, ANYHIT_TRI_OPS),
+            ("K2", k2_bytes, SLAB_OPS, CLOSEST_TRI_OPS)):
         c = test_counts[name]
         bounds[name] = bound_ms(
-            args[2].shape[0] * (28 + out_bytes) + tables,
+            io_bytes + tables,
             tracer_floor_ops(c["rays"], clusters.cluster_count, tri_ops))
         design_ops_ms[name] = (c["boxes"] * SLAB_OPS + c["subboxes"]
                                * sub_ops + c["triangles"] * tri_ops) \

@@ -2,16 +2,18 @@
 specular under clamped optimal MIS, shadow rays) through the port's frame
 loop on the CPU, on the cornell stand-in at 32x32 and 4 spp.
 
-- The frame (Application, the fused path: K4's and K1's plain versions,
-  the shadow megabatch and combine) agrees at every pixel with the
+- The frame (Application, the fused path: the plain versions of K4 and
+  of K1's slot entry, which are the shadow megabatch, the ray-list K1 and
+  the combine) agrees at every pixel with the
   benchmark's plain reference (benchmark/reference/), on seeded noise,
   and the reference with its records in bfloat16 does not.
 - The frame counters: shadow.rays is 2 x spp x P a frame (two samples a
   sample_count under MIS, each with a slot); shadow.live_rays is the
-  count of t_max >= 0 in the megabatch K1 receives.
+  count of t_max >= 0 in the megabatch of the frame's slot planes.
 - With tracing off the counters stay untouched, and the frame is
-  bit-equal to the frame with tracing on; on, the shadow combine is its
-  own span inside the resolve.
+  bit-equal to the frame with tracing on; on, the shadow rays and their
+  combine are one span, "shadow", with no "shadowrays" stage and nothing
+  inside the resolve.
 """
 
 import dataclasses
@@ -27,7 +29,7 @@ from vulkan_renderer_tpu_torch.core.app import (Application,
                                                 SceneSpecification)
 from vulkan_renderer_tpu_torch.experiments import harness as experiments
 from vulkan_renderer_tpu_torch.experiments import setups
-from vulkan_renderer_tpu_torch.render import pipeline
+from vulkan_renderer_tpu_torch.render import trace_kernel
 from vulkan_renderer_tpu_torch.tools import frame_spans
 from vulkan_renderer_tpu_torch.tools.export_scene import write_test_scene
 
@@ -141,15 +143,16 @@ def test_the_frame_is_the_plain_reference_at_every_pixel(
 
 
 def _megabatch_spy(monkeypatch):
-    """The t_max of every megabatch the frames hand K1."""
+    """The t_max of every megabatch that K1's slot entry's plain version
+    builds from the frames' slot planes."""
     seen = []
-    original = pipeline._shadow_megabatch
+    original = trace_kernel.shadow_megabatch
 
     def spy(*args):
         rays = original(*args)
         seen.append(rays[2].clone())
         return rays
-    monkeypatch.setattr(pipeline, "_shadow_megabatch", spy)
+    monkeypatch.setattr(trace_kernel, "shadow_megabatch", spy)
     return seen
 
 
@@ -193,9 +196,10 @@ def test_off_the_counters_stay_and_the_frame_is_the_traced_frame(arcade):
         trace.disable()
     assert torch.equal(traced, untraced)
     spans = {s.id: s for s in trace.RECORDER.spans}
-    combine = [s for s in spans.values() if s.name == "resolve.combine"]
-    assert len(combine) == 1
-    assert spans[combine[0].parent].name == "resolve"
+    names = [s.name for s in spans.values()]
+    assert names.count("shadow") == 1 and "shadowrays" not in names
+    resolve = next(s for s in spans.values() if s.name == "resolve")
+    assert not [s for s in spans.values() if s.parent == resolve.id]
     assert trace.RECORDER.counters["shadow.rays"] == 2 * SPP * SIZE * SIZE
     trace.RECORDER.clear()
     trace.reset_counters()

@@ -6,7 +6,7 @@ class (tools/per_pixel_check.py, which states that tolerance); the
 shading-path dispatch by the launch counters (core/trace.py); and the
 program's spans: their device time against the frame's, and no device
 operation of their own; the shadow counters, read at retire with no host
-wait. Marked gpu: they skip where
+wait; K1's slot entry against its plain version. Marked gpu: they skip where
 torch.cuda.is_available() is False. This file imports only the port (no
 JAX, nothing of the JAX package), so on a machine with a card and no JAX
 it runs without the repository's conftest:
@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_slot_inputs import occluded_slot, slot_inputs
 from vulkan_renderer_tpu_torch.assets.noise import white_noise_table
 from vulkan_renderer_tpu_torch.core import trace
 from vulkan_renderer_tpu_torch.core.settings import (
@@ -483,22 +484,26 @@ def test_dispatch_has_no_host_wait(tmp_path, shadows):
 
 
 def test_shadow_counters_on_the_card(tmp_path, monkeypatch):
-    """With tracing on, K4 + K1 frames count the rays of their shadow
-    megabatch and the live ones among them (t_max >= 0) with no
-    synchronizing call in the dispatch: the live count reaches the host
-    through pinned memory and is read when its frame retires."""
+    """With tracing on, K4 + K1 frames count their shadow rays (slots x
+    pixels) and the live ones among them (t_max >= 0, counted by K1's
+    slot entry) with no synchronizing call in the dispatch: the live count
+    reaches the host through pinned memory and is read when its frame
+    retires. The expected counts are the plain megabatch's of the slot
+    planes each frame handed K1."""
+    from vulkan_renderer_tpu_torch.core import app as app_module
     from vulkan_renderer_tpu_torch.tools import host_waits
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
     app = _sweep_application(tmp_path, True)
     seen = []
-    original = pipeline._shadow_megabatch
 
-    def spy(*args):
-        rays = original(*args)
-        seen.append(rays[2])
-        return rays
-    monkeypatch.setattr(pipeline, "_shadow_megabatch", spy)
+    def record(*args):
+        seen.append(args[:7])
+        return pipeline.KERNELS.trace_anyhit_slots(*args)
+    kernels = dataclasses.replace(pipeline.KERNELS, trace_anyhit_slots=record)
+    render = app_module.render_frame_constants
+    monkeypatch.setattr(app_module, "render_frame_constants",
+                        lambda *args: render(*args, kernels=kernels))
     trace.RECORDER.clear()
     trace.reset_counters()
     trace.enable()
@@ -508,12 +513,55 @@ def test_shadow_counters_on_the_card(tmp_path, monkeypatch):
         trace.disable()
     counters = trace.RECORDER.counters
     assert len(seen) == 4
-    assert counters["shadow.rays"] == sum(t.numel() for t in seen)
+    t_max = [tk.shadow_megabatch(*args[1:6])[2] for args in seen]
+    assert counters["shadow.rays"] == sum(t.numel() for t in t_max)
     assert counters["shadow.live_rays"] == sum(int((t >= 0).sum())
-                                               for t in seen)
+                                               for t in t_max)
     assert 0 < counters["shadow.live_rays"] < counters["shadow.rays"]
     trace.RECORDER.clear()
     trace.reset_counters()
+
+
+@pytest.mark.parametrize("slots", [1, 13, 128])
+def test_anyhit_slots_entry_matches_plain(city, slots):
+    """K1's slot entry against its plain version (the ray list, the plain
+    tracer, the grouped combine) on slot planes drawn from a seed over the
+    city (P not a multiple of 32, miss pixels, dead slots, a NaN weight in
+    an occluded slot): colors bit for bit, NaN where the plain version is
+    NaN, and the live-ray count equal to the megabatch's t_max >= 0."""
+    scene, _ = city
+    clusters = scene.clusters
+    pixels = 1000 if slots < 128 else 250
+    args = slot_inputs(clusters, slots, pixels, 2**31 + slots)
+    out, _, hit, position, cam, base0 = args
+    s, p = occluded_slot(clusters, out, slots, hit, position, cam)
+    out[3 + 7 * s, p] = float("nan")
+    live = torch.zeros((), dtype=torch.int32, device="cuda")
+    got = tk.trace_anyhit_slots(clusters, *args, live)
+    want = tk.trace_anyhit_slots_plain(clusters, *args)
+    assert kernel_check.bit_mismatches(got, want) == 0
+    assert torch.isnan(got[p, 0])
+    t_max = tk.shadow_megabatch(out, slots, hit, position, cam)[2]
+    assert int(live) == int((t_max >= 0).sum())
+    assert 0 < int(live) < t_max.numel()
+
+
+def test_anyhit_slots_entry_matches_plain_on_a_frame(city):
+    """The slot planes a whole city frame (K4, shadows on) hands K1's slot
+    entry: the entry bit for bit as its plain version, and the ray-list
+    K1 on the frame's megabatch as trace_anyhit_plain."""
+    scene, camera = city
+    settings = RenderSettings(trace_shadow_rays=True)
+    captured = {}
+    pipeline.render_frame(scene, SceneStatic.for_scene(scene), camera,
+                          settings, 64, 32,
+                          kernels=bench_frame.recording_kernels(captured))
+    args = captured["trace_anyhit_slots"][:7]
+    got = tk.trace_anyhit_slots(*args)
+    want = tk.trace_anyhit_slots_plain(*args)
+    assert kernel_check.bit_mismatches(got, want) == 0
+    rays = bench_frame.anyhit_args(captured)
+    assert torch.equal(tk.trace_anyhit(*rays), tk.trace_anyhit_plain(*rays))
 
 
 def test_stage_spans_sum_to_the_frame_device_interval(tmp_path):

@@ -29,6 +29,7 @@ from _torch_trace_inputs import anyhit_formula_np, both_clusters, city_frame
 from vulkan_renderer_tpu.render import trace_kernel as j_trace
 from vulkan_renderer_tpu_torch.render import trace_kernel as tk
 from vulkan_renderer_tpu_torch.tools import anyhit_gate_check as gate
+from vulkan_renderer_tpu_torch.tools import bench_frame as bench
 
 
 def _pallas_anyhit(jax_clusters, origins, dirs, t_max):
@@ -78,7 +79,7 @@ def frame(tmp_path_factory):
 
 def test_anyhit_matches_pallas_on_frame_shadow_rays(frame):
     jax_cl, _, captured = frame
-    clusters, o, d, tm = captured["trace_anyhit"]
+    clusters, o, d, tm = bench.anyhit_args(captured)
     o, d, tm = (a.numpy() for a in (o, d, tm))
     assert d.shape[0] == 16384 and (tm < 0).any()
     got = _port_anyhit(clusters, o, d, tm)

@@ -194,9 +194,11 @@ def _expected_tree(fused, shadows, frame):
               (1, "noise"), (1, "preamble"), (2, "preamble.texture"),
               (2, "preamble.ltc"), (2, "preamble.display"), (1, "shade")]
     stages += [(2, "shade.pack")] if fused else []
-    stages += [(1, "shadowrays"), (1, "shadow")] if shadows else []
+    # With shadows, K1's slot entry reads the rays from K4's planes and
+    # does the combine: no "shadowrays" stage, and nothing inside the
+    # resolve.
+    stages += [(1, "shadow")] if shadows else []
     stages += [(1, "resolve")]
-    stages += [(2, "resolve.combine")] if shadows else []
     return [(0, "frame.dispatch", frame)] \
         + [(depth, name, frame) for depth, name in stages] \
         + [(0, "frame.retire", frame)]

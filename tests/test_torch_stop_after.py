@@ -301,6 +301,8 @@ KERNELS_RUN = {
     "shade": {**_PREAMBLE, "fused_shading": 1},
     "shadowrays": {**_PREAMBLE, "fused_shading": 1},
     "shadow": {**_PREAMBLE, "fused_shading": 1, "trace_anyhit": 1},
+    # The whole frame: K1's slot entry in place of the cuts' ray list.
+    None: {**_PREAMBLE, "fused_shading": 1, "trace_anyhit_slots": 1},
 }
 
 
@@ -310,15 +312,17 @@ def test_kernels_run_to_the_cut(scenes, fused, shadows):
     """Each cut has run the kernels up to its stage and no other: K2 and
     K3 from "trace" on, K6 from "preamble" on (the per-pixel path reads
     its planes too), K4 (with shadows) or K5 (without) from "shade"
-    on on the fused path, K1 only at "shadow" with shadows; the per-pixel
-    path runs neither K4 nor K5; a stage the frame does not pass runs
-    the whole frame's."""
+    on on the fused path, the ray-list K1 only at "shadow" with shadows;
+    the per-pixel path runs neither K4 nor K5; a stage the frame does not
+    pass runs the whole frame's; the whole frame with shadows runs K1's
+    slot entry once, on either path, and never the ray-list K1."""
     _, scene, static = scenes
     static = dataclasses.replace(static, fused=fused)
-    for stage in pipeline.STAGES:
+    for stage in pipeline.STAGES + (None,):
         want = dict(KERNELS_RUN[stage])
         if not shadows:
             want.pop("trace_anyhit", None)
+            want.pop("trace_anyhit_slots", None)
             if want.pop("fused_shading", None):
                 want["fused_resolved"] = 1
         if fused == "off":

@@ -17,8 +17,8 @@ placed where the work happens:
                            plain version only (render/preamble.py)
         preamble.display   the light-display loop
         shade.pack         the fused path's light records
-      resolve              the output color, after the shadow combine:
-        resolve.combine    base + sum_slot b V over the megabatch's slots
+      resolve              the output color (the shadow combine is in K1's
+                           slot entry, inside "shadow")
     frame.retire           the wait on the oldest frame, with its index
 
 Tracing is off until enable(). Off, span() returns one shared context
@@ -42,8 +42,9 @@ Counters. count(name) adds to an integer and is always on: the kernel
 wrappers count their launches ("K1.launches" ... "K6.launches",
 launch_counts()). frame_count(name, value) counts only while tracing is
 on, as the spans record: render/pipeline.py counts the shadow rays of a
-frame's megabatch ("shadow.rays", known on the host) and those of them
-that are live ("shadow.live_rays", t_max >= 0, counted on the device).
+frame ("shadow.rays", slots x pixels, known on the host) and those of
+them that are live ("shadow.live_rays", t_max >= 0, counted on the
+device by K1's slot entry, one atomic per warp).
 A device count is read when its frame retires, as the spans' device ms
 are: on a CUDA device it is copied to pinned host memory in stream order
 inside the frame, so reading it adds no host wait.

@@ -1,4 +1,7 @@
-// K1: shadow any-hit over the cluster BVH, one thread per ray.
+// K1: shadow any-hit over the cluster BVH, in two entries:
+//   - k1_anyhit: a ray list (origins, directions, t_max), one thread per ray;
+//   - k1_anyhit_slots: the frame's shadow rays read in place from K4's
+//     (3 + 7 S, P) slot planes, with the combine folded in (below).
 //
 // Replaces the Pallas kernel
 // vulkan_renderer_tpu/render/trace_kernel.py::_anyhit_pass_one (kernel at
@@ -80,6 +83,27 @@
 // walk; the sample-major ray order makes neighbouring threads shadow
 // neighbouring pixels toward the same light, which keeps a warp on the
 // same branches of the tree.
+//
+// The slot entry. Where the frame's rays come from: pixel p's ray of slot
+// s starts at its shading point (K6's position rows) on a hit pixel and at
+// the camera on a miss, runs along K4's direction of slot s and is dead
+// (t_max = -1) where the slot's weight b is zero in all three channels,
+// else ends at K4's t_max: the float32 values of the sample-major ray list
+// (render/trace_kernel.py shadow_megabatch), never stored. Each ray takes
+// the same visit as in the ray list's entry, so its occlusion bit is that
+// entry's. The entry then writes colors = (base0 + base) + sum_s b_s V_s,
+// V = 0 where the ray is occluded and 1 elsewhere, multiplied and not
+// skipped, so a non-finite b still reaches the resolve's pink. A block
+// holds 32 consecutive pixels and one warp per slot group (groups of
+// group_slots consecutive slots, render/trace_kernel.py slot_groups):
+// neighbouring lanes shadow neighbouring pixels toward the same sample,
+// the ray list's coherence, and a thread walks only its group's slots, so
+// no thread runs all of a pixel's slots while the card idles around the
+// last wave. How the sum's order is fixed: each lane adds its group's
+// terms in slot order onto 0, then lane p of warp 0 adds the groups'
+// partial sums in group order onto 0, through shared memory; the plain
+// version (shadow_combine) adds in these groups in this order. With a
+// counter, each warp adds its live rays (t_max >= 0) to it with one atomic.
 
 #include "common.cuh"
 
@@ -129,6 +153,58 @@ __device__ __forceinline__ bool grown_slab(const float* lo, const float* hi,
          (t_cap >= 0.0f);
 }
 
+// The tables K1 walks. Each entry builds it from its own __restrict__
+// parameters, so the loads through it keep their read-only path.
+struct Tables {
+  const float4* nodes;
+  const float* planes;
+  int cluster_count, cluster_size;
+  const float* subboxes;
+  int subbox_count;
+  float t_min;
+};
+
+// Whether the live ray (t_max >= 0) is occluded: the BVH walk, each
+// reached cluster's gated sub-boxes, then their triangles, up to the first
+// hit. scale is floor_scale(nodes, ray), which reads the ray's origin only.
+__device__ __forceinline__ bool occluded_ray(const Tables& tab, const Ray& ray,
+                                             float2 scale,
+                                             vrt::TestCounts& counts) {
+  bool hit = false;
+  const bool ray_bounded = ray.t_max * 1e-18f <= scale.y;
+  auto keep = [](float) { return true; };
+  auto visit = [&](int k, float kappa) {
+    const float* row = tab.planes + (size_t)k * 9 * tab.cluster_size;
+    const float* boxes = tab.subboxes + (size_t)k * 6 * tab.subbox_count;
+    const float eps = kappa * scale.x + scale.y;
+    const bool gated = ray_bounded & (kappa <= vrt::kKappaMax) &
+                       (eps < 1e8f);
+    const float w[3] = {eps * fabsf(ray.ix), eps * fabsf(ray.iy),
+                        eps * fabsf(ray.iz)};
+    const float t_cap =
+        ray.t_max * (1.0f + (26.0f + 8.0f * kappa) * vrt::kU);
+    for (int g = 0; g < tab.subbox_count; ++g) {
+      // Empty groups are NaN boxes and fail either test.
+      const float* lo = boxes + 6 * g;
+      VR_COUNT(counts, subboxes, 1);
+      if (gated ? !grown_slab(lo, lo + 3, ray, w, t_cap) : lo[0] != lo[0])
+        continue;
+      const int t_end = min((g + 1) * vrt::kSubGroup, tab.cluster_size);
+      for (int t = g * vrt::kSubGroup; t < t_end; ++t) {
+        VR_COUNT(counts, triangles, 1);
+        if (anyhit_triangle(vrt::load_tri(row, t, tab.cluster_size), ray,
+                            tab.t_min)) {
+          hit = true;
+          return true;
+        }
+      }
+    }
+    return false;
+  };
+  vrt::walk_bvh(tab.nodes, ray, tab.cluster_count, keep, visit, counts);
+  return hit;
+}
+
 __global__ void __launch_bounds__(128)
 anyhit_kernel(const float* __restrict__ origins,
               const float* __restrict__ dirs,
@@ -140,45 +216,98 @@ anyhit_kernel(const float* __restrict__ origins,
               unsigned long long* __restrict__ test_counts) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= ray_count) return;
+  const Tables tab = {nodes,    planes,       cluster_count, cluster_size,
+                      subboxes, subbox_count, t_min};
   const Ray ray = vrt::load_ray(origins, dirs, t_max, r);
   bool hit = false;
   vrt::TestCounts counts;
-  if (ray.t_max >= 0.0f) {
-    const float2 scale = vrt::floor_scale(nodes, ray);
-    const bool ray_bounded = ray.t_max * 1e-18f <= scale.y;
-    auto keep = [](float) { return true; };
-    auto visit = [&](int k, float kappa) {
-      const float* row = planes + (size_t)k * 9 * cluster_size;
-      const float* boxes = subboxes + (size_t)k * 6 * subbox_count;
-      const float eps = kappa * scale.x + scale.y;
-      const bool gated = ray_bounded & (kappa <= vrt::kKappaMax) &
-                         (eps < 1e8f);
-      const float w[3] = {eps * fabsf(ray.ix), eps * fabsf(ray.iy),
-                          eps * fabsf(ray.iz)};
-      const float t_cap =
-          ray.t_max * (1.0f + (26.0f + 8.0f * kappa) * vrt::kU);
-      for (int g = 0; g < subbox_count; ++g) {
-        // Empty groups are NaN boxes and fail either test.
-        const float* lo = boxes + 6 * g;
-        VR_COUNT(counts, subboxes, 1);
-        if (gated ? !grown_slab(lo, lo + 3, ray, w, t_cap) : lo[0] != lo[0])
-          continue;
-        const int t_end = min((g + 1) * vrt::kSubGroup, cluster_size);
-        for (int t = g * vrt::kSubGroup; t < t_end; ++t) {
-          VR_COUNT(counts, triangles, 1);
-          if (anyhit_triangle(vrt::load_tri(row, t, cluster_size), ray,
-                              t_min)) {
-            hit = true;
-            return true;
-          }
-        }
-      }
-      return false;
-    };
-    vrt::walk_bvh(nodes, ray, cluster_count, keep, visit, counts);
-  }
+  if (ray.t_max >= 0.0f)
+    hit = occluded_ray(tab, ray, vrt::floor_scale(tab.nodes, ray), counts);
   occluded[r] = hit;
   vrt::flush_counts(counts, test_counts);
+}
+
+// The most slot groups (warps) a block of the slot entry holds.
+constexpr int kMaxSlotGroups = 16;
+
+// out (3 + 7 S, P): base RGB, then per slot b RGB, direction, t_max;
+// positions (3, P): the shading points; hit_pixel (P,); cam (3,); base0 and
+// colors (P, 3). One block per 32 pixels, blockDim.x = 32 x groups.
+__global__ void __launch_bounds__(32 * kMaxSlotGroups)
+slots_anyhit_kernel(const float* __restrict__ out, int slots, int pixel_count,
+                    int group_slots, const bool* __restrict__ hit_pixel,
+                    const float* __restrict__ positions,
+                    const float* __restrict__ cam,
+                    const float* __restrict__ base0,
+                    const float4* __restrict__ nodes,
+                    const float* __restrict__ planes, int cluster_count,
+                    int cluster_size, const float* __restrict__ subboxes,
+                    int subbox_count, float t_min,
+                    float* __restrict__ colors,
+                    int* __restrict__ live_rays) {
+  extern __shared__ float partial[];  // (groups, 3, 32)
+  const Tables tab = {nodes,    planes,       cluster_count, cluster_size,
+                      subboxes, subbox_count, t_min};
+  const int lane = threadIdx.x & 31, group = threadIdx.x >> 5;
+  const int groups = blockDim.x >> 5;
+  const int p = blockIdx.x * 32 + lane;
+  const size_t n = (size_t)pixel_count;
+  // A lane keeps its group's three sums in its own words of shared memory,
+  // and each ray takes floor_scale afresh, as in the ray-list entry: on the
+  // arcade frame both ran faster than holding them in registers across the
+  // walk (PERF.md section 6).
+  float* sum = partial + group * 3 * 32 + lane;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) sum[32 * c] = 0.0f;
+  int live = 0;
+  vrt::TestCounts counts;  // counted only by the ray-list entry
+  if (p < pixel_count) {
+    Ray ray;
+    const bool on_surface = hit_pixel[p];
+    ray.ox = on_surface ? positions[p] : cam[0];
+    ray.oy = on_surface ? positions[n + p] : cam[1];
+    ray.oz = on_surface ? positions[2 * n + p] : cam[2];
+    const int s_end = min(slots, (group + 1) * group_slots);
+    for (int s = group * group_slots; s < s_end; ++s) {
+      const float* slot = out + (3 + 7 * (size_t)s) * n + p;
+      const float b[3] = {slot[0], slot[n], slot[2 * n]};
+      ray.dx = slot[3 * n];
+      ray.dy = slot[4 * n];
+      ray.dz = slot[5 * n];
+      ray.ix = vrt::safe_inverse(ray.dx);
+      ray.iy = vrt::safe_inverse(ray.dy);
+      ray.iz = vrt::safe_inverse(ray.dz);
+      ray.t_max = (b[0] != 0.0f) | (b[1] != 0.0f) | (b[2] != 0.0f)
+                      ? slot[6 * n]
+                      : -1.0f;
+      bool hit = false;
+      if (ray.t_max >= 0.0f) {
+        ++live;
+        hit = occluded_ray(tab, ray, vrt::floor_scale(tab.nodes, ray),
+                           counts);
+      }
+      const float visibility = hit ? 0.0f : 1.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        sum[32 * c] = sum[32 * c] + b[c] * visibility;
+    }
+  }
+  if (live_rays != nullptr) {
+    const int warp_live = __reduce_add_sync(0xffffffffu, live);
+    if (lane == 0 && warp_live != 0) atomicAdd(live_rays, warp_live);
+  }
+  __syncthreads();
+  if (group == 0 && p < pixel_count) {
+    float total[3] = {0.0f, 0.0f, 0.0f};
+    for (int g = 0; g < groups; ++g) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        total[c] = total[c] + partial[(g * 3 + c) * 32 + lane];
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      colors[3 * p + c] = (base0[3 * p + c] + out[c * n + p]) + total[c];
+  }
 }
 
 }  // namespace
@@ -196,5 +325,25 @@ extern "C" int k1_anyhit(const float* origins, const float* dirs,
       origins, dirs, t_max, ray_count,
       reinterpret_cast<const float4*>(nodes), planes, cluster_count,
       cluster_size, subboxes, subbox_count, t_min, occluded, test_counts);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int k1_anyhit_slots(const float* out, int slots, int pixel_count,
+                               int groups, int group_slots,
+                               const bool* hit_pixel, const float* positions,
+                               const float* cam, const float* base0,
+                               const float* nodes, const float* planes,
+                               int cluster_count, int cluster_size,
+                               const float* subboxes, int subbox_count,
+                               float t_min, float* colors, int* live_rays,
+                               cudaStream_t stream) {
+  if (groups < 1 || groups > kMaxSlotGroups || group_slots < 0)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (pixel_count + 31) / 32;
+  slots_anyhit_kernel<<<blocks, 32 * groups,
+                        groups * 3 * 32 * sizeof(float), stream>>>(
+      out, slots, pixel_count, group_slots, hit_pixel, positions, cam, base0,
+      reinterpret_cast<const float4*>(nodes), planes, cluster_count,
+      cluster_size, subboxes, subbox_count, t_min, colors, live_rays);
   return (int)cudaGetLastError();
 }

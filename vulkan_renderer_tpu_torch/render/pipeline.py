@@ -17,20 +17,29 @@ with the Pallas tracers, stage by stage:
    - per-pixel (render/shading.py, render/line_shading.py; _shade_pixel
      :123): every other configuration, in plain PyTorch over chunks of
      PIXEL_CHUNK pixels, each chunk reading its own noise pairs;
-6. the sample-major shadow megabatch; a ray whose weight is zero gets
-   t_max = -1 and is dead (:537-552);
-7. shadow any-hit (K1);
-8. the resolve: base + sum_slot b * V, NaN/Inf -> pink, exposure, then
-   sRGB, or one byte of the float16 bits for the two-frame HDR capture
-   (frame_bits, :587-594 and _postprocess :181-199).
+6-7. with shadows, K1's slot entry (trace_kernel.py trace_anyhit_slots)
+   in one launch: pixel p's ray of slot s starts at its shading point
+   (the camera on a miss), runs along K4's direction of slot s to its
+   t_max and is dead where the slot's weight b is zero, as the JAX
+   package's sample-major megabatch holds it (:537-552); K1 reads these
+   values in place from K4's (3 + 7 S, P) output and never stores the
+   ray list. It also does the combine, base0 + base + sum_slot b * V,
+   with the slots summed in fixed groups in a fixed order (trace_kernel.py
+   shadow_combine, the plain version's sum);
+8. the resolve: NaN/Inf -> pink, exposure, then sRGB, or one byte of the
+   float16 bits for the two-frame HDR capture (frame_bits, :587-594 and
+   _postprocess :181-199).
 
 A frame may be one band of image rows (row_offset; parallel/tiles.py).
 stop_after ends a frame after one of STAGES, for timing its stages
-(render_frame_constants says what each cut includes). Each stage a frame
-passes is a span of core/trace.py under its STAGES name, and the resolve
-one named "resolve", with the shadow combine in it as "resolve.combine".
-While tracing is on, the shadowrays stage counts the megabatch's rays
-("shadow.rays") and its live rays ("shadow.live_rays", on the device).
+(render_frame_constants says what each cut includes); the "shadowrays" and
+"shadow" cuts build the ray list (trace_kernel.py shadow_megabatch) and
+trace it with the ray-list K1, the JAX package's stages, which a whole
+frame does not, so their times are not prefixes of its time. Each stage a
+frame passes is a span of core/trace.py under its STAGES name, and the
+resolve one named "resolve". While tracing is on, a full shadowed frame's
+"shadow" stage counts its shadow rays ("shadow.rays", slots x P) and the
+live ones ("shadow.live_rays", counted by K1 on the device).
 
 Everything between the kernels is plain PyTorch on the scene's device.
 """
@@ -62,8 +71,10 @@ from .preamble import shading_planes, shading_planes_plain
 from .shading import (INVALID_PRIMITIVE, FrameConstants, SceneStatic,
                       evaluate_polygonal_light_shading, get_polygon_radiance,
                       pairs_per_light, rays_per_light)
-from .trace_kernel import (closest_attrs, closest_attrs_plain, trace_anyhit,
-                           trace_anyhit_plain, trace_closest,
+from .trace_kernel import (closest_attrs, closest_attrs_plain,
+                           shadow_megabatch, trace_anyhit,
+                           trace_anyhit_plain, trace_anyhit_slots,
+                           trace_anyhit_slots_plain, trace_closest,
                            trace_closest_plain)
 
 
@@ -74,20 +85,21 @@ class FrameKernels:
     trace_closest: Callable    # K2
     closest_attrs: Callable    # K3
     fused_shading: Callable    # K4
-    trace_anyhit: Callable     # K1
+    trace_anyhit: Callable     # K1 on a ray list (the stop_after cuts)
     fused_resolved: Callable   # K5
     shading_planes: Callable   # K6 (render/preamble.py)
+    trace_anyhit_slots: Callable   # K1 on K4's slot planes, with the combine
 
 
 # The frame's kernels: CUDA on CUDA tensors, plain versions on the CPU.
 KERNELS = FrameKernels(trace_closest, closest_attrs, fused_light_shading,
                        trace_anyhit, fused_light_shading_resolved,
-                       shading_planes)
+                       shading_planes, trace_anyhit_slots)
 # The plain versions on any device: the on-card reference of a frame.
 PLAIN_VERSIONS = FrameKernels(trace_closest_plain, closest_attrs_plain,
                               fused_light_shading_plain, trace_anyhit_plain,
                               fused_light_shading_resolved_plain,
-                              shading_planes_plain)
+                              shading_planes_plain, trace_anyhit_slots_plain)
 
 # Pixels the per-pixel path shades at once. It changes no result (frames
 # are bit-equal at every size) and bounds the path's device memory. Each
@@ -226,10 +238,13 @@ def render_frame_constants(scene, static: SceneStatic,
       base0 and K4's planes (the JAX base is base0 plus their first
       three, its b, dirs and t_max the slots'), without shadows the
       colors (the JAX base);
-    - "shadowrays": the shadow megabatch, with shadows only; base0, the
-      planes and the megabatch's origins, directions and t_max;
-    - "shadow": K1; base0, the planes and occluded (without shadows: the
-      colors, as after "shade").
+    - "shadowrays": the shadow megabatch (trace_kernel.py
+      shadow_megabatch), with shadows only; base0, the planes and the
+      megabatch's origins, directions and t_max;
+    - "shadow": the megabatch and the ray-list K1 on it; base0, the planes
+      and occluded (without shadows: the colors, as after "shade").
+    The whole frame runs neither cut's ray list: K1's slot entry reads
+    the rays from K4's planes and combines the colors.
     A stage the frame does not pass, "preamble" on the per-pixel path and
     "shadowrays" without shadows, does not cut it: the frame runs on to
     the end, as in the JAX package. stop_after=None renders the whole
@@ -321,25 +336,24 @@ def render_frame_constants(scene, static: SceneStatic,
             return _resolve(colors, constants, settings, width, height)
     if stop_after == "shade":
         return _stage_stub(width, height, base0, out)
-    with trace.span("shadowrays"):
-        rays = _shadow_megabatch(out, slots, hit, data.position, cam)
-        if trace.enabled():
-            # An int32 sum (K1 takes the ray count as a C int) reduces
-            # the mask in 0.79 ms against 1.04 for int64 (the arcade's
-            # 134,217,728 rays on an H100).
-            t_max = rays[2]
-            trace.frame_count("shadow.rays", t_max.shape[0])
-            trace.frame_count("shadow.live_rays",
-                              (t_max >= 0.0).sum(dtype=torch.int32))
-    if stop_after == "shadowrays":
-        return _stage_stub(width, height, base0, out, *rays)
-    with trace.span("shadow"):
-        occluded = kernels.trace_anyhit(scene.clusters, *rays)
-    if stop_after == "shadow":
+    if stop_after in ("shadowrays", "shadow"):
+        with trace.span("shadowrays"):
+            rays = shadow_megabatch(out, slots, hit, data.position, cam)
+        if stop_after == "shadowrays":
+            return _stage_stub(width, height, base0, out, *rays)
+        with trace.span("shadow"):
+            occluded = kernels.trace_anyhit(scene.clusters, *rays)
         return _stage_stub(width, height, base0, out, occluded)
+    with trace.span("shadow"):
+        live = None
+        if trace.enabled():
+            trace.frame_count("shadow.rays", slots * p)
+            live = torch.zeros((), dtype=torch.int32, device=out.device)
+        colors = kernels.trace_anyhit_slots(scene.clusters, out, slots, hit,
+                                            data.position, cam, base0, live)
+        if live is not None:
+            trace.frame_count("shadow.live_rays", live)
     with trace.span("resolve"):
-        with trace.span("resolve.combine"):
-            colors = _shadow_combine(out, slots, occluded, base0)
         return _resolve(colors, constants, settings, width, height)
 
 
@@ -354,30 +368,6 @@ def _stage_stub(width: int, height: int, *outputs) -> torch.Tensor:
     acc = flat.nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0).sum()
     return torch.zeros((height, width, 3), dtype=torch.float32,
                        device=acc.device) + acc * 1e-30
-
-
-def _shadow_megabatch(out, slots: int, hit, position, cam):
-    """The sample-major shadow megabatch of out (3 + 7 slots, P) (base RGB,
-    then per ray slot b RGB, direction, t_max): (origins, directions,
-    t_max), every pixel's ray of slot 0, then of slot 1, ...; a ray whose
-    b is zero gets t_max = -1 and is dead (:537-552)."""
-    p = out.shape[1]
-    rest = out[3:].reshape(slots, 7, p)     # slot-major: (S, 7, P)
-    shade_origins = torch.where(hit[:, None], position, cam)
-    flat_origins = shade_origins.repeat(slots, 1)
-    flat_dirs = rest[:, 3:6].permute(0, 2, 1).reshape(-1, 3).contiguous()
-    live = torch.any(rest[:, 0:3] != 0.0, dim=1).reshape(-1)
-    flat_tmax = torch.where(live, rest[:, 6].reshape(-1), -1.0)
-    return flat_origins, flat_dirs, flat_tmax.contiguous()
-
-
-def _shadow_combine(out, slots: int, occluded, base0):
-    """base0 + base + sum_slot b V as (P, 3), V = 1 where K1 found the
-    slot's ray unoccluded."""
-    p = out.shape[1]
-    b = out[3:].reshape(slots, 7, p)[:, 0:3]    # (S, 3, P)
-    visibility = torch.where(occluded, 0.0, 1.0).reshape(slots, 1, p)
-    return base0 + out[0:3].T + torch.sum(b * visibility, dim=0).T
 
 
 def _rows(fields, start: int, stop: int):

@@ -7,7 +7,7 @@ float32 planes of render/fused.py BASE_PLANES: each pixel's position,
 shading data, hit flag and LTC coefficients (the JAX package's
 render/pipeline.py _pixel_preamble less the light display). K4 and K5 read
 the planes; fused.plane_views gives the per-pixel path, the light display
-and the shadow megabatch their (P, ...) views.
+and K1's slot entry (the shading points) their (P, ...) views.
 
 K6 replaces no Pallas kernel: the JAX package leaves this preamble to XLA's
 fusion of its jnp code (csrc/preamble.cu says why the port has it and what

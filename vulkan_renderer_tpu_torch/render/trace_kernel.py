@@ -6,7 +6,10 @@ Replaces the Pallas kernels of vulkan_renderer_tpu/render/trace_kernel.py:
 - K1 trace_anyhit (csrc/anyhit.cu) <- _anyhit_pass_one (:637): shadow
   any-hit, division-free Moeller-Trumbore (:676-692) over every triangle
   of each cluster whose box passes, t in [t_min, t_max], no backface
-  culling, t_max < 0 marks a dead ray.
+  culling, t_max < 0 marks a dead ray. trace_anyhit_slots, K1's entry on
+  the frame's path, reads the rays in place from K4's slot planes and
+  returns the combined colors; its plain version is the ray list
+  (shadow_megabatch), trace_anyhit_plain and shadow_combine.
 - K2 trace_closest (csrc/closest.cu) <- _closest_pass_one (:949): primary
   closest hit, reciprocal-det Moeller-Trumbore (:1013-1028), the
   lexicographic minimum of (t, primitive id), so ties keep the lower id.
@@ -187,8 +190,18 @@ _CLUSTER_ARGTYPES = [ctypes.c_void_p,                          # bvh nodes
                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # planes K C
                      ctypes.c_void_p, ctypes.c_int,            # subboxes, G
                      ctypes.c_float]                           # t_min
-_K1_ARGTYPES = _RAY_ARGTYPES + _CLUSTER_ARGTYPES + [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]  # out, counts, stream
+_K1_FUNCTIONS = {
+    "k1_anyhit": _RAY_ARGTYPES + _CLUSTER_ARGTYPES + [
+        ctypes.c_void_p, ctypes.c_void_p,                 # occluded, counts
+        ctypes.c_void_p],                                 # stream
+    "k1_anyhit_slots": [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,      # out, S, P
+        ctypes.c_int, ctypes.c_int,                       # groups, per group
+        ctypes.c_void_p, ctypes.c_void_p,                 # hit, positions
+        ctypes.c_void_p, ctypes.c_void_p]                 # cam, base0
+    + _CLUSTER_ARGTYPES + [
+        ctypes.c_void_p, ctypes.c_void_p,                 # colors, live
+        ctypes.c_void_p]}                                 # stream
 _K2_ARGTYPES = _RAY_ARGTYPES + _CLUSTER_ARGTYPES + [
     ctypes.c_void_p, ctypes.c_void_p,                   # t, prim
     ctypes.c_void_p, ctypes.c_void_p]                   # counts, stream
@@ -238,8 +251,8 @@ def trace_anyhit(clusters: Clusters, origins, dirs, t_max,
     occluded = torch.empty(r, dtype=torch.bool, device=dirs.device)
     if r == 0:
         return occluded
-    lib, counts = _counting_library("anyhit", {"k1_anyhit": _K1_ARGTYPES},
-                                    test_counts, dirs)
+    lib, counts = _counting_library("anyhit", _K1_FUNCTIONS, test_counts,
+                                    dirs)
     with torch.cuda.device(dirs.device):
         err = lib.k1_anyhit(build.ptr(origins), build.ptr(dirs),
                             build.ptr(t_max), r,
@@ -249,6 +262,123 @@ def trace_anyhit(clusters: Clusters, origins, dirs, t_max,
     build.check_launch(err, "k1_anyhit")
     trace.count("K1.launches")
     return occluded
+
+
+# ---------------------------------------------------------------------------
+# K1 on the frame's slot planes, with the combine
+# ---------------------------------------------------------------------------
+
+# Slot groups a pixel's slots are split into: K1's slot entry gives each
+# group a warp of 32 pixels, and adds the groups' sums in group order. On
+# the arcade frame (128 slots, an H100) this layout, with the groups' sums
+# in shared memory and floor_scale taken per ray, ran 4 and 8 groups
+# within 1% of each other; 1, 2 and 16 groups were timed only in an
+# earlier layout, sums in registers and ~9% slower (PERF.md section 6).
+SLOT_GROUPS = 8
+
+
+def slot_groups(slots: int):
+    """(groups, slots a group): at most SLOT_GROUPS groups of consecutive
+    slots, all as large as the first, the last holding the rest; (1, 0)
+    without slots."""
+    if slots == 0:
+        return 1, 0
+    per_group = -(-slots // min(SLOT_GROUPS, slots))
+    return -(-slots // per_group), per_group
+
+
+def shadow_megabatch(out, slots: int, hit, position, cam):
+    """The sample-major shadow megabatch of out (3 + 7 slots, P) (base RGB,
+    then per ray slot b RGB, direction, t_max): (origins, directions,
+    t_max), every pixel's ray of slot 0, then of slot 1, ...; a ray starts
+    at position (P, 3) on a hit pixel and at cam on a miss; a ray whose b
+    is zero gets t_max = -1 and is dead (JAX pipeline.py:537-552)."""
+    p = out.shape[1]
+    rest = out[3:].reshape(slots, 7, p)     # slot-major: (S, 7, P)
+    shade_origins = torch.where(hit[:, None], position, cam)
+    flat_origins = shade_origins.repeat(slots, 1)
+    flat_dirs = rest[:, 3:6].permute(0, 2, 1).reshape(-1, 3).contiguous()
+    live = torch.any(rest[:, 0:3] != 0.0, dim=1).reshape(-1)
+    flat_tmax = torch.where(live, rest[:, 6].reshape(-1), -1.0)
+    return flat_origins, flat_dirs, flat_tmax.contiguous()
+
+
+def shadow_combine(out, slots: int, occluded, base0):
+    """(base0 + base) + sum_slot b V as (P, 3), V = 0 where the slot's ray
+    (occluded, in megabatch order) is occluded and 1 elsewhere; b V is a
+    product, so a non-finite b stays non-finite. Summed as K1's slot entry
+    sums: each group of slot_groups(slots) in slot order onto 0, then the
+    groups' sums in group order onto 0 (the padding past the last slot
+    adds +0, which changes no sum that starts at +0)."""
+    p = out.shape[1]
+    count, per_group = slot_groups(slots)
+    b = out[3:].reshape(slots, 7, p)[:, 0:3]              # (S, 3, P)
+    visibility = torch.where(occluded, 0.0, 1.0).reshape(slots, 1, p)
+    terms = b * visibility
+    pad = count * per_group - slots
+    if pad:
+        terms = torch.cat([terms, terms.new_zeros((pad, 3, p))])
+    terms = terms.reshape(count, per_group, 3, p)
+    partial = out.new_zeros((count, 3, p))
+    for j in range(per_group):
+        partial = partial + terms[:, j]
+    total = out.new_zeros((3, p))
+    for g in range(count):
+        total = total + partial[g]
+    return (base0 + out[0:3].T) + total.T
+
+
+def trace_anyhit_slots_plain(clusters: Clusters, out, slots: int, hit,
+                             position, cam, base0, live_rays=None,
+                             t_min: float = T_MIN):
+    """Plain version of K1's slot entry: shadow_megabatch, then
+    trace_anyhit_plain, then shadow_combine. live_rays, where given (a
+    0-dim int32 tensor), gains the rays with t_max >= 0."""
+    rays = shadow_megabatch(out, slots, hit, position, cam)
+    if live_rays is not None:
+        live_rays += (rays[2] >= 0.0).sum(dtype=torch.int32)
+    occluded = trace_anyhit_plain(clusters, *rays, t_min)
+    return shadow_combine(out, slots, occluded, base0)
+
+
+def trace_anyhit_slots(clusters: Clusters, out, slots: int, hit, position,
+                       cam, base0, live_rays=None, t_min: float = T_MIN):
+    """K1 on the frame's shadow rays, read in place from K4's output, with
+    the combine: out (3 + 7 slots, P) as K4 exports it, hit (P,) bool,
+    position (P, 3) the shading points (a view of K6's position rows:
+    position.T is contiguous), cam (3,), base0 (P, 3) -> colors (P, 3),
+    (base0 + base) + sum_slot b V. live_rays: None, or a 0-dim int32
+    tensor that gains the live rays (t_max >= 0). CPU tensors take
+    trace_anyhit_slots_plain; CUDA tensors launch K1's slot entry."""
+    if out.device.type == "cpu":
+        return trace_anyhit_slots_plain(clusters, out, slots, hit, position,
+                                        cam, base0, live_rays, t_min)
+    build.require_cuda(out, hit, position, cam, base0, clusters.planes)
+    p = out.shape[1]
+    build.check_tensor(out, "out", torch.float32, (3 + 7 * slots, p))
+    build.check_tensor(hit, "hit", torch.bool, (p,))
+    build.check_tensor(position.T, "position.T", torch.float32, (3, p))
+    build.check_tensor(cam, "cam", torch.float32, (3,))
+    build.check_tensor(base0, "base0", torch.float32, (p, 3))
+    colors = torch.empty((p, 3), dtype=torch.float32, device=out.device)
+    live = None
+    if live_rays is not None:
+        build.require_cuda(out, live_rays)
+        build.check_tensor(live_rays, "live_rays", torch.int32, ())
+        live = build.ptr(live_rays)
+    if p == 0:
+        return colors
+    count, per_group = slot_groups(slots)
+    lib = build.load_library("anyhit", _K1_FUNCTIONS)
+    with torch.cuda.device(out.device):
+        err = lib.k1_anyhit_slots(
+            build.ptr(out), slots, p, count, per_group, build.ptr(hit),
+            build.ptr(position.T), build.ptr(cam), build.ptr(base0),
+            *_cluster_args(clusters, t_min), build.ptr(colors), live,
+            build.stream(out.device))
+    build.check_launch(err, "k1_anyhit_slots")
+    trace.count("K1.launches")
+    return colors
 
 
 # ---------------------------------------------------------------------------

@@ -176,16 +176,17 @@ def load_city(data_dir, device, cluster_size=64, **city):
     return scene, SceneStatic.for_scene(scene)
 
 
-def application(data_dir, device):
+def application(data_dir, device, spp=1):
     """The bench frame as an Application (core/app.py): its scene, camera,
-    settings and size, three frames in flight."""
+    settings (at spp samples a pixel) and size, three frames in flight."""
     from vulkan_renderer_tpu_torch.core.app import (Application,
                                                     SceneSpecification)
     vks, textures = city_files(data_dir)
     return Application(
         SceneSpecification(name=CITY, vks_path=vks, texture_dir=textures,
                            camera=camera(), lights=lights()),
-        settings(), WIDTH, HEIGHT, data_directory=data_dir, device=device)
+        settings(spp), WIDTH, HEIGHT, data_directory=data_dir,
+        device=device)
 
 
 def camera():
@@ -238,6 +239,19 @@ def capture_inputs(scene, static, s, width=WIDTH, height=HEIGHT):
     return captured
 
 
+def anyhit_args(captured):
+    """The ray-list K1's arguments (clusters, origins, dirs, t_max) of a
+    captured frame: the shadow megabatch (render/trace_kernel.py
+    shadow_megabatch) of the slot planes K1's slot entry took; a tree
+    whose frame traced a ray list (--root) captured them as they were."""
+    if "trace_anyhit" in captured:
+        return captured["trace_anyhit"]
+    from vulkan_renderer_tpu_torch.render import trace_kernel as tk
+    clusters, out, slots, hit, position, cam = \
+        captured["trace_anyhit_slots"][:6]
+    return (clusters, *tk.shadow_megabatch(out, slots, hit, position, cam))
+
+
 def frame_ms(torch, scene, static, s):
     """ms of FRAMES frames after WARMUP warm-up frames: host clock around
     each frame and a synchronize."""
@@ -274,12 +288,18 @@ def window_ms(torch, app, warmup):
 
 
 def kernel_ms(torch, captured):
-    """K1-K4 ms at the frame's shapes (CUDA events, warm L2)."""
+    """K1-K4 ms at the frame's shapes (CUDA events, warm L2); K1 on the
+    frame's ray list, and (where the tree has it) K1's slot entry with the
+    combine ("K1_slots")."""
     from vulkan_renderer_tpu_torch.render import pipeline
     k = pipeline.KERNELS
+    rays = anyhit_args(captured)
+    out = {} if "trace_anyhit_slots" not in captured else {
+        "K1_slots": cuda_ms(torch, lambda: k.trace_anyhit_slots(
+            *captured["trace_anyhit_slots"]), 5)}
     return {
-        "K1": cuda_ms(torch, lambda: k.trace_anyhit(
-            *captured["trace_anyhit"]), 5),
+        **out,
+        "K1": cuda_ms(torch, lambda: k.trace_anyhit(*rays), 5),
         "K2": cuda_ms(torch, lambda: k.trace_closest(
             *captured["trace_closest"]), 5),
         "K3": cuda_ms(torch, lambda: k.closest_attrs(
@@ -295,9 +315,9 @@ def test_counts(torch, captured):
     their live rays (t_max >= 0)."""
     from vulkan_renderer_tpu_torch.render import trace_kernel as tk
     out = {}
-    for name, fn, field in (("K1", tk.trace_anyhit, "trace_anyhit"),
-                            ("K2", tk.trace_closest, "trace_closest")):
-        args = captured[field]
+    for name, fn, args in (("K1", tk.trace_anyhit, anyhit_args(captured)),
+                           ("K2", tk.trace_closest,
+                            captured["trace_closest"])):
         counts = torch.zeros(3, dtype=torch.int64, device=args[2].device)
         fn(*args, test_counts=counts)
         out[name] = dict(zip(("boxes", "subboxes", "triangles"),

@@ -36,6 +36,15 @@ def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
             "nonfinite_mismatch": nonfinite}
 
 
+def bit_mismatches(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The values whose NaN-ness differs, or that are NaN in neither and
+    differ in any bit (+0 and -0 differ)."""
+    nan_got, nan_want = torch.isnan(got), torch.isnan(want)
+    bits_off = (got.view(torch.int32) != want.view(torch.int32)) \
+        & ~nan_got & ~nan_want
+    return int(((nan_got != nan_want) | bits_off).sum())
+
+
 def compare_planes(got: torch.Tensor, want: torch.Tensor) -> dict:
     """K6's (62, P) planes against its plain version's: the values whose
     NaN-ness differs, the values NaN in neither that differ in any bit,
