@@ -12,7 +12,8 @@ parts on some rays (54 with these seeds), which shows that the rays still
 probe the gate. And the gate's bound on random axis triangles
 (anyhit_gate_check.bound_ratios, a cut of `--bounds`): no accepted hit
 dropped, and the worst measured errors under half of the margins taken.
-On the card, K1 itself is held on these rays by chip_smoke.py phase 21."""
+On the card, K1 itself is held on these rays by
+tests/test_torch_gpu_tools.py::test_anyhit_gate_on_card."""
 
 import os
 

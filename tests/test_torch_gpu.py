@@ -1,17 +1,27 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(K1-K6 and a whole frame), on a tiny city, the roughness-planes stand-in,
-the 1920x1080 sweep frame and K2 on a floor built to provoke its prune; the per-pixel shading path
-on the card against the same frame on the CPU, one configuration of each
-class (tools/per_pixel_check.py, which states that tolerance); the
-shading-path dispatch by the launch counters (core/trace.py); and the
-program's spans: their device time against the frame's, and no device
-operation of their own; the shadow counters, read at retire with no host
-wait; K1's slot entry against its plain version. Marked gpu: they skip where
-torch.cuda.is_available() is False. This file imports only the port (no
-JAX, nothing of the JAX package), so on a machine with a card and no JAX
-it runs without the repository's conftest:
+(K1-K6 and a whole frame), on a tiny city, the bench frame (the
+300-building city at 960x540, tools/bench_frame.py, also built with
+clusters of 32 and 128 triangles), the roughness-planes stand-in, the
+1920x1080 sweep frames and K2 on floors built to provoke its prune; the
+per-pixel shading path on the card against the same frame on the CPU,
+one configuration of each class (tools/per_pixel_check.py, which states
+that tolerance); the shading-path dispatch by the launch counters
+(core/trace.py); the frame bits, bands and host waits at the bench and
+sweep frames' sizes; and the program's spans: their device time against
+the frame's, and no device operation of their own; the shadow counters,
+read at retire with no host wait; K1's slot entry against its plain
+version. tests/test_torch_gpu_frames.py holds the harness's sweep and
+arcade frames, tests/test_torch_gpu_tools.py the tools. Marked gpu: they
+skip where torch.cuda.is_available() is False. These files import only
+the port (no JAX, nothing of the JAX package), so on a machine with a
+card and no JAX they run without the repository's conftest, as the one
+on-card check of the port:
 
-    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
+    python -m pytest --noconftest -p no:cacheprovider -m gpu \
+        tests/test_torch_gpu*.py
+
+(chip_smoke.py runs that, then tools/bench_frame.py --kernels). Their
+shared fixtures are in tests/_torch_gpu_fixtures.py.
 
 The kernels are built with --fmad=false and run the plain versions'
 operations in the same order, so the tolerances are tight: exact
@@ -26,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_gpu_fixtures import built, data_dir, jax_free  # noqa: F401
 from _torch_slot_inputs import occluded_slot, slot_inputs
 from vulkan_renderer_tpu_torch.assets.noise import white_noise_table
 from vulkan_renderer_tpu_torch.core import trace
@@ -41,17 +52,41 @@ from vulkan_renderer_tpu_torch.scene.camera import FirstPersonCamera
 from vulkan_renderer_tpu_torch.scene.lights import PolygonalLightSpec
 from vulkan_renderer_tpu_torch.scene.scene import load_scene
 from vulkan_renderer_tpu_torch.tools import (bench_frame, kernel_check,
-                                             per_pixel_check)
+                                             per_pixel_check, prune_check)
 from vulkan_renderer_tpu_torch.tools.city import write_city_scene
 from vulkan_renderer_tpu_torch.tools.export_scene import write_test_scene
 
 pytestmark = pytest.mark.gpu
 
+# The bench frame's cases: (its cluster size, the rays of the frame's
+# shadow-ray list K1 is held on, the primary rays K2 is held on; None:
+# all of them).
+BENCH_CASES = {"bench_960x540": (64, kernel_check.RAY_SUBSET, None),
+               "bench_clusters_32": (32, 65536, 65536),
+               "bench_clusters_128": (128, 65536, 65536)}
+
+
+@pytest.fixture(scope="module")
+def bench_frames(data_dir):
+    """frames(cluster_size): (scene, static, each kernel's arguments in
+    one bench frame) of the bench city built with clusters of that many
+    triangles, loaded at first use."""
+    frames = {}
+
+    def get(cluster_size=64):
+        if cluster_size not in frames:
+            scene, static = bench_frame.load_city(data_dir, "cuda",
+                                                  cluster_size=cluster_size)
+            with torch.no_grad():
+                frames[cluster_size] = (scene, static, bench_frame.
+                                        capture_inputs(scene, static,
+                                                       bench_frame.settings()))
+        return frames[cluster_size]
+    return get
+
 
 @pytest.fixture(scope="module")
 def city(tmp_path_factory):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
     d = str(tmp_path_factory.mktemp("gpu_city"))
     vks = write_city_scene(d, "city", n_buildings=20, detail=3,
                            texture_resolution=16)
@@ -79,65 +114,124 @@ def _rays(seed, n, device):
     return origins.to(device), dirs.to(device), t_max.to(device)
 
 
-def test_anyhit_kernel_matches_plain(city):
-    scene, _ = city
-    o, d, t = _rays(1, 20000, "cuda")
-    got = tk.trace_anyhit(scene.clusters, o, d, t)
-    want = tk.trace_anyhit_plain(scene.clusters, o, d, t)
+@pytest.mark.parametrize("case", ["city_20x3", "bench_clusters_32",
+                                  "bench_clusters_128"])
+def test_anyhit_kernel_matches_plain(request, case):
+    """K1's ray list against its plain version, exact: 20,000 random rays
+    over the tiny city, and the bench frame's shadow rays (its megabatch)
+    with the city built in clusters of 32 and 128 triangles."""
+    if case == "city_20x3":
+        scene, _ = request.getfixturevalue("city")
+        clusters, (o, d, t) = scene.clusters, _rays(1, 20000, "cuda")
+    else:
+        size, count, _ = BENCH_CASES[case]
+        clusters, *rays = bench_frame.anyhit_args(
+            request.getfixturevalue("bench_frames")(size)[2])
+        o, d, t = kernel_check.ray_subset(*rays, count)
+    got = tk.trace_anyhit(clusters, o, d, t)
+    want = tk.trace_anyhit_plain(clusters, o, d, t)
     assert 0.01 < float(want.float().mean()) < 0.99
     assert torch.equal(got, want)
 
 
-def test_closest_and_attrs_kernels_match_plain(city):
-    scene, _ = city
-    o, d, _ = _rays(2, 8000, "cuda")
-    inf = torch.full((d.shape[0],), float("inf"), device="cuda")
-    prim, t = tk.trace_closest(scene.clusters, o, d, inf)
-    prim_p, t_p = tk.trace_closest_plain(scene.clusters, o, d, inf)
+# K3 against its plain version: |d| <= tol x (1 + |plain|), assert_close's
+# atol and rtol; the bench frame's rays have been held at 1e-4.
+K3_TOLERANCE = {"city_20x3": 1e-5, "bench_960x540": 1e-4,
+                "bench_clusters_32": 1e-4, "bench_clusters_128": 1e-4}
+
+
+@pytest.mark.parametrize("case", list(K3_TOLERANCE))
+def test_closest_and_attrs_kernels_match_plain(request, case):
+    """K2 against its plain version, prim and t exact, and K3 on K2's hits
+    within K3_TOLERANCE: 8,000 random rays over the tiny city, and the
+    bench frame's primary rays (all 518,400; 65,536 with the city built
+    in clusters of 32 and 128 triangles)."""
+    if case == "city_20x3":
+        scene, _ = request.getfixturevalue("city")
+        clusters, (o, d, _) = scene.clusters, _rays(2, 8000, "cuda")
+        t_max = torch.full((d.shape[0],), float("inf"), device="cuda")
+        dcam = torch.randn((2, 3), device="cuda") * 1e-3
+    else:
+        size, _, count = BENCH_CASES[case]
+        captured = request.getfixturevalue("bench_frames")(size)[2]
+        clusters, o, d, t_max = captured["trace_closest"]
+        idx = kernel_check.subset_indices(count or d.shape[0], d.shape[0],
+                                          "cuda")
+        o, d, t_max = (a[idx].contiguous() for a in (o, d, t_max))
+        dcam = captured["closest_attrs"][4]
+    prim, t = tk.trace_closest(clusters, o, d, t_max)
+    prim_p, t_p = tk.trace_closest_plain(clusters, o, d, t_max)
     assert torch.equal(prim, prim_p)
     assert torch.equal(t, t_p)
-    dcam = torch.randn((2, 3), device="cuda") * 1e-3
-    got = tk.closest_attrs(scene.clusters, prim, o, d, dcam)
-    want = tk.closest_attrs_plain(scene.clusters, prim, o, d, dcam)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    got = tk.closest_attrs(clusters, prim, o, d, dcam)
+    want = tk.closest_attrs_plain(clusters, prim, o, d, dcam)
+    tol = K3_TOLERANCE[case]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("case", ["city_64x32", "bench_960x540"])
 @pytest.mark.parametrize("heuristic", ["balance", "power", "weighted",
                                        "optimal_clamped", "optimal"])
-def test_fused_kernel_matches_plain(city, heuristic):
-    """K4 under DIFFUSE_SPECULAR_MIS against its plain version: bit for
-    bit, miss pixels' dead slots included."""
-    scene, camera = city
+def test_fused_kernel_matches_plain(request, case, heuristic):
+    """K4 under DIFFUSE_SPECULAR_MIS against its plain version, on the
+    tiny city at 64x32 (2 spp) and on every pixel of the bench frame: bit
+    for bit, miss pixels' dead slots included."""
     # Shadows on: the frame exports K4's ray slots (with them off it
     # takes K5).
-    settings = RenderSettings(mis_heuristic=MisHeuristic(heuristic),
-                              sample_count=2, trace_shadow_rays=True)
-    captured = {}
-
-    def record(*args):
-        captured["args"] = args
-        return fused.fused_light_shading_plain(*args)
-
-    kernels = dataclasses.replace(pipeline.KERNELS, fused_shading=record)
-    pipeline.render_frame(scene, SceneStatic.for_scene(scene), camera,
-                          settings, 64, 32, kernels=kernels)
-    got = fused.fused_light_shading(*captured["args"])
-    want = fused.fused_light_shading_plain(*captured["args"])
+    if case == "city_64x32":
+        scene, camera = request.getfixturevalue("city")
+        settings = RenderSettings(mis_heuristic=MisHeuristic(heuristic),
+                                  sample_count=2, trace_shadow_rays=True)
+        captured = {}
+        pipeline.render_frame(scene, SceneStatic.for_scene(scene), camera,
+                              settings, 64, 32,
+                              kernels=bench_frame.recording_kernels(captured))
+    else:
+        scene, static, _ = request.getfixturevalue("bench_frames")()
+        with torch.no_grad():
+            captured = bench_frame.capture_inputs(
+                scene, static, dataclasses.replace(
+                    bench_frame.settings(),
+                    mis_heuristic=MisHeuristic(heuristic)))
+    args = captured["fused_shading"]
+    got = fused.fused_light_shading(*args)
+    want = fused.fused_light_shading_plain(*args)
     r = kernel_check.compare(got, want)
     assert r["exact"] == 1.0 and r["nonfinite_mismatch"] == 0, r
 
 
-def test_frame_kernels_match_plain_versions(city):
-    scene, camera = city
-    static = SceneStatic.for_scene(scene)
-    settings = RenderSettings(trace_shadow_rays=True)
-    got = pipeline.render_frame(scene, static, camera, settings, 64, 32)
-    want = pipeline.render_frame(scene, static, camera, settings, 64, 32,
-                                 kernels=pipeline.PLAIN_VERSIONS)
+# (mean |d| limit, least share of pixels within 1e-3); the bench frame's
+# cut to 128x64 has been held at the looser pair.
+FRAME_TOLERANCE = {"city_64x32": (1e-4, 0.999), "bench_128x64": (5e-4, 0.995)}
+
+
+@pytest.mark.parametrize("case", list(FRAME_TOLERANCE))
+def test_frame_kernels_match_plain_versions(request, case):
+    """A whole frame, shadows on, through the kernels against the frame
+    through their plain versions within FRAME_TOLERANCE: the tiny city at
+    64x32 and the bench frame's city, camera and settings at 128x64."""
+    if case == "city_64x32":
+        scene, camera = request.getfixturevalue("city")
+        static = SceneStatic.for_scene(scene)
+        settings = RenderSettings(trace_shadow_rays=True)
+
+        def render(kernels):
+            return pipeline.render_frame(scene, static, camera, settings, 64,
+                                         32, kernels=kernels)
+    else:
+        scene, static, _ = request.getfixturevalue("bench_frames")()
+
+        def render(kernels):
+            return bench_frame.render(scene, static, bench_frame.settings(),
+                                      kernels, 128, 64)
+    with torch.no_grad():
+        got = render(pipeline.KERNELS)
+        want = render(pipeline.PLAIN_VERSIONS)
     assert bool(torch.isfinite(got).all())
     diff = (got - want).abs()
-    assert float(diff.mean()) <= 1e-4
-    assert float((diff.amax(dim=-1) <= 1e-3).float().mean()) >= 0.999
+    mean_limit, close_share = FRAME_TOLERANCE[case]
+    assert float(diff.mean()) <= mean_limit
+    assert float((diff.amax(dim=-1) <= 1e-3).float().mean()) >= close_share
 
 
 # --- K4 DIFFUSE_ONLY and K5, every technique -------------------------------
@@ -151,8 +245,6 @@ def planes_scene(tmp_path_factory):
     """The roughness-planes stand-in lit by five lights of 3, 4, 5, 6 and 7
     vertices, every count the timing sweep and the arcade figures render
     (mixed vertex counts: one launch per group)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
     d = str(tmp_path_factory.mktemp("gpu_planes"))
     vks = write_test_scene(d, "roughness_planes", texture_resolution=16)
     lights = [PolygonalLightSpec(
@@ -195,23 +287,9 @@ def test_diffuse_only_kernels_match_plain(planes_scene, tech):
         sampling_strategy=SamplingStrategy.DIFFUSE_ONLY,
         polygon_sampling_technique=tech, sample_count=2,
         trace_shadow_rays=False)
-    args = _capture_resolved(scene, camera, settings)
-    static, s = args[3], args[4]
-    limit = 5e-3 if tech in (Tech.SOLID_ANGLE_ARVO,
-                             Tech.PROJECTED_SOLID_ANGLE_ARVO) else 0.0
-    got5 = fused.fused_light_shading_resolved(*args)
-    want5 = fused.fused_light_shading_resolved_plain(*args)
-    r5 = kernel_check.compare(got5.T, want5.T)
-    assert 1.0 - r5["exact"] <= limit and r5["nonfinite_mismatch"] == 0, r5
-    # K4 takes K5's arguments (the same planes and noise).
-    got4 = fused.fused_light_shading(*args)
-    want4 = fused.fused_light_shading_plain(*args)
-    r4 = kernel_check.compare(got4, want4)
-    assert 1.0 - r4["exact"] <= limit and r4["nonfinite_mismatch"] == 0, r4
-    r45 = kernel_check.compare(kernel_check.k4_resolved(got4, static, s).T,
-                               got5.T)
-    assert r45["exact"] == 1.0 and r45["nonfinite_mismatch"] == 0, r45
-    assert float(want5.abs().max()) > 0
+    faults = kernel_check.diffuse_only_faults(_capture_resolved(
+        scene, camera, settings))
+    assert not faults, faults
 
 
 @pytest.mark.parametrize("tech", [Tech.PROJECTED_SOLID_ANGLE,
@@ -219,20 +297,33 @@ def test_diffuse_only_kernels_match_plain(planes_scene, tech):
                          ids=lambda t: t.value)
 @pytest.mark.parametrize("heuristic", list(MisHeuristic),
                          ids=lambda h: h.value)
-def test_resolved_mis_kernel_matches_plain(planes_scene, tech, heuristic):
+@pytest.mark.parametrize("case", ["planes_64x32", "bench_960x540"])
+def test_resolved_mis_kernel_matches_plain(request, case, tech, heuristic):
     """K5 under DIFFUSE_SPECULAR_MIS (the default settings with shadows
-    off) against its plain version: bit for bit, the same float32
-    operations in the same order."""
-    scene, camera = planes_scene
-    settings = RenderSettings(polygon_sampling_technique=tech,
-                              mis_heuristic=heuristic, sample_count=2,
-                              trace_shadow_rays=False)
-    args = _capture_resolved(scene, camera, settings)
+    off) against its plain version, and K4 on K5's arguments against its
+    own: bit for bit, the same float32 operations in the same order; on
+    the planes at 64x32 (2 spp) and on 4,096 pixels of the bench frame."""
+    if case == "planes_64x32":
+        scene, camera = request.getfixturevalue("planes_scene")
+        args = _capture_resolved(scene, camera, RenderSettings(
+            polygon_sampling_technique=tech, mis_heuristic=heuristic,
+            sample_count=2, trace_shadow_rays=False))
+    else:
+        scene, static, _ = request.getfixturevalue("bench_frames")()
+        with torch.no_grad():
+            args = kernel_check.pixel_subset(bench_frame.capture_inputs(
+                scene, static, dataclasses.replace(
+                    bench_frame.settings(), polygon_sampling_technique=tech,
+                    mis_heuristic=heuristic, trace_shadow_rays=False))[
+                        "fused_resolved"])
     got = fused.fused_light_shading_resolved(*args)
     want = fused.fused_light_shading_resolved_plain(*args)
     r = kernel_check.compare(got.T, want.T)
     assert r["exact"] == 1.0 and r["nonfinite_mismatch"] == 0, r
     assert float(want.abs().max()) > 0
+    r = kernel_check.compare(fused.fused_light_shading(*args),
+                             fused.fused_light_shading_plain(*args))
+    assert r["exact"] == 1.0 and r["nonfinite_mismatch"] == 0, r
 
 
 @pytest.mark.parametrize("tech", [Tech.PROJECTED_SOLID_ANGLE,
@@ -276,8 +367,6 @@ def _sweep_frame(tmp_path):
     from vulkan_renderer_tpu_torch.assets.noise import \
         advance_noise_random_numbers
     from vulkan_renderer_tpu_torch.experiments import harness, setups
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
     exp = harness.create_experiment_list()[282]
     app = setups.build_default_application(exp, str(tmp_path), device="cuda")
     _, randoms = advance_noise_random_numbers(app.noise_seed,
@@ -305,22 +394,26 @@ def _scene_frame(scene_camera, settings, width, height):
 
 
 @pytest.mark.parametrize("case", ["sweep_1920x1080", "city_960x540",
-                                  "planes_light_display"])
+                                  "bench_960x540", "planes_light_display"])
 def test_preamble_kernel_matches_plain(request, tmp_path, case):
     """K6 against its plain version on the 1-light 1920x1080 sweep frame
-    (roughness planes, central heptagon), the city at 960x540 (several
-    materials and mips, uv outside [0, 1] and negative, the lights shown)
-    and the planes lit by five lights with show_polygonal_lights on: NaN
-    exactly where the plain version is NaN (miss pixels), every other
-    value bit for bit. A frame launches K6 once, K4 or K5 take the plain
-    version's planes, and the frame equals the one whose preamble is the
-    plain version, bit for bit."""
+    (roughness planes, central heptagon), the tiny city at 960x540
+    (several materials and mips, uv outside [0, 1] and negative, the
+    lights shown), the bench frame and the planes lit by five lights with
+    show_polygonal_lights on: NaN exactly where the plain version is NaN
+    (miss pixels), every other value bit for bit. A frame launches K6
+    once, K4 or K5 take the plain version's planes, and the frame equals
+    the one whose preamble is the plain version, bit for bit."""
     if case == "sweep_1920x1080":
         render = _sweep_frame(tmp_path)
     elif case == "city_960x540":
         render = _scene_frame(request.getfixturevalue("city"),
                               RenderSettings(trace_shadow_rays=True), 960,
                               540)
+    elif case == "bench_960x540":
+        scene = request.getfixturevalue("bench_frames")()[0]
+        render = _scene_frame((scene, bench_frame.camera()),
+                              bench_frame.settings(), 960, 540)
     else:
         render = _scene_frame(
             request.getfixturevalue("planes_scene"),
@@ -392,8 +485,6 @@ def test_per_pixel_shading_of_the_views_is_that_of_the_records(city):
 
 @pytest.fixture(scope="module")
 def per_pixel_scenes(tmp_path_factory):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
     files = per_pixel_check.write_scene_files(
         str(tmp_path_factory.mktemp("per_pixel")))
     return (per_pixel_check.load_scenes(files, "cuda"),
@@ -456,28 +547,35 @@ def test_dispatch_launches_fused_kernels_where_supported(planes_scene,
                   per_pixel, camera)
 
 
-def _sweep_application(tmp_path, shadows):
-    """The central 4-gon 128-light PSA sweep experiment (113) at 64x32 on
-    the card, with shadows on (K4 + K1) or off (K5)."""
+def _sweep_application(tmp_path, shadows, size=(64, 32)):
+    """The central 4-gon 128-light PSA sweep experiment (113) on the card
+    at `size` (None: its own, 1920x1080), with shadows on (K4 + K1) or off
+    (K5)."""
     from vulkan_renderer_tpu_torch.experiments import harness, setups
     exp = harness.create_experiment_list()[113]
     assert exp.settings.polygon_sampling_technique == \
         Tech.PROJECTED_SOLID_ANGLE
-    exp = dataclasses.replace(exp, width=64, height=32, settings=(
+    width, height = size or (exp.width, exp.height)
+    exp = dataclasses.replace(exp, width=width, height=height, settings=(
         dataclasses.replace(exp.settings, trace_shadow_rays=shadows)))
     return setups.build_default_application(exp, str(tmp_path), device="cuda")
 
 
-@pytest.mark.parametrize("shadows", [False, True])
-def test_dispatch_has_no_host_wait(tmp_path, shadows):
-    """Two dispatches of a K5 frame and of a K4 + K1 frame make no
+@pytest.mark.parametrize("case", ["k5_64x32", "k4_64x32", "k5_1920x1080",
+                                  "bench_960x540"])
+def test_dispatch_has_no_host_wait(request, tmp_path, case):
+    """Two dispatches of a K5 frame and of a K4 + K1 frame (experiment
+    113 at 64x32 and, K5, at its own size; the bench frame) make no
     synchronizing call (sync debug mode "error"), so frames in flight
     overlap; the kernels did run."""
     from vulkan_renderer_tpu_torch.tools import host_waits
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
-    app = _sweep_application(tmp_path, shadows)
-    kernel = "K4" if shadows else "K5"
+    if case == "bench_960x540":
+        app = bench_frame.application(request.getfixturevalue("data_dir"),
+                                      "cuda")
+    else:
+        app = _sweep_application(tmp_path, case.startswith("k4"),
+                                 None if case.endswith("1080") else (64, 32))
+    kernel = "K5" if case.startswith("k5") else "K4"
     trace.reset_counters()
     host_waits.dispatch_without_host_wait(app, 2)
     assert trace.launch_counts()[kernel] >= 3
@@ -492,8 +590,6 @@ def test_shadow_counters_on_the_card(tmp_path, monkeypatch):
     planes each frame handed K1."""
     from vulkan_renderer_tpu_torch.core import app as app_module
     from vulkan_renderer_tpu_torch.tools import host_waits
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
     app = _sweep_application(tmp_path, True)
     seen = []
 
@@ -546,22 +642,29 @@ def test_anyhit_slots_entry_matches_plain(city, slots):
     assert 0 < int(live) < t_max.numel()
 
 
-def test_anyhit_slots_entry_matches_plain_on_a_frame(city):
-    """The slot planes a whole city frame (K4, shadows on) hands K1's slot
-    entry: the entry bit for bit as its plain version, and the ray-list
-    K1 on the frame's megabatch as trace_anyhit_plain."""
-    scene, camera = city
-    settings = RenderSettings(trace_shadow_rays=True)
-    captured = {}
-    pipeline.render_frame(scene, SceneStatic.for_scene(scene), camera,
-                          settings, 64, 32,
-                          kernels=bench_frame.recording_kernels(captured))
-    args = captured["trace_anyhit_slots"][:7]
-    got = tk.trace_anyhit_slots(*args)
-    want = tk.trace_anyhit_slots_plain(*args)
-    assert kernel_check.bit_mismatches(got, want) == 0
-    rays = bench_frame.anyhit_args(captured)
-    assert torch.equal(tk.trace_anyhit(*rays), tk.trace_anyhit_plain(*rays))
+@pytest.mark.parametrize("case", ["city_64x32", "bench_960x540"])
+def test_anyhit_slots_entry_matches_plain_on_a_frame(request, case):
+    """The slot planes a whole frame (K4, shadows on) hands K1's slot
+    entry, on the tiny city at 64x32 and in the bench frame: the entry bit
+    for bit as its plain version (on at most 4,096 evenly spaced
+    pixels), and the ray-list K1 on the frame's megabatch as
+    trace_anyhit_plain (on at most 131,072 rays: evenly spaced live ones
+    where there are more)."""
+    if case == "city_64x32":
+        scene, camera = request.getfixturevalue("city")
+        captured = {}
+        pipeline.render_frame(scene, SceneStatic.for_scene(scene), camera,
+                              RenderSettings(trace_shadow_rays=True), 64, 32,
+                              kernels=bench_frame.recording_kernels(captured))
+    else:
+        captured = request.getfixturevalue("bench_frames")()[2]
+    row, _ = kernel_check.hold_slot_entry(captured)
+    assert row["bit_mismatches"] == 0, row
+    clusters, *rays = bench_frame.anyhit_args(captured)
+    assert bool((rays[2] >= 0.0).any()), "no live shadow ray"
+    rays = kernel_check.ray_subset(*rays)
+    assert torch.equal(tk.trace_anyhit(clusters, *rays),
+                       tk.trace_anyhit_plain(clusters, *rays))
 
 
 def test_stage_spans_sum_to_the_frame_device_interval(tmp_path):
@@ -573,8 +676,6 @@ def test_stage_spans_sum_to_the_frame_device_interval(tmp_path):
     within 5%."""
     from vulkan_renderer_tpu_torch.experiments import harness, setups
     from vulkan_renderer_tpu_torch.tools import frame_spans
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
     exp = harness.create_experiment_list()[282]
     app = setups.build_default_application(exp, str(tmp_path), device="cuda")
     seed = app.noise_seed
@@ -604,8 +705,6 @@ def test_tracing_adds_no_device_operation(tmp_path):
     on the device, are no operation), and off, none of the program's
     ranges shows."""
     from vulkan_renderer_tpu_torch.tools import frame_spans
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
     app = _sweep_application(tmp_path, False)
     app.render_frame_sync()
     ops, ranges = {}, {}
@@ -616,43 +715,81 @@ def test_tracing_adds_no_device_operation(tmp_path):
     assert not ranges[False] and ranges[True]
 
 
-@pytest.mark.parametrize("case", ["k4", "k5", "per_pixel"])
-def test_frame_bits_recombine_on_card(planes_scene, case):
-    """frame_bits 1 and 2 recombine to the direct linear frame rounded to
-    float16, bit for bit, on each shading path."""
-    from vulkan_renderer_tpu_torch.render.screenshot import \
-        combine_ldr_screenshots_into_hdr
-    from vulkan_renderer_tpu_torch.tools import hdr_capture
-    scene, camera = planes_scene
+def _bits_render(request, case):
+    """render(bits): a case's linear frame with frame_bits = bits, noise
+    frozen: the planes at 64x32 on each shading path (k4, k5, per_pixel),
+    the bench frame, and experiments 113 (K5) and 46 (per-pixel, an IES
+    light) at their own sizes through their Applications."""
+    if case == "bench_960x540":
+        scene, static, _ = request.getfixturevalue("bench_frames")()
+        settings = dataclasses.replace(bench_frame.settings(),
+                                       output_linear_rgb=True)
+        return lambda bits: bench_frame.render(scene, static, dataclasses.
+                                               replace(settings,
+                                                       frame_bits=bits))
+    if case.startswith("experiment_"):
+        from vulkan_renderer_tpu_torch.experiments import harness, setups
+        exp = harness.create_experiment_list()[int(case.split("_")[1])]
+        app = setups.build_default_application(
+            exp, request.getfixturevalue("data_dir"), device="cuda")
+
+        def render(bits):
+            app.settings = dataclasses.replace(
+                exp.settings, frame_bits=bits, animate_noise=False,
+                output_linear_rgb=True)
+            return app.render_frame_sync()
+        return render
+    scene, camera = request.getfixturevalue("planes_scene")
     settings = RenderSettings(
         sampling_strategy=SamplingStrategy.DIFFUSE_SPECULAR_SEPARATELY
         if case == "per_pixel" else SamplingStrategy.DIFFUSE_SPECULAR_MIS,
         trace_shadow_rays=case != "k5", output_linear_rgb=True)
     static = SceneStatic.for_scene(scene)
+    return lambda bits: pipeline.render_frame(
+        scene, static, camera, dataclasses.replace(settings, frame_bits=bits),
+        64, 32)
 
-    def render(bits):
-        return pipeline.render_frame(
-            scene, static, camera,
-            dataclasses.replace(settings, frame_bits=bits), 64, 32)
 
-    low, high, direct = hdr_capture.bit_frames(render)
+@pytest.mark.parametrize("case", ["k4", "k5", "per_pixel", "bench_960x540",
+                                  "experiment_113", "experiment_46"])
+def test_frame_bits_recombine_on_card(request, case):
+    """frame_bits 1 and 2 recombine to the direct linear frame rounded to
+    float16, bit for bit, on each shading path; the direct frame is finite
+    and not black."""
+    from vulkan_renderer_tpu_torch.render.screenshot import \
+        combine_ldr_screenshots_into_hdr
+    from vulkan_renderer_tpu_torch.tools import hdr_capture
+    with torch.no_grad():
+        low, high, direct = hdr_capture.bit_frames(_bits_render(request,
+                                                                case))
     combined = combine_ldr_screenshots_into_hdr(low, high)
     assert hdr_capture.half_mismatches(combined, direct) == 0
-    assert float(direct.max()) > 0.0
+    assert np.isfinite(direct).all() and float(direct.mean()) > 0.0
 
 
-def test_bands_on_card(planes_scene):
-    """The frame as 4 bands of 8 rows on one card equals the whole frame
-    bit for bit; each band launches K1, K2, K3 and K6 once and K4 once per
-    vertex-count group."""
+@pytest.mark.parametrize("case", ["planes_64x32", "bench_960x540"])
+def test_bands_on_card(request, case):
+    """The frame as 4 bands on one card (of 8 rows of the planes' 64x32
+    frame, of 135 of the bench frame) equals the whole frame bit for bit;
+    each band launches K1, K2, K3 and K6 once and K4 once per vertex-count
+    group."""
     from vulkan_renderer_tpu_torch.parallel.tiles import render_frame_bands
-    scene, camera = planes_scene
-    settings = RenderSettings(trace_shadow_rays=True)
-    static = SceneStatic.for_scene(scene)
-    whole = pipeline.render_frame(scene, static, camera, settings, 64, 32)
-    trace.reset_counters()
-    banded = render_frame_bands(["cuda:0"] * 4, scene, static, camera,
-                                settings, 64, 32)
+    if case == "planes_64x32":
+        scene, camera = request.getfixturevalue("planes_scene")
+        static = SceneStatic.for_scene(scene)
+        settings, size, noise = RenderSettings(trace_shadow_rays=True), \
+            (64, 32), None
+    else:
+        scene, static, _ = request.getfixturevalue("bench_frames")()
+        camera, settings = bench_frame.camera(), bench_frame.settings()
+        size = (bench_frame.WIDTH, bench_frame.HEIGHT)
+        noise = bench_frame.noise_numbers()
+    with torch.no_grad():
+        whole = pipeline.render_frame(scene, static, camera, settings, *size,
+                                      noise)
+        trace.reset_counters()
+        banded = render_frame_bands(["cuda:0"] * 4, scene, static, camera,
+                                    settings, *size, noise)
     torch.cuda.synchronize()
     assert torch.equal(banded, whole)
     groups = len(fused.vertex_groups(static))
@@ -661,14 +798,15 @@ def test_bands_on_card(planes_scene):
         {"K1": 4, "K2": 4, "K3": 4, "K4": 4 * groups, "K6": 4}
 
 
-def test_closest_kernel_exact_where_pruning_decides():
-    """K2 against its plain version on tools/prune_check.py's layered
-    floor, 65,536 rays at shared tile edges: prim and t exact, ties
-    included (the prune's margin at work; chip_smoke.py phase 19 runs
-    1024 x 1024)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
-    from vulkan_renderer_tpu_torch.tools import prune_check
-    row = prune_check.measure("cuda", 65536)
-    assert row["rays_at_risk"] > 0
+@pytest.mark.parametrize("scene, rays", [("layered_floor", 65536)] + [
+    (name, 1024 * 1024) for name in prune_check.SCENES])
+def test_closest_kernel_exact_where_pruning_decides(scene, rays):
+    """K2 against its plain version on tools/prune_check.py's scenes of 64
+    clusters or more: the layered floor's rays at shared tile edges, many
+    grazing, and rays from one eye at thin_edge_scene, whose edge-on
+    triangles and slivers give computed hits short of their own boxes:
+    prim and t exact, ties included (the prune's margin at work)."""
+    row = prune_check.measure("cuda", rays, scene)
+    assert row["clusters"] >= 64, row
+    assert row["rays_at_risk"] > 0, row
     assert row["prim_mismatches"] == row["t_bit_mismatches"] == 0, row

@@ -142,7 +142,8 @@ def test_frame_builds_no_noise_image(cornell, monkeypatch, shadows):
 
 def test_ptxas_report_parses_into_registers_and_occupancy():
     """kernels/build.py reads nvcc -Xptxas -v into the table that
-    chip_smoke.py prints for every K4 and K5 instantiation."""
+    tools/tune_shading.py prints for every K4 and K5 instantiation it
+    builds."""
     from vulkan_renderer_tpu_torch.kernels import build
     report = "\n".join([
         "ptxas info    : 0 bytes gmem",

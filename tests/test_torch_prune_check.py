@@ -5,7 +5,8 @@ returns another hit than trace_closest_plain on some of the layered
 floor's rays whose own box the slab test enters beyond their t; a flat
 widening by 2^-16 still does on thin_edge_scene's edge-on triangles
 and slivers; with the hit floor of csrc/closest.cu it returns the plain
-version's (prim, t) on every ray of both. On the card, chip_smoke.py
+version's (prim, t) on every ray of both. On the card,
+tests/test_torch_gpu.py::test_closest_kernel_exact_where_pruning_decides
 holds K2 itself on 1024 x 1024 rays of each."""
 
 import os

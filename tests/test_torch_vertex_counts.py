@@ -3,8 +3,8 @@ at the light vertex counts the timing sweep and the arcade figures render
 beyond the quad and the pentagon: triangles (experiments 50-101),
 hexagons (206-257) and heptagons (258-316). csrc/techniques.cuh compiles
 one body per vertex count (template <int NV>), so each count is code of
-its own on the card; chip_smoke.py holds those bodies against these plain
-versions, and this file (with test_torch_vertex_counts_pallas.py, the
+its own on the card; tests/test_torch_gpu_frames.py holds those bodies
+against these plain versions on the harness's sweep frames, and this file (with test_torch_vertex_counts_pallas.py, the
 interpreted JAX K5) holds the plain versions against the JAX package.
 
 - K4 under DIFFUSE_ONLY at NV = 6 for all 13 techniques, against the

@@ -4,20 +4,19 @@
 The bench frame is 960x540 at 1 spp on the procedural city (300
 buildings, detail 10), lit by four quad street lights, with PSA +
 DIFFUSE_SPECULAR_MIS, clamped-optimal MIS and shadows on: the frame of the
-JAX package's bench.py at its defaults. `chip_smoke.py` builds its
-main-path run from the functions below, and the port's bench entry
-(vulkan_renderer_tpu_torch/bench.py) its frame at bench.py's options
-(scene scale, spp, shadows, materials, cluster size).
-
-The two timing-sweep cells that chip_smoke.py runs (SWEEP_CELLS) are
-defined here too.
+JAX package's bench.py at its defaults. The gpu-marked tests
+(tests/test_torch_gpu*.py) hold the kernels on the frames the functions
+below build, and the port's bench entry (vulkan_renderer_tpu_torch/
+bench.py) renders its frame at bench.py's options (scene scale, spp,
+shadows, materials, cluster size). The two timing-sweep cells that
+--sweep times (SWEEP_CELLS) are defined here too.
 
 Run as a script, it times the port found under --root (default: the
 checkout this file is in), so that two trees can be compared in one run
 on one card:
 
     python3 vulkan_renderer_tpu_torch/tools/bench_frame.py \
-        [--root DIR] [--data DIR] [--sweep] [--count-tests]
+        [--root DIR] [--data DIR] [--sweep] [--count-tests] [--kernels]
 
 It builds the bench frame's kernel libraries (K1-K4), writes or reuses
 the bench city under --data, and prints one JSON line: the root, the
@@ -32,15 +31,18 @@ divided by WINDOW_FRAMES (after WARMUP frames rendered one at a time).
 With --count-tests it adds K1's and K2's BVH child-box, sub-box and
 triangle tests over the bench frame's rays (their -DVR_COUNT_TESTS=1
 builds). With --sweep it adds, for PSA and Arvo PSA in both sweep cells
-(--sweep-techniques all: for all 13 techniques, as chip_smoke.py phase 8
-runs them; their K5 libraries are built first, in parallel): the window
+(--sweep-techniques all: for all 13 techniques; their K5 libraries are
+built first, in parallel): the window
 ms/frame as above, the harness's median ms/frame (SWEEP_WARMUP warm-up
 and SWEEP_MEASURED measured frames, pipelined; the median of a few
 timer-stamp deltas, which bunch when frames overlap), K5's ms on the
 frame's inputs, the device memory allocated before a frame and at its
-peak (torch.cuda.max_memory_allocated), and the hit share. It uses only the
-entry points that every tree of the port has had since the timing sweep
-was first ported, and imports no JAX.
+peak (torch.cuda.max_memory_allocated), and the hit share. With
+--kernels it prints a second JSON line, the kernels line (kernels_line:
+each kernel's launches, ms, plain version's ms and bound; PERF.md's
+kernel table), which needs a tree with K1's slot entry. Without
+--kernels it uses only the entry points that every tree of the port has
+had since the timing sweep was first ported. It imports no JAX.
 """
 
 import argparse
@@ -60,6 +62,44 @@ SWEEP_CELLS = (("central_4_128", 102), ("decentral_5_1x128spp", 193))
 SWEEP_WIDTH, SWEEP_HEIGHT = 1920, 1080
 SWEEP_WARMUP, SWEEP_MEASURED = 3, 7
 WINDOW_FRAMES = 40
+# The light vertex counts the timing sweep renders (experiments 50-309):
+# K4 and K5 compile one body per count (csrc/techniques.cuh template <int
+# NV>).
+VERTEX_COUNTS = (3, 4, 5, 6, 7)
+# The arcade's heptagon frames (experiments 312-316) light one 7-gon.
+ARCADE_VERTEX_COUNT = 7
+# The kernels line's sweep frames: the central 4-gon 128-light PSA cell
+# (K5's row) and the 1-light 1920x1080 heptagon cell (K6's row).
+PSA_SWEEP_EXPERIMENT, PREAMBLE_EXPERIMENT = 113, 282
+
+# The kernels line's bounds: bytes over the H100 SXM's device memory rate
+# or float32 operations over its rate outside the tensor cores, whichever
+# is larger. 67 TFLOP/s counts a fused multiply-add as two operations, so
+# 33.5 T instructions per second; the kernels are built with
+# --fmad=false, so each operation below is one.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 33.5e12
+# Float32 operations per test, counted from csrc/common.cuh slab (per axis
+# 2 sub, 2 mul, min, max; 4 min/max to combine; 4 comparisons) and the two
+# Moeller-Trumbore bodies (crosses, dots, sign or reciprocal, 6-7 tests).
+SLAB_OPS, ANYHIT_TRI_OPS, CLOSEST_TRI_OPS = 26, 55, 57
+# K1's sub-box gate (csrc/anyhit.cu grown_slab): the slab test plus the
+# two moves of each axis's entry and exit.
+ANYHIT_SUBBOX_OPS = SLAB_OPS + 6
+# K1's slot entry's traffic: 28 B a slot ray (b, direction, t_max, read
+# in place from K4's planes), and per pixel its shading point, hit flag,
+# base0 and base in and its colors out.
+K1_RAY_BYTES = 4 * 7
+K1_PIXEL_BYTES = 4 * 3 + 1 + 4 * 3 + 4 * 3 + 4 * 3
+# K6's plane traffic per pixel: in, K3's 18 attribute planes, prim, t_hit
+# and the ray direction; out, the 62 shading planes.
+K6_PIXEL_BYTES = 4 * (18 + 1 + 1 + 3) + 4 * 62
+# K3's float32 operations per hit ray, counted from csrc/closest.cu
+# attrs_kernel as K4's and K5's counting builds count (csrc/count_ops.cuh:
+# add, sub, mul, div, sqrt, rsqrt, compare, max one each): barycentrics 42,
+# the two UV-derivative rows 2 x 43, normal, UV, tangent frame 88. A miss
+# does none.
+K3_OPS_PER_HIT = 216
 
 
 def hit_mask(planes):
@@ -80,6 +120,18 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_once(torch, fn):
+    """(device ms, result) of one call, timed with CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def card_name():
@@ -125,6 +177,51 @@ def kernel_jobs(s):
                 ("fused_resolved", kernel_defines(s, light_layout(), "K5"))]
     return [("anyhit", {}), ("closest", {}), ("preamble", {}),
             ("fused_shading", kernel_defines(s, light_layout()))]
+
+
+def suite_jobs():
+    """build.build_many jobs of the libraries that the gpu-marked tests
+    load, so that they build in parallel before the first test: the bench
+    frame's with shadows and without; K4 and K5 for the 13 techniques
+    under DIFFUSE_ONLY at every vertex count the timing sweep renders, one
+    light of it (the sweep frames) and one light of each (the tests'
+    roughness planes); K4 under the arcade's clamped-optimal MIS on a
+    heptagon; K4 and K5 for the PSA pair under DIFFUSE_SPECULAR_MIS with
+    every heuristic at the bench frame's lights and at one light of each
+    count."""
+    from vulkan_renderer_tpu_torch.render import fused
+    from vulkan_renderer_tpu_torch.render.shading import SceneStatic
+    s = settings()
+
+    def shading(kernel, s, static):
+        return (fused._KERNELS[kernel][0],
+                kernel_defines(s, static, kernel))
+
+    def lights_of(counts):
+        return SceneStatic(light_count=len(counts),
+                           light_texturing=(0,) * len(counts),
+                           light_vertex_counts=counts)
+
+    every_count = lights_of(VERTEX_COUNTS)
+    jobs = kernel_jobs(s) + kernel_jobs(settings(shadows=False))
+    for tech in fused.PolygonSamplingTechnique:
+        t = fused.RenderSettings(
+            sampling_strategy=fused.SamplingStrategy.DIFFUSE_ONLY,
+            polygon_sampling_technique=tech)
+        jobs += [shading(k, t, static) for static in [every_count] + [
+            lights_of((nv,)) for nv in VERTEX_COUNTS] for k in ("K4", "K5")]
+    jobs.append(shading("K4", dataclasses.replace(
+        s, mis_heuristic=fused.MisHeuristic.OPTIMAL_CLAMPED),
+        lights_of((ARCADE_VERTEX_COUNT,))))
+    psa_pair = (fused.PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE,
+                fused.PolygonSamplingTechnique.PROJECTED_SOLID_ANGLE_BIASED)
+    jobs += [shading(k, dataclasses.replace(
+        s, polygon_sampling_technique=tech, mis_heuristic=heuristic),
+        static)
+        for static in (light_layout(), every_count) for tech in psa_pair
+        for heuristic in fused.MisHeuristic for k in ("K4", "K5")]
+    return [(n, dict(d)) for n, d in dict.fromkeys(
+        (n, tuple(sorted(d.items()))) for n, d in jobs)]
 
 
 def city_stem(scene="city", buildings=300, detail=10, materials=6):
@@ -326,6 +423,48 @@ def test_counts(torch, captured):
     return out
 
 
+def bound_ms(bytes_moved, operations):
+    """(least ms, the side that binds) at the H100's peak rates."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = operations / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def tracer_floor_ops(rays, cluster_count, tri_ops):
+    """The float32 operations a tracer needs at the least for `rays` live
+    rays, whatever tree it walks: one root-to-leaf path of a binary tree
+    over the clusters (ceil(log2 K) inner nodes, two child boxes each),
+    one sub-box and one triangle test per ray."""
+    depth = (cluster_count - 1).bit_length()
+    return rays * ((2 * depth + 1) * SLAB_OPS + tri_ops)
+
+
+def noise_table_bytes(noise, pairs):
+    """The table bytes `pairs` noise pairs of this frame need at the least:
+    per table layer, the texels its fetches reach (all of them once the
+    frame's pixels outnumber a layer's) in the channels they read."""
+    th, tw = noise.table.shape[1], noise.table.shape[2]
+    reach, channels = {}, {}
+    for f, (_, _, layer) in enumerate(noise.fetches.tolist()):
+        used = min(4, 2 * pairs - 4 * f)
+        if used <= 0:
+            break
+        reach[layer] = reach.get(layer, 0) + noise.column_count
+        channels[layer] = max(channels.get(layer, 0), used)
+    return sum(min(th * tw, reach[k]) * channels[k] * 4 for k in reach)
+
+
+def op_counts(torch, fn, args):
+    """Run K4's or K5's counting build (-DVR_COUNT_OPS=1) on args: the
+    float32 operations counted, in all."""
+    from vulkan_renderer_tpu_torch.render import fused
+    counts = torch.zeros(len(fused.OP_KINDS) * len(fused.OP_STAGES),
+                         dtype=torch.int64, device=args[0].device)
+    fn(*args, op_counts=counts)
+    return sum(counts.tolist())
+
+
 def vertex_count(experiment) -> int:
     """The light vertex count of a timing-sweep experiment's layout
     ('timing:<vertex count>:<case>:<light count>')."""
@@ -391,6 +530,25 @@ def experiment_frame(torch, data_dir, exp):
     return app, frame
 
 
+def recording_application(data_dir, last):
+    """A build_application for experiments/harness.py run_experiments:
+    the experiment's Application on the card, kept in last["app"], whose
+    render_frame_sync keeps the frame it returns in last["image"]."""
+    from vulkan_renderer_tpu_torch.experiments import setups
+
+    def build_application(exp):
+        app = setups.build_default_application(exp, data_dir, device="cuda")
+        render_sync = app.render_frame_sync
+
+        def keep_frame():
+            last["image"] = render_sync()
+            return last["image"]
+        app.render_frame_sync = keep_frame
+        last["app"] = app
+        return app
+    return build_application
+
+
 def sweep_measurements(torch, data_dir, techniques):
     """For each sweep cell and technique (PolygonSamplingTechnique names):
     the window ms/frame, the harness's median ms/frame, K5's ms on the
@@ -430,6 +588,143 @@ def sweep_measurements(torch, data_dir, techniques):
     return rows
 
 
+def kernels_line_jobs(s):
+    """build.build_many jobs the kernels line needs beyond the bench
+    frame's: K1's and K2's test-counting builds, K4's operation-counting
+    build at the bench frame, and K5 for its two sweep frames, with its
+    operation-counting build on the PSA one."""
+    from vulkan_renderer_tpu_torch.experiments import harness
+    experiments = harness.create_experiment_list()
+    psa = sweep_jobs([experiments[PSA_SWEEP_EXPERIMENT]])
+    return ([(name, {"VR_COUNT_TESTS": 1}) for name in ("anyhit", "closest")]
+            + [("fused_shading", {**kernel_defines(s, light_layout()),
+                                  "VR_COUNT_OPS": 1})]
+            + sweep_jobs([experiments[PREAMBLE_EXPERIMENT]]) + psa
+            + [(n, {**d, "VR_COUNT_OPS": 1}) for n, d in psa])
+
+
+def kernels_line(torch, data_dir, scene, static, s, captured):
+    """The kernels line: K1's slot entry, K2, K3 and K4 on the bench frame
+    (`captured`: its kernels' arguments), K5 on the central 4-gon
+    128-light PSA sweep frame (experiment 113), K6 on the 1-light
+    1920x1080 sweep frame (experiment 282), each with its launches in one
+    bench, sweep (113) and per-pixel bench frame (fused="off"), its ms
+    (CUDA events), its plain version's ms (on a pixel subset where
+    `plain_shape` says so), and its bound (bound_ms: each input byte read
+    once, each output byte written once; the tracers' operations the
+    least any tree needs for their live rays, tracer_floor_ops, and what
+    this design's counted tests take beside them as design_ops_ms; K3's
+    K3_OPS_PER_HIT a hit; K4's and K5's what their counting builds count
+    on these inputs)."""
+    from vulkan_renderer_tpu_torch.core import trace
+    from vulkan_renderer_tpu_torch.experiments import harness
+    from vulkan_renderer_tpu_torch.render import fused, preamble
+    from vulkan_renderer_tpu_torch.render import trace_kernel as tk
+    from vulkan_renderer_tpu_torch.tools import kernel_check
+
+    def launches(frame):
+        trace.reset_counters()
+        with torch.no_grad():
+            out = frame()
+        torch.cuda.synchronize()
+        return trace.launch_counts(), out
+
+    experiments = harness.create_experiment_list()
+    counted = {"bench": launches(lambda: render(scene, static, s))[0],
+               "per_pixel": launches(lambda: render(
+                   scene, dataclasses.replace(static, fused="off"), s))[0]}
+    _, frame = experiment_frame(torch, data_dir,
+                                experiments[PSA_SWEEP_EXPERIMENT])
+    counted["sweep"], sweep = launches(frame)
+    display = experiment_frame(torch, data_dir,
+                               experiments[PREAMBLE_EXPERIMENT])[1]()
+    ms = kernel_ms(torch, captured)
+    tests = test_counts(torch, captured)
+    clusters = scene.clusters
+    tables = 4 * (clusters.planes.numel() + clusters.subboxes.numel()
+                  + clusters.bvh_nodes.numel())
+    rows = {}
+
+    def row(name, kernel_ms_, plain_ms, shape, bytes_moved, operations,
+            plain_shape=None, **extra):
+        bound = bound_ms(bytes_moved, operations)
+        rows[name] = {
+            "name": name,
+            "launches": {k: v[name] for k, v in counted.items()},
+            "ms": round(kernel_ms_, 4), "plain_ms": round(plain_ms, 4),
+            "bound_ms": round(bound[0], 5), "bound_by": bound[1],
+            "bytes": bytes_moved, "operations": operations,
+            "shape": shape, **({"plain_shape": plain_shape}
+                               if plain_shape else {}), **extra}
+
+    # K1's slot entry, as the bench frame runs it.
+    slot_args = captured["trace_anyhit_slots"][:7]
+    pixels, slots = slot_args[1].shape[1], slot_args[2]
+    sub = kernel_check.slot_args_subset(slot_args, kernel_check.subset_indices(
+        kernel_check.PIXEL_SUBSET, pixels, slot_args[1].device))
+
+    def walk(name, sub_ops, tri_ops):
+        """(the least walk's operations, design_ops_ms) of K1 or K2."""
+        c = tests[name]
+        return (tracer_floor_ops(c["rays"], clusters.cluster_count, tri_ops),
+                round((c["boxes"] * SLAB_OPS + c["subboxes"] * sub_ops
+                       + c["triangles"] * tri_ops) / FP32_OPS_PER_S * 1e3,
+                      5))
+
+    ops, design = walk("K1", ANYHIT_SUBBOX_OPS, ANYHIT_TRI_OPS)
+    row("K1", ms["K1_slots"], cuda_once(
+        torch, lambda: tk.trace_anyhit_slots_plain(*sub))[0],
+        f"{pixels} pixels x {slots} slots ({tests['K1']['rays']} live rays)",
+        pixels * (slots * K1_RAY_BYTES + K1_PIXEL_BYTES) + tables, ops,
+        f"{sub[1].shape[1]} pixels", tests=tests["K1"], design_ops_ms=design,
+        ms_at_plain_shape=round(cuda_ms(
+            torch, lambda: tk.trace_anyhit_slots(*sub), 5), 4))
+    a2 = captured["trace_closest"]
+    ops, design = walk("K2", SLAB_OPS, CLOSEST_TRI_OPS)
+    row("K2", ms["K2"], cuda_once(
+        torch, lambda: tk.trace_closest_plain(*a2))[0],
+        f"{a2[2].shape[0]} rays", a2[2].shape[0] * (28 + 8) + tables, ops,
+        tests=tests["K2"], design_ops_ms=design)
+    a3 = captured["closest_attrs"]
+    hits = int((a3[1] >= 0).sum())
+    row("K3", ms["K3"], cuda_ms(torch, lambda: tk.closest_attrs_plain(*a3),
+                                3),
+        f"{a3[3].shape[0]} rays",
+        a3[1].numel() * (28 + 18 * 4) + hits * 25 * 4, hits * K3_OPS_PER_HIT)
+    a4 = captured["fused_shading"]
+    pairs = fused.rays_per_light(s) * static.light_count
+    row("K4", ms["K4"], cuda_ms(
+        torch, lambda: fused.fused_light_shading_plain(*a4), 1),
+        f"{a4[0].shape[1]} pixels x {static.light_count} lights",
+        4 * (a4[0].numel() + a4[2].numel()
+             + (3 + 7 * pairs) * a4[0].shape[1])
+        + noise_table_bytes(a4[1], pairs),
+        op_counts(torch, fused.fused_light_shading, a4))
+    a5 = sweep["fused_resolved"]
+    planes, noise, ls, st, s5 = a5
+    idx = kernel_check.subset_indices(kernel_check.PIXEL_SUBSET,
+                                      planes.shape[1], planes.device)
+    sub5 = kernel_check.subset_args(a5, idx)
+    row("K5", cuda_ms(torch, lambda: fused.fused_light_shading_resolved(*a5),
+                      2),
+        cuda_once(torch,
+                  lambda: fused.fused_light_shading_resolved_plain(*sub5))[0],
+        f"{planes.shape[1]} pixels x {st.light_count} lights x "
+        f"{s5.sample_count} spp (PSA)",
+        4 * (planes.numel() + ls.numel() + 3 * planes.shape[1])
+        + noise_table_bytes(noise, fused.rays_per_light(s5) * st.light_count),
+        op_counts(torch, fused.fused_light_shading_resolved, a5),
+        f"{idx.numel()} pixels")
+    a6 = display["shading_planes"]
+    p6 = a6[3].shape[0]
+    row("K6", cuda_ms(torch, lambda: preamble.shading_planes(*a6), 20),
+        cuda_once(torch, lambda: preamble.shading_planes_plain(*a6))[0],
+        f"{p6} pixels", p6 * K6_PIXEL_BYTES, 0,
+        bench_shape_ms=round(cuda_ms(torch, lambda: preamble.shading_planes(
+            *captured["shading_planes"]), 20), 4))
+    return [rows[name] for name in ("K1", "K2", "K3", "K4", "K5", "K6")]
+
+
 def main(argv=None) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -444,6 +739,8 @@ def main(argv=None) -> int:
     parser.add_argument("--count-tests", action="store_true",
                         help="also count K1's and K2's box, sub-box and "
                         "triangle tests on the bench frame")
+    parser.add_argument("--kernels", action="store_true",
+                        help="also print the kernels line (kernels_line)")
     parser.add_argument("--sweep-techniques", default=None,
                         help="with --sweep: 'all', or comma-separated "
                         "PolygonSamplingTechnique names (default: "
@@ -462,6 +759,8 @@ def main(argv=None) -> int:
     s = settings()
     counting = [(name, {"VR_COUNT_TESTS": 1})
                 for name in ("anyhit", "closest")] if args.count_tests else []
+    if args.kernels:
+        counting = kernels_line_jobs(s)
     # A tree older than a kernel (--root) builds only the sources it has.
     wall = build.build_many([job for job in kernel_jobs(s) + counting
                              if (build.CSRC_DIR / f"{job[0]}.cu").exists()])
@@ -479,6 +778,8 @@ def main(argv=None) -> int:
             hit_mask(captured["fused_shading"][0]).mean()), 6)}
     if args.count_tests:
         line["tests"] = test_counts(torch, captured)
+    kernels = None if not args.kernels else kernels_line(
+        torch, data_dir, scene, static, s, captured)
     del scene, captured
     torch.cuda.empty_cache()
     line["frame_window_ms"] = round(window_ms(
@@ -497,6 +798,8 @@ def main(argv=None) -> int:
                          build.BUILD_REPORTS.items())
                      if tag.startswith("fused")}
     print(json.dumps(line), flush=True)
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels, "card": card}), flush=True)
     return 0
 
 

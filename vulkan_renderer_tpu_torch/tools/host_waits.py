@@ -5,8 +5,8 @@ frame n + 1 while the card still works on frame n. Any call in the
 dispatch that makes the host wait for the card (a blocking copy from
 pageable memory, .item(), a data-dependent shape) serializes the frames.
 torch.cuda.set_sync_debug_mode reports such calls: "error" raises at the
-first one, "warn" warns at each. chip_smoke.py and tests/test_torch_gpu.py
-use these on the card.
+first one, "warn" warns at each. tests/test_torch_gpu.py and
+tools/frame_spans.py use these on the card.
 """
 
 from __future__ import annotations

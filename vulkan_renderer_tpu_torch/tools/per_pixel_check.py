@@ -5,7 +5,7 @@ One configuration of each kind that only the per-pixel path renders
 render/fused.py fused_supported rejects): DIFFUSE_SPECULAR_SEPARATELY,
 DIFFUSE_SPECULAR_RANDOM, DIFFUSE_GGX_MIS, an error display, an IES-profile
 light, a textured area light and a linear light, on the cornell-box
-stand-in at 64x32. chip_smoke.py and tests/test_torch_gpu.py render each
+stand-in at 64x32. tests/test_torch_gpu.py renders each
 class on the card and on the CPU and hold the two frames together with
 frames_agree (error displays: error_bins_agree).
 
@@ -24,8 +24,8 @@ by a factor of 2 moves only the others, each by about 1.2 bins, all one
 way: at 64x32 the doubled estimate (error_to_color's factor x2) keeps
 the mean |bin difference| at 0.577 and moves 675 of 675 pixels above the
 floor up, a one-way share of 1.0, where the card against the CPU moves
-them both ways: 0.504 (chip_smoke.py phase 11 on an NVIDIA H100 80GB
-HBM3, 700 W), and the port against the JAX package's per-pixel path at
+them both ways: 0.504 (tests/test_torch_gpu.py's per-pixel classes on
+an NVIDIA H100 80GB HBM3, 700 W), and the port against the JAX package's per-pixel path at
 most 0.492 (the CPU tests of the error displays). MAX_ONE_WAY_SHARE =
 0.75 lies between. The estimates themselves are held by value against
 the JAX package on the CPU (tests/test_torch_sampling_ops.py).
