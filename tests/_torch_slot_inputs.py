@@ -105,3 +105,100 @@ def occluded_slot(clusters, out, slots, hit, position, cam):
     occluded = tk.trace_anyhit_plain(clusters, *rays)
     r = int(torch.nonzero(occluded & (rays[2] >= 0.0))[0, 0])
     return divmod(r, out.shape[1])
+
+
+# The cases K1's slot entry is held on at each packet width
+# (render/trace_kernel.py PACKET_WIDTHS): slot planes drawn from a seed
+# with S slots (groups of 1, 2 and 17 slots, none a multiple of a width
+# above 2, and S = 1); whole packets dead; packets whose rays part at
+# their first triangle; packets whose rays part at the tree's root.
+PACKET_CASES = ("slots_1", "slots_7", "slots_13", "slots_130",
+                "dead_packets", "first_triangle", "opposite_lights")
+# Slots of the built cases: 8 slot groups of 8, so a group fills a packet
+# of every width.
+CASE_SLOTS = 64
+CASE_PIXELS = 250
+
+
+def _triangles(clusters):
+    """(v0, e1, e2), (T, 3) each on the CPU, of the clusters' triangles
+    whose edges span an area (padding triangles have zero edges)."""
+    c = clusters.cluster_size
+    tab = clusters.planes.cpu().reshape(-1, 9, c).permute(0, 2, 1)
+    tab = tab.reshape(-1, 9)
+    v0, e1, e2 = tab[:, 0:3], tab[:, 3:6], tab[:, 6:9]
+    keep = torch.linalg.cross(e1, e2).norm(dim=1) > 1e-6
+    return v0[keep], e1[keep], e2[keep]
+
+
+def _built_case(clusters, b, dirs, t_max, origins):
+    """Slot-entry arguments of rays from origins (P, 3), every pixel a hit
+    pixel: b and dirs (S, 3, P), t_max (S, P)."""
+    slots, _, pixels = b.shape
+    out = torch.full((3 + 7 * slots, pixels), 0.25)
+    rest = out[3:].view(slots, 7, pixels)
+    rest[:, 0:3] = b
+    rest[:, 3:6] = dirs
+    rest[:, 6] = t_max
+    lo, hi = scene_box(clusters)
+    device = clusters.planes.device
+    return (out.to(device), slots, torch.ones(pixels, dtype=torch.bool,
+                                              device=device),
+            origins.T.contiguous().to(device).T, ((lo + hi) / 2).to(device),
+            torch.full((pixels, 3), 0.125, device=device))
+
+
+def packet_case(clusters, case: str, seed: int):
+    """K1's slot-entry arguments after the clusters (out, slots, hit,
+    position, cam, base0) of one of PACKET_CASES, on the clusters' device:
+    - slots_S: slot_inputs with S slots (1,000 pixels; 250 for S = 130);
+    - dead_packets: slot_inputs with CASE_SLOTS slots, every slot of a
+      third of the pixels dead and the first group's slots of another
+      third;
+    - first_triangle: each pixel 1 cm above the centroid of a triangle of
+      the clusters, its even slots straight down onto it (occluded at
+      t = 1 cm) and its odd slots straight up, both ending at 2 cm;
+    - opposite_lights: pixels near the ground of the scene's box, their
+      even slots toward a square light past its -x side and their odd
+      slots toward one past its +x side, above the roofs, each ray ending
+      at its point on the light."""
+    g = torch.Generator().manual_seed(seed)
+    if case.startswith("slots_"):
+        slots = int(case.split("_")[1])
+        return slot_inputs(clusters, slots, 250 if slots > 100 else 1000,
+                           seed)
+    if case == "dead_packets":
+        args = slot_inputs(clusters, CASE_SLOTS, CASE_PIXELS, seed)
+        rest = args[0][3:].view(CASE_SLOTS, 7, CASE_PIXELS)
+        pixel = torch.arange(CASE_PIXELS, device=rest.device)
+        rest[:, 0:3, pixel % 3 == 0] = 0.0
+        rest[:CASE_SLOTS // 8, 0:3, pixel % 3 == 1] = 0.0
+        return args
+    b = 0.5 + torch.rand((CASE_SLOTS, 3, CASE_PIXELS), generator=g)
+    even = (torch.arange(CASE_SLOTS) % 2 == 0)[:, None, None]
+    if case == "first_triangle":
+        v0, e1, e2 = _triangles(clusters)
+        pick = torch.randint(v0.shape[0], (CASE_PIXELS,), generator=g)
+        normal = torch.linalg.cross(e1[pick], e2[pick])
+        normal = normal / normal.norm(dim=1, keepdim=True)
+        origins = v0[pick] + (e1[pick] + e2[pick]) / 3.0 + 0.01 * normal
+        up = normal.T[None].expand(CASE_SLOTS, 3, CASE_PIXELS)
+        dirs = torch.where(even, -up, up)
+        t_max = torch.full((CASE_SLOTS, CASE_PIXELS), 0.02)
+        return _built_case(clusters, b, dirs, t_max, origins)
+    assert case == "opposite_lights", case
+    lo, hi = scene_box(clusters)
+    extent = hi - lo
+    origins = lo + torch.rand((CASE_PIXELS, 3), generator=g) \
+        * extent * torch.tensor([1.0, 1.0, 0.2])
+    centre = (lo + hi) / 2
+    lights = torch.stack([
+        torch.stack([lo[0] - 0.1 * extent[0], centre[1], hi[2] + 2.0]),
+        torch.stack([hi[0] + 0.1 * extent[0], centre[1], hi[2] + 2.0])])
+    on_light = lights[(~even[:, 0, 0]).long()][:, :, None] \
+        + (torch.rand((CASE_SLOTS, 3, CASE_PIXELS), generator=g) - 0.5) \
+        * torch.tensor([3.0, 3.0, 0.0])[:, None]
+    to_light = on_light - origins.T[None]
+    t_max = to_light.norm(dim=1)
+    return _built_case(clusters, b, to_light / t_max[:, None], t_max,
+                       origins)

@@ -9,7 +9,8 @@ loop on the CPU, on the cornell stand-in at 32x32 and 4 spp.
   and the reference with its records in bfloat16 does not.
 - The frame counters: shadow.rays is 2 x spp x P a frame (two samples a
   sample_count under MIS, each with a slot); shadow.live_rays is the
-  count of t_max >= 0 in the megabatch of the frame's slot planes.
+  count of t_max >= 0 in the megabatch of the frame's slot planes, and
+  shadow.packets that of the packets of K1's slot entry holding one.
 - With tracing off the counters stay untouched, and the frame is
   bit-equal to the frame with tracing on; on, the shadow rays and their
   combine are one span, "shadow", with no "shadowrays" stage and nothing
@@ -174,6 +175,12 @@ def test_the_counters_count_the_megabatch(arcade, monkeypatch):
     live = sum(int((t_max >= 0).sum()) for t_max in seen)
     assert counters["shadow.live_rays"] == live
     assert 0 < live < 3 * 2 * SPP * p
+    slots = 2 * SPP
+    width = trace_kernel.packet_width(slots)
+    packets = sum(int(trace_kernel.slot_packets(t_max >= 0, slots, width))
+                  for t_max in seen)
+    assert counters["shadow.packets"] == packets
+    assert live / width <= packets <= live
     # tools/frame_spans.py's reading of them.
     read = frame_spans.frame_counters({}, counters, 3)
     assert read["shadow.rays"] == 2 * SPP * p
@@ -188,6 +195,7 @@ def test_off_the_counters_stay_and_the_frame_is_the_traced_frame(arcade):
     untraced = _frame(app, SEED)
     assert "shadow.rays" not in trace.RECORDER.counters
     assert "shadow.live_rays" not in trace.RECORDER.counters
+    assert "shadow.packets" not in trace.RECORDER.counters
     assert not trace.RECORDER.spans
     trace.enable()
     try:

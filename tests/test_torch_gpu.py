@@ -10,12 +10,12 @@ that tolerance); the shading-path dispatch by the launch counters
 sweep frames' sizes; and the program's spans: their device time against
 the frame's, and no device operation of their own; the shadow counters,
 read at retire with no host wait; K1's slot entry against its plain
-version. tests/test_torch_gpu_frames.py holds the harness's sweep and
-arcade frames, tests/test_torch_gpu_tools.py the tools. Marked gpu: they
-skip where torch.cuda.is_available() is False. These files import only
-the port (no JAX, nothing of the JAX package), so on a machine with a
-card and no JAX they run without the repository's conftest, as the one
-on-card check of the port:
+version, at every packet width. tests/test_torch_gpu_frames.py holds the
+harness's sweep and arcade frames, tests/test_torch_gpu_tools.py the
+tools. Marked gpu: they skip where torch.cuda.is_available() is False.
+These files import only the port (no JAX, nothing of the JAX package),
+so on a machine with a card and no JAX they run without the repository's
+conftest, as the one on-card check of the port:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu*.py
@@ -37,7 +37,8 @@ import pytest
 import torch
 
 from _torch_gpu_fixtures import built, data_dir, jax_free  # noqa: F401
-from _torch_slot_inputs import occluded_slot, slot_inputs
+from _torch_slot_inputs import (PACKET_CASES, occluded_slot, packet_case,
+                                slot_inputs)
 from vulkan_renderer_tpu_torch.assets.noise import white_noise_table
 from vulkan_renderer_tpu_torch.core import trace
 from vulkan_renderer_tpu_torch.core.settings import (
@@ -583,11 +584,12 @@ def test_dispatch_has_no_host_wait(request, tmp_path, case):
 
 def test_shadow_counters_on_the_card(tmp_path, monkeypatch):
     """With tracing on, K4 + K1 frames count their shadow rays (slots x
-    pixels) and the live ones among them (t_max >= 0, counted by K1's
-    slot entry) with no synchronizing call in the dispatch: the live count
-    reaches the host through pinned memory and is read when its frame
-    retires. The expected counts are the plain megabatch's of the slot
-    planes each frame handed K1."""
+    pixels), the live ones among them (t_max >= 0) and the packets that
+    hold one (both counted by K1's slot entry) with no synchronizing call
+    in the dispatch: the device counts reach the host through pinned
+    memory and are read when their frame retires. The expected counts are
+    the plain version's, from the megabatch of the slot planes each frame
+    handed K1."""
     from vulkan_renderer_tpu_torch.core import app as app_module
     from vulkan_renderer_tpu_torch.tools import host_waits
     app = _sweep_application(tmp_path, True)
@@ -614,6 +616,11 @@ def test_shadow_counters_on_the_card(tmp_path, monkeypatch):
     assert counters["shadow.live_rays"] == sum(int((t >= 0).sum())
                                                for t in t_max)
     assert 0 < counters["shadow.live_rays"] < counters["shadow.rays"]
+    plain = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for args in seen:
+        tk.trace_anyhit_slots_plain(*args, *plain)
+    assert counters["shadow.live_rays"] == int(plain[0])
+    assert counters["shadow.packets"] == int(plain[1]) > 0
     trace.RECORDER.clear()
     trace.reset_counters()
 
@@ -640,6 +647,30 @@ def test_anyhit_slots_entry_matches_plain(city, slots):
     t_max = tk.shadow_megabatch(out, slots, hit, position, cam)[2]
     assert int(live) == int((t_max >= 0).sum())
     assert 0 < int(live) < t_max.numel()
+
+
+@pytest.mark.parametrize("packet", tk.PACKET_WIDTHS)
+@pytest.mark.parametrize("case", PACKET_CASES)
+def test_anyhit_slot_packets_match_plain(city, case, packet):
+    """K1's slot entry at each packet width against its plain version on
+    the packet cases over the city (tests/_torch_slot_inputs.py
+    packet_case: S = 1, 7, 13 and 130, whose slot groups are no multiple
+    of the wider packets; whole packets dead; rays of one packet occluded
+    by the triangle under the pixel beside rays that never are; rays of
+    one packet toward both sides of the scene): colors bit for bit, and
+    the live rays and the packets that hold one as the plain version
+    counts them."""
+    scene, _ = city
+    clusters = scene.clusters
+    args = packet_case(clusters, case, 2**31 + 23)
+    got_counts, want_counts = (torch.zeros(2, dtype=torch.int32,
+                                           device="cuda") for _ in range(2))
+    got = tk.trace_anyhit_slots(clusters, *args, *got_counts, packet=packet)
+    want = tk.trace_anyhit_slots_plain(clusters, *args, *want_counts,
+                                       packet=packet)
+    assert kernel_check.bit_mismatches(got, want) == 0
+    assert got_counts.tolist() == want_counts.tolist()
+    assert int(got_counts[0]) > 0
 
 
 @pytest.mark.parametrize("case", ["city_64x32", "bench_960x540"])

@@ -4,7 +4,8 @@ on five timing-sweep cells at 1920x1080, one for each light vertex count
 (the two sweep cells and three holding cells); K4, K2 and K1 on the
 arcade's heptagon frames at 1024x1024, the one scene of the harness whose
 triangles are not axis-aligned; K1's slot entry on the benchmark's arcade
-frame (experiment 316, 128 shadow slots a pixel); the timing-sweep
+frame (experiment 316, 128 shadow slots a pixel) at every packet width;
+the timing-sweep
 experiments through the harness (K5 runs, K4 does not); the bench frame
 on the kernel path against the per-pixel path; the experiments that only
 the per-pixel path renders, at their own sizes; and the harness's median
@@ -193,26 +194,42 @@ def test_arcade_tracers_match_plain(arcade_frames):
                        tk.trace_anyhit_plain(clusters, *rays))
 
 
-def test_arcade_slot_entry_matches_the_route(experiments, data_dir):
-    """K1's slot entry on the benchmark's arcade frame (experiment 316:
-    1024x1024, 64 spp, 128 shadow slots a pixel): bit for bit as the ray
-    list route (the plain megabatch, the ray-list K1 and the plain
-    combine) on every pixel and as its plain version on 4,096 pixels; the
-    live rays it counts are the megabatch's (t_max >= 0)."""
+@pytest.fixture(scope="module")
+def arcade_slots(experiments, data_dir):
+    """K1's slot-entry arguments on the benchmark's arcade frame
+    (experiment 316), the ray-list route's colors there (the plain
+    megabatch, the ray-list K1 and the plain combine) and its live rays."""
     _, captured = _capture(data_dir, experiments[316])
     args = captured["trace_anyhit_slots"][:7]
     clusters, out, slots, hit, position, cam, base0 = args
-    live = torch.zeros((), dtype=torch.int32, device="cuda")
-    got = tk.trace_anyhit_slots(*args, live)
     rays = tk.shadow_megabatch(out, slots, hit, position, cam)
-    live_want = int((rays[2] >= 0.0).sum())
+    live = rays[2] >= 0.0
     want = tk.shadow_combine(out, slots, tk.trace_anyhit(clusters, *rays),
                              base0)
-    del rays
+    return captured, want, live
+
+
+@pytest.mark.parametrize("packet", tk.PACKET_WIDTHS)
+def test_arcade_slot_entry_matches_the_route(arcade_slots, packet):
+    """K1's slot entry on the benchmark's arcade frame (experiment 316:
+    1024x1024, 64 spp, 128 shadow slots a pixel) at each packet width:
+    bit for bit as the ray-list route on every pixel and as its plain
+    version on 4,096 pixels; the live rays it counts are the megabatch's
+    (t_max >= 0), and the packets that hold one are slot_packets' count
+    of them."""
+    captured, want, live = arcade_slots
+    args = captured["trace_anyhit_slots"][:7]
+    slots = args[2]
+    counts = torch.zeros(2, dtype=torch.int32, device="cuda")
+    got = tk.trace_anyhit_slots(*args, *counts, packet=packet)
     assert kernel_check.bit_mismatches(got, want) == 0
-    assert int(live) == live_want
-    row, _ = kernel_check.hold_slot_entry(captured)
-    assert row["bit_mismatches"] == 0, row
+    assert int(counts[0]) == int(live.sum())
+    assert int(counts[1]) == int(tk.slot_packets(live, slots, packet))
+    sub = kernel_check.slot_args_subset(args, kernel_check.subset_indices(
+        kernel_check.PIXEL_SUBSET, args[1].shape[1], args[1].device))
+    assert kernel_check.bit_mismatches(
+        tk.trace_anyhit_slots(*sub, packet=packet),
+        tk.trace_anyhit_slots_plain(*sub)) == 0
 
 
 # --- the bench frame on both shading paths ----------------------------------

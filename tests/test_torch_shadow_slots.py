@@ -13,8 +13,12 @@ multiple of 32; miss pixels, dead slots), and the bench frame and the
 arcade frame as the pipeline hands them over. A miss pixel's rays start
 at the camera, a dead slot adds its zero weight whatever its direction,
 and a NaN weight in an occluded slot gives a NaN color (the product, not
-a skip). The kernel itself runs on the card, bit for bit against this
-plain version (tests/test_torch_gpu.py)."""
+a skip). The packets that hold a live ray, which the plain version
+counts from the megabatch for each packet width, are held against a
+count built group by group apart from it; the packet width fits a slot
+group; and the cases the kernel's packets are held on at every width
+provoke what they are named for. The kernel itself runs on the card,
+bit for bit against this plain version (tests/test_torch_gpu.py)."""
 
 import dataclasses
 import os
@@ -22,8 +26,10 @@ import os
 import pytest
 import torch
 
-from _torch_slot_inputs import (assert_sums_agree, occluded_slot,
-                                slot_inputs, slot_rays, summed_route)
+from _torch_slot_inputs import (CASE_SLOTS, PACKET_CASES,
+                                assert_sums_agree, occluded_slot,
+                                packet_case, slot_inputs, slot_rays,
+                                summed_route)
 from vulkan_renderer_tpu_torch.core.app import (Application,
                                                 SceneSpecification)
 from vulkan_renderer_tpu_torch.experiments import harness as experiments
@@ -87,6 +93,76 @@ def test_the_entry_is_the_ray_list_route(city, slots):
     exact = base0.double() + out[0:3].T.double() \
         + (b * visibility).sum(dim=0).T
     torch.testing.assert_close(got.double(), exact, rtol=1e-6, atol=0.0)
+
+
+def packets_apart(out, slots: int, packet: int) -> int:
+    """The packets of `packet` slots that hold a live ray (b not zero in
+    every channel, t_max >= 0), counted slot group by slot group, packet
+    by packet."""
+    pixels = out.shape[1]
+    rest = out[3:].view(slots, 7, pixels)
+    live = (rest[:, 0:3] != 0.0).any(dim=1) & (rest[:, 6] >= 0.0)
+    count, per_group = tk.slot_groups(slots)
+    total = 0
+    for g in range(count):
+        end = min(slots, (g + 1) * per_group)
+        for start in range(g * per_group, end, packet):
+            total += int(live[start:min(start + packet, end)].any(dim=0)
+                         .sum())
+    return total
+
+
+@pytest.mark.parametrize("packet", tk.PACKET_WIDTHS)
+@pytest.mark.parametrize("slots", [1, 13, 128])
+def test_packets_are_counted_as_built_apart(city, slots, packet):
+    clusters = city.clusters
+    pixels = PIXELS if slots < 128 else 250
+    args = slot_inputs(clusters, slots, pixels, SEED + slots)
+    live, packets = (torch.zeros((), dtype=torch.int32) for _ in range(2))
+    tk.trace_anyhit_slots(clusters, *args, live, packets, packet=packet)
+    want = packets_apart(args[0], slots, packet)
+    assert int(packets) == want
+    assert int(live) / packet <= want <= int(live)
+    # Packets of more than one slot hold more than one live ray.
+    per_group = tk.slot_groups(slots)[1]
+    assert (want < int(live)) == (packet > 1 and per_group > 1)
+
+
+@pytest.mark.parametrize("slots", [1, 7, 8, 13, 16, 64, 128, 130])
+def test_the_packet_width_fits_a_slot_group(slots):
+    width = tk.packet_width(slots)
+    per_group = tk.slot_groups(slots)[1]
+    assert width in tk.PACKET_WIDTHS
+    assert width == min(tk.PACKET, max(
+        w for w in tk.PACKET_WIDTHS if w <= per_group))
+
+
+@pytest.mark.parametrize("case", ["dead_packets", "first_triangle",
+                                  "opposite_lights"])
+def test_packet_cases_part_as_named(city, case):
+    """The built cases of the packet tests: whole packets of dead slots;
+    packets whose even slots are occluded by the triangle under the pixel
+    and whose odd slots never are; packets toward both sides of the scene,
+    some rays occluded and some not in one packet."""
+    clusters = city.clusters
+    out, slots, hit, position, cam, base0 = packet_case(clusters, case,
+                                                        SEED)
+    assert slots == CASE_SLOTS
+    rays = slot_rays(out, slots, hit, position, cam)
+    live = (rays[2] >= 0.0).reshape(slots, -1)
+    occluded = tk.trace_anyhit_plain(clusters, *rays).reshape(slots, -1)
+    if case == "dead_packets":
+        assert not live[:, 0::3].any() and not live[:8, 1::3].any()
+        assert live[8:, 1::3].any(dim=0).all()
+        return
+    assert live.all()
+    if case == "first_triangle":
+        assert occluded[0::2].all() and not occluded[1::2].any()
+        return
+    assert bool((rays[1].reshape(slots, -1, 3)[0::2, :, 0] < 0).all())
+    mixed = occluded.reshape(8, 8, -1).any(dim=1) \
+        & ~occluded.reshape(8, 8, -1).all(dim=1)
+    assert int(mixed.sum()) > 10
 
 
 def test_miss_pixels_start_at_the_camera(city):

@@ -42,9 +42,10 @@ Counters. count(name) adds to an integer and is always on: the kernel
 wrappers count their launches ("K1.launches" ... "K6.launches",
 launch_counts()). frame_count(name, value) counts only while tracing is
 on, as the spans record: render/pipeline.py counts the shadow rays of a
-frame ("shadow.rays", slots x pixels, known on the host) and those of
-them that are live ("shadow.live_rays", t_max >= 0, counted on the
-device by K1's slot entry, one atomic per warp).
+frame ("shadow.rays", slots x pixels, known on the host), those of them
+that are live ("shadow.live_rays", t_max >= 0) and the packets of K1's
+slot entry that hold a live ray ("shadow.packets"), the last two counted
+on the device by K1's slot entry, one atomic per warp each.
 A device count is read when its frame retires, as the spans' device ms
 are: on a CUDA device it is copied to pinned host memory in stream order
 inside the frame, so reading it adds no host wait.

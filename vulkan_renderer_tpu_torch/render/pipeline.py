@@ -38,8 +38,9 @@ trace it with the ray-list K1, the JAX package's stages, which a whole
 frame does not, so their times are not prefixes of its time. Each stage a
 frame passes is a span of core/trace.py under its STAGES name, and the
 resolve one named "resolve". While tracing is on, a full shadowed frame's
-"shadow" stage counts its shadow rays ("shadow.rays", slots x P) and the
-live ones ("shadow.live_rays", counted by K1 on the device).
+"shadow" stage counts its shadow rays ("shadow.rays", slots x P), the
+live ones ("shadow.live_rays") and K1's packets that hold a live ray
+("shadow.packets"), the last two counted by K1 on the device.
 
 Everything between the kernels is plain PyTorch on the scene's device.
 """
@@ -345,14 +346,16 @@ def render_frame_constants(scene, static: SceneStatic,
             occluded = kernels.trace_anyhit(scene.clusters, *rays)
         return _stage_stub(width, height, base0, out, occluded)
     with trace.span("shadow"):
-        live = None
+        counts = (None, None)
         if trace.enabled():
             trace.frame_count("shadow.rays", slots * p)
-            live = torch.zeros((), dtype=torch.int32, device=out.device)
+            counts = torch.zeros(2, dtype=torch.int32, device=out.device)
         colors = kernels.trace_anyhit_slots(scene.clusters, out, slots, hit,
-                                            data.position, cam, base0, live)
-        if live is not None:
-            trace.frame_count("shadow.live_rays", live)
+                                            data.position, cam, base0,
+                                            *counts)
+        if counts[0] is not None:
+            trace.frame_count("shadow.live_rays", counts[0])
+            trace.frame_count("shadow.packets", counts[1])
     with trace.span("resolve"):
         return _resolve(colors, constants, settings, width, height)
 

@@ -7,9 +7,10 @@ Replaces the Pallas kernels of vulkan_renderer_tpu/render/trace_kernel.py:
   any-hit, division-free Moeller-Trumbore (:676-692) over every triangle
   of each cluster whose box passes, t in [t_min, t_max], no backface
   culling, t_max < 0 marks a dead ray. trace_anyhit_slots, K1's entry on
-  the frame's path, reads the rays in place from K4's slot planes and
-  returns the combined colors; its plain version is the ray list
-  (shadow_megabatch), trace_anyhit_plain and shadow_combine.
+  the frame's path, reads the rays in place from K4's slot planes, traces
+  a pixel's slots in packets of rays from one origin and returns the
+  combined colors; its plain version is the ray list (shadow_megabatch),
+  trace_anyhit_plain and shadow_combine.
 - K2 trace_closest (csrc/closest.cu) <- _closest_pass_one (:949): primary
   closest hit, reciprocal-det Moeller-Trumbore (:1013-1028), the
   lexicographic minimum of (t, primitive id), so ties keep the lower id.
@@ -197,11 +198,12 @@ _K1_FUNCTIONS = {
     "k1_anyhit_slots": [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,      # out, S, P
         ctypes.c_int, ctypes.c_int,                       # groups, per group
+        ctypes.c_int,                                     # packet width
         ctypes.c_void_p, ctypes.c_void_p,                 # hit, positions
         ctypes.c_void_p, ctypes.c_void_p]                 # cam, base0
     + _CLUSTER_ARGTYPES + [
         ctypes.c_void_p, ctypes.c_void_p,                 # colors, live
-        ctypes.c_void_p]}                                 # stream
+        ctypes.c_void_p, ctypes.c_void_p]}                # packets, stream
 _K2_ARGTYPES = _RAY_ARGTYPES + _CLUSTER_ARGTYPES + [
     ctypes.c_void_p, ctypes.c_void_p,                   # t, prim
     ctypes.c_void_p, ctypes.c_void_p]                   # counts, stream
@@ -277,6 +279,27 @@ def trace_anyhit(clusters: Clusters, origins, dirs, t_max,
 SLOT_GROUPS = 8
 
 
+# The slots a lane of K1's slot entry traces as one packet: rays of one
+# pixel from one origin, which walk the tree once, load each triangle once
+# and share its origin terms (csrc/anyhit.cu). The kernel is built for
+# each width of PACKET_WIDTHS; on the arcade frame (16 slots a group, one
+# cluster) 8 ran fastest, then 4 and 2 (PERF.md section 6).
+PACKET_WIDTHS = (1, 2, 4, 8)
+PACKET = 8
+
+
+def packet_width(slots: int) -> int:
+    """The packet width K1's slot entry takes: PACKET, or the widest of
+    PACKET_WIDTHS that a slot group of slot_groups(slots) fills, where a
+    group holds fewer slots. A packet wider than its group carries only
+    dead lanes: the 960x540 bench frame (one slot a group) ran its slot
+    entry in 3.65 ms at width 1 and 6.4-19.6 ms at 2-8, and at 4 spp (4
+    slots a group) in 13.0 ms at 4, 14.4 at 1 and 22.3 at 8 (PERF.md
+    section 6)."""
+    widest = min(PACKET, max(slot_groups(slots)[1], 1))
+    return max(w for w in PACKET_WIDTHS if w <= widest)
+
+
 def slot_groups(slots: int):
     """(groups, slots a group): at most SLOT_GROUPS groups of consecutive
     slots, all as large as the first, the last holding the rest; (1, 0)
@@ -328,31 +351,63 @@ def shadow_combine(out, slots: int, occluded, base0):
     return (base0 + out[0:3].T) + total.T
 
 
+def slot_packets(live, slots: int, packet: int):
+    """The packets of K1's slot entry that hold a live ray, as a 0-dim
+    int32 tensor: live (S P,) bool in megabatch order (every pixel's slot
+    0, then slot 1, ...); a lane takes each group of slot_groups(slots)
+    `packet` consecutive slots at a time, the last packet of a group
+    holding the rest."""
+    if slots == 0:
+        return live.new_zeros((), dtype=torch.int32)
+    p = live.numel() // slots
+    count, per_group = slot_groups(slots)
+    per = -(-per_group // packet)                       # packets a group
+    s = torch.arange(slots, device=live.device)
+    ids = (s // per_group) * per + (s % per_group) // packet
+    held = live.reshape(slots, p).to(torch.int32)
+    rays = held.new_zeros((count * per, p)).index_add_(0, ids, held)
+    return (rays > 0).sum(dtype=torch.int32)
+
+
 def trace_anyhit_slots_plain(clusters: Clusters, out, slots: int, hit,
                              position, cam, base0, live_rays=None,
-                             t_min: float = T_MIN):
+                             packets=None, t_min: float = T_MIN,
+                             packet: int | None = None):
     """Plain version of K1's slot entry: shadow_megabatch, then
-    trace_anyhit_plain, then shadow_combine. live_rays, where given (a
-    0-dim int32 tensor), gains the rays with t_max >= 0."""
+    trace_anyhit_plain, then shadow_combine. live_rays and packets, where
+    given (0-dim int32 tensors), gain the rays with t_max >= 0 and the
+    packets of `packet` slots (default packet_width(slots)) that hold one
+    (slot_packets)."""
     rays = shadow_megabatch(out, slots, hit, position, cam)
     if live_rays is not None:
         live_rays += (rays[2] >= 0.0).sum(dtype=torch.int32)
+    if packets is not None:
+        packets += slot_packets(rays[2] >= 0.0, slots,
+                                packet or packet_width(slots))
     occluded = trace_anyhit_plain(clusters, *rays, t_min)
     return shadow_combine(out, slots, occluded, base0)
 
 
 def trace_anyhit_slots(clusters: Clusters, out, slots: int, hit, position,
-                       cam, base0, live_rays=None, t_min: float = T_MIN):
+                       cam, base0, live_rays=None, packets=None,
+                       t_min: float = T_MIN, packet: int | None = None):
     """K1 on the frame's shadow rays, read in place from K4's output, with
     the combine: out (3 + 7 slots, P) as K4 exports it, hit (P,) bool,
     position (P, 3) the shading points (a view of K6's position rows:
     position.T is contiguous), cam (3,), base0 (P, 3) -> colors (P, 3),
-    (base0 + base) + sum_slot b V. live_rays: None, or a 0-dim int32
-    tensor that gains the live rays (t_max >= 0). CPU tensors take
-    trace_anyhit_slots_plain; CUDA tensors launch K1's slot entry."""
+    (base0 + base) + sum_slot b V. live_rays and packets: None, or 0-dim
+    int32 tensors that gain the live rays (t_max >= 0) and the packets
+    that hold one. packet: the slots a lane traces together (one of
+    PACKET_WIDTHS; default packet_width(slots)); the colors do not depend
+    on it. CPU tensors take trace_anyhit_slots_plain; CUDA tensors launch
+    K1's slot entry."""
+    packet = packet or packet_width(slots)
+    if packet not in PACKET_WIDTHS:
+        raise ValueError(f"packet width {packet} not in {PACKET_WIDTHS}")
     if out.device.type == "cpu":
         return trace_anyhit_slots_plain(clusters, out, slots, hit, position,
-                                        cam, base0, live_rays, t_min)
+                                        cam, base0, live_rays, packets,
+                                        t_min, packet)
     build.require_cuda(out, hit, position, cam, base0, clusters.planes)
     p = out.shape[1]
     build.check_tensor(out, "out", torch.float32, (3 + 7 * slots, p))
@@ -361,21 +416,22 @@ def trace_anyhit_slots(clusters: Clusters, out, slots: int, hit, position,
     build.check_tensor(cam, "cam", torch.float32, (3,))
     build.check_tensor(base0, "base0", torch.float32, (p, 3))
     colors = torch.empty((p, 3), dtype=torch.float32, device=out.device)
-    live = None
-    if live_rays is not None:
-        build.require_cuda(out, live_rays)
-        build.check_tensor(live_rays, "live_rays", torch.int32, ())
-        live = build.ptr(live_rays)
+    counters = []
+    for name, counter in (("live_rays", live_rays), ("packets", packets)):
+        if counter is not None:
+            build.require_cuda(out, counter)
+            build.check_tensor(counter, name, torch.int32, ())
+        counters.append(None if counter is None else build.ptr(counter))
     if p == 0:
         return colors
     count, per_group = slot_groups(slots)
     lib = build.load_library("anyhit", _K1_FUNCTIONS)
     with torch.cuda.device(out.device):
         err = lib.k1_anyhit_slots(
-            build.ptr(out), slots, p, count, per_group, build.ptr(hit),
-            build.ptr(position.T), build.ptr(cam), build.ptr(base0),
-            *_cluster_args(clusters, t_min), build.ptr(colors), live,
-            build.stream(out.device))
+            build.ptr(out), slots, p, count, per_group, packet,
+            build.ptr(hit), build.ptr(position.T), build.ptr(cam),
+            build.ptr(base0), *_cluster_args(clusters, t_min),
+            build.ptr(colors), *counters, build.stream(out.device))
     build.check_launch(err, "k1_anyhit_slots")
     trace.count("K1.launches")
     return colors

@@ -17,6 +17,7 @@ on one card:
 
     python3 vulkan_renderer_tpu_torch/tools/bench_frame.py \
         [--root DIR] [--data DIR] [--sweep] [--count-tests] [--kernels]
+        [--packets]
 
 It builds the bench frame's kernel libraries (K1-K4), writes or reuses
 the bench city under --data, and prints one JSON line: the root, the
@@ -40,8 +41,10 @@ frame's inputs, the device memory allocated before a frame and at its
 peak (torch.cuda.max_memory_allocated), and the hit share. With
 --kernels it prints a second JSON line, the kernels line (kernels_line:
 each kernel's launches, ms, plain version's ms and bound; PERF.md's
-kernel table), which needs a tree with K1's slot entry. Without
---kernels it uses only the entry points that every tree of the port has
+kernel table), which needs a tree with K1's slot entry; with --packets,
+a last JSON line: K1's slot entry at each packet width on the bench and
+arcade frames (packets_line), which needs a tree with packets. Without
+either it uses only the entry points that every tree of the port has
 had since the timing sweep was first ported. It imports no JAX.
 """
 
@@ -71,6 +74,12 @@ ARCADE_VERTEX_COUNT = 7
 # The kernels line's sweep frames: the central 4-gon 128-light PSA cell
 # (K5's row) and the 1-light 1920x1080 heptagon cell (K6's row).
 PSA_SWEEP_EXPERIMENT, PREAMBLE_EXPERIMENT = 113, 282
+# The benchmark's arcade frame (1024x1024, 128 shadow slots a pixel), on
+# which --packets times K1's slot entry beside the bench frame.
+ARCADE_EXPERIMENT = 316
+# --packets also times the bench frame at this many samples a pixel, where
+# a slot group of K1's slot entry holds 4 slots.
+PACKET_SPP = 4
 
 # The kernels line's bounds: bytes over the H100 SXM's device memory rate
 # or float32 operations over its rate outside the tensor cores, whichever
@@ -725,6 +734,61 @@ def kernels_line(torch, data_dir, scene, static, s, captured):
     return [rows[name] for name in ("K1", "K2", "K3", "K4", "K5", "K6")]
 
 
+def packets_line(torch, data_dir, scene, static, captured):
+    """K1's slot entry at each packet width (trace_kernel.PACKET_WIDTHS)
+    on the bench frame (`captured`), on the bench frame at PACKET_SPP
+    samples a pixel (a group of 4 slots) and on the arcade frame
+    (ARCADE_EXPERIMENT): per frame its live rays and the width
+    packet_width chooses there, and per width the ms (CUDA events), the
+    packets that hold a live ray, their fill (live rays over packets x
+    width), and the colors' bit mismatches against the chosen width on the
+    whole frame and against the plain version on kernel_check's pixel
+    subset; and the slot entry's ptxas rows (registers, spills, resident
+    warps of an SM at SLOT_GROUPS warps a block) where this process built
+    the library."""
+    from vulkan_renderer_tpu_torch.experiments import harness
+    from vulkan_renderer_tpu_torch.kernels import build
+    from vulkan_renderer_tpu_torch.render import trace_kernel as tk
+    from vulkan_renderer_tpu_torch.tools import kernel_check
+    arcade = experiment_frame(torch, data_dir, harness.create_experiment_list()
+                              [ARCADE_EXPERIMENT])[1]()
+    denser = capture_inputs(scene, static, settings(spp=PACKET_SPP))
+    out = {}
+    for name, frame in (("bench", captured),
+                        (f"bench_{PACKET_SPP}spp", denser),
+                        ("arcade", arcade)):
+        args = frame["trace_anyhit_slots"][:7]
+        sub = kernel_check.slot_args_subset(args, kernel_check.subset_indices(
+            kernel_check.PIXEL_SUBSET, args[1].shape[1], args[1].device))
+        plain = tk.trace_anyhit_slots_plain(*sub)
+        chosen = tk.trace_anyhit_slots(*args)
+        row = {"packet_width": tk.packet_width(args[2])}
+        for width in tk.PACKET_WIDTHS:
+            counts = torch.zeros(2, dtype=torch.int32, device=args[1].device)
+            colors = tk.trace_anyhit_slots(*args, *counts, packet=width)
+            live, packets = counts.tolist()
+            row["live_rays"] = live
+            row[width] = {
+                "ms": round(cuda_ms(torch, lambda: tk.trace_anyhit_slots(
+                    *args, packet=width), 5), 4),
+                "packets": packets,
+                "fill": round(live / (packets * width), 5) if packets
+                else None,
+                "bit_mismatches": kernel_check.bit_mismatches(colors,
+                                                              chosen),
+                "plain_bit_mismatches": kernel_check.bit_mismatches(
+                    tk.trace_anyhit_slots(*sub, packet=width), plain)}
+        out[name] = row
+    report = build.BUILD_REPORTS.get("anyhit")
+    out["ptxas"] = None if report is None else [
+        {**r, "warps": build.resident_warps(
+            r["registers"], 32 * tk.SLOT_GROUPS,
+            tk.SLOT_GROUPS * 3 * 32 * 4)}
+        for r in build.ptxas_table(report[1])
+        if "slots_anyhit" in r["function"]]
+    return out
+
+
 def main(argv=None) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -741,6 +805,10 @@ def main(argv=None) -> int:
                         "triangle tests on the bench frame")
     parser.add_argument("--kernels", action="store_true",
                         help="also print the kernels line (kernels_line)")
+    parser.add_argument("--packets", action="store_true",
+                        help="also print K1's slot entry at each packet "
+                        "width on the bench and arcade frames "
+                        "(packets_line)")
     parser.add_argument("--sweep-techniques", default=None,
                         help="with --sweep: 'all', or comma-separated "
                         "PolygonSamplingTechnique names (default: "
@@ -780,6 +848,8 @@ def main(argv=None) -> int:
         line["tests"] = test_counts(torch, captured)
     kernels = None if not args.kernels else kernels_line(
         torch, data_dir, scene, static, s, captured)
+    packets = None if not args.packets else packets_line(
+        torch, data_dir, scene, static, captured)
     del scene, captured
     torch.cuda.empty_cache()
     line["frame_window_ms"] = round(window_ms(
@@ -800,6 +870,8 @@ def main(argv=None) -> int:
     print(json.dumps(line), flush=True)
     if kernels is not None:
         print(json.dumps({"kernels": kernels, "card": card}), flush=True)
+    if packets is not None:
+        print(json.dumps({"packets": packets, "card": card}), flush=True)
     return 0
 
 

@@ -60,7 +60,7 @@ WARMUP = 10
 TOP = 10
 NO_SPAN = "(none)"
 # The counters render/pipeline.py keeps while tracing is on.
-COUNTERS = ("shadow.rays", "shadow.live_rays")
+COUNTERS = ("shadow.rays", "shadow.live_rays", "shadow.packets")
 
 
 # -- the spans' arithmetic (records of core/trace.py) ----------------------
